@@ -4,21 +4,32 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the paper simulation
-(`run_simulation`, host-loop engine) through them, and checks its traces
-against the same run on the CPU.  Phases, in order:
+(`run_simulation`) through them on all three engines, and checks its
+traces against the same runs on the CPU.  Phases, in order:
 
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
-  2. kernel build (nvcc, plain C interface loaded with ctypes);
+  2. kernel build (one nvcc per source, started together; plain C
+     interfaces loaded with ctypes);
   3. K2, the polyblock projection, against its plain version, float64 and
      float32, at 2 x 131072 vertices and at the main path's shape;
   4. K1, the whole Algorithm-1 solve, against its plain version, float64
      and float32, at 32768 devices x 4 sub-channels and at the main path's
      shape;
-  5. the main path: run_simulation(SimConfig(rounds=30)) — mnist MLP at
-     full width, N=20, K=4, Table-I settings, Γ through K1 — then
-     ra_solver="step" for 10 rounds through K2; launch counters, loss, and
-     tx/age traces equal to the device="cpu" run;
-  6. the kernel list as one JSON line.
+  5. K3, the eq.-34 weighted mean, against its plain version (random,
+     all-zero and single-slot weights) at the main path's shapes (the six
+     mnist-MLP leaves, K = 4) and at K = 16, N = 2^25;
+  6. the main paths, each driven with every launch counter set to 0 just
+     before it and read just after: run_simulation(SimConfig(rounds=30))
+     — mnist MLP at full width, N=20, K=4, Table-I settings, Γ through K1,
+     aggregation through K3 — on engine="loop", then ra_solver="step" for
+     10 rounds through K2, then engine="scan", then aggregation="async"
+     and "async_full" on the async engine; traces equal to the
+     device="cpu" run, losses within 1e-4 of it, and async_full bitwise
+     equal to the card's scan run; then one warm run of the loop and scan
+     engines under torch.profiler (the card's busy time and idle share)
+     and one run of each engine under torch's sync debug mode (every host
+     sync, by source line);
+  7. the kernel list as one JSON line.
 
 Any failure raises; the last line is the device JSON only when every phase
 passed.  Exits non-zero without a CUDA device or without the repository's
@@ -26,10 +37,14 @@ passed.  Exits non-zero without a CUDA device or without the repository's
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -41,9 +56,12 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import WirelessConfig, is_infeasible, total_energy  # noqa: E402
+from repro_torch.core.leader_torch import host_int  # noqa: E402
 from repro_torch.fl import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fl.sim import _prepare  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.fedavg_agg import fedavg_agg_plain, fedavg_aggregate  # noqa: E402
+from repro_torch.models.small import get_small_model  # noqa: E402
 from repro_torch.kernels.polyblock_fused.ops import (  # noqa: E402
     polyblock_solve_fused, polyblock_solve_plain)
 from repro_torch.kernels.polyblock_project.ops import (  # noqa: E402
@@ -70,16 +88,33 @@ def line(msg: str = "") -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of one call, by CUDA events around `reps` calls."""
+def time_ms(fn, reps: int, *, prefill: bool = False) -> float:
+    """Mean time of one call, by CUDA events around `reps` calls.
+
+    Without `prefill` the events also count any time the card waits for
+    the host to enqueue the next launch.  With `prefill` the card first
+    sleeps for longer than the host takes to enqueue all `reps` calls, so
+    the events see the launches back to back: the device's own time.  It
+    raises if the card reached the start event before the host had
+    finished enqueueing (the queue was not full)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if prefill:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # Clock cycles at no more than 2 GHz: the sleep lasts >= 3x host_s.
+        torch.cuda._sleep(int(host_s * 3 * 2e9) + 1_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    if prefill and start.query():
+        raise AssertionError("time_ms(prefill=True): the queue ran dry; sleep longer")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -272,52 +307,197 @@ def check_k1(beta64, h264, e64, cfg, label: str, reps: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the main path
+# K3: the eq.-34 weighted mean
 # ---------------------------------------------------------------------------
 
-def drive(cfg: SimConfig, ra_solver: str, counter) -> tuple:
-    polyblock_solve_fused.launches = 0
-    polyblock_project.launches = 0
+def k3_weight_cases(k: int, gen) -> list[tuple[str, torch.Tensor]]:
+    one = torch.zeros(k, device=DEV)
+    one[k // 2] = 7.0
+    return [("random", torch.rand(k, generator=gen, device=DEV) * 50 + 1),
+            ("all_zero", torch.zeros(k, device=DEV)), ("one_slot", one)]
+
+
+def check_k3(xs: list[torch.Tensor], label: str, reps: int, plain_reps: int) -> dict:
+    """The kernel against its plain version on each (K, N) tensor of `xs`
+    (one call per tensor, as the server calls it once per leaf), for random,
+    all-zero and single-slot weights.  Both make the same float32
+    operations in the same order, so they must agree to 1e-6 relative (and
+    in practice to the bit); all-zero weights must give exactly 0 and a
+    single non-zero slot exactly that slot.  Times are for the whole list:
+    one aggregation's launches: `ms`, `plain_ms` and `library_ms` are the
+    card's own time (queue prefilled, see `time_ms`), `host_ms` the
+    kernel's time as a caller sees it, host enqueue included.  A prefilled
+    timing keeps its launches (reps x launches per call) below ~1000, the
+    depth of the card's launch queue: past it the host blocks, and the
+    card catches up before the host has enqueued everything."""
+    gen = torch.Generator(DEV).manual_seed(len(xs))
+    k = xs[0].shape[0]
+    max_abs, bitwise = 0.0, True
+    for case, w in k3_weight_cases(k, gen):
+        for x in xs:
+            got = fedavg_aggregate(x, w)
+            want = fedavg_agg_plain(x, w)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            max_abs = max(max_abs, err)
+            bitwise &= bool(torch.equal(got, want))
+            if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
+                raise AssertionError(f"K3 {label} {case}: kernel disagrees with plain "
+                                     f"(max_abs {err:.3e})")
+            if case == "all_zero" and bool(got.any()):
+                raise AssertionError(f"K3 {label}: all-zero weights did not give 0")
+            if case == "one_slot" and not torch.equal(got, x[k // 2]):
+                raise AssertionError(f"K3 {label}: one slot did not give that slot")
+    w = k3_weight_cases(k, gen)[0][1]
+    w_hat = w / w.sum()
+    host_ms = time_ms(lambda: [fedavg_aggregate(x, w) for x in xs], reps)
+    ms = time_ms(lambda: [fedavg_aggregate(x, w) for x in xs], reps, prefill=True)
+    plain_ms = time_ms(lambda: [fedavg_agg_plain(x, w) for x in xs], plain_reps,
+                       prefill=True)
+    library_ms = time_ms(lambda: [torch.matmul(w_hat, x) for x in xs], reps, prefill=True)
+    n_total = sum(x.shape[1] for x in xs)
+    b_ms, b_by = bound_ms(2 * k * n_total, (k + 1) * n_total * 4, torch.float32)
+    line(f"K3 {label}: K={k} N={'+'.join(str(x.shape[1]) for x in xs)} launches={len(xs)} "
+         f"max_abs_err={max_abs:.3e} bitwise_equal_plain={bitwise} kernel_ms={ms:.4f} "
+         f"kernel_ms_with_host_enqueue={host_ms:.4f} "
+         f"plain_ms={plain_ms:.4f} library_ms(matmul)={library_ms:.4f} "
+         f"bound_ms={b_ms:.5f} ({b_by}) achieved_GB/s={(k + 1) * n_total * 4 / ms / 1e6:.1f}")
+    if len(xs) > 1:
+        for x in xs:
+            leaf_ms = time_ms(lambda: fedavg_aggregate(x, w), reps, prefill=True)
+            line(f"  leaf N={x.shape[1]}: kernel_ms={leaf_ms:.4f}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# the main paths
+# ---------------------------------------------------------------------------
+
+COUNTERS = {"polyblock_fused": polyblock_solve_fused,
+            "polyblock_project": polyblock_project,
+            "fedavg_agg": fedavg_aggregate}
+
+
+def run_on_card(cfg: SimConfig, **kw):
+    """One run on the card with every launch counter (and the host-read
+    counter) set to 0 just before it; returns the history, wall seconds,
+    the launch counts and the host reads of that run."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    host_int.syncs = 0
     t0 = time.perf_counter()
-    hist = run_simulation(cfg, ra_solver=ra_solver, device=DEV)
+    hist = run_simulation(cfg, device=DEV, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counter.launches
-    other = (polyblock_project if counter is polyblock_solve_fused
-             else polyblock_solve_fused).launches
+    return hist, wall, {name: fn.launches for name, fn in COUNTERS.items()}, host_int.syncs
+
+
+def max_rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300), initial=0.0))
+
+
+def drive(cfg: SimConfig, need: tuple[str, ...], **kw) -> tuple:
+    """Drive one main path on the card twice and once on the CPU; check the
+    card's run against the CPU's and that each kernel in `need` launched."""
+    hist, wall, launches, syncs = run_on_card(cfg, **kw)
+    again, warm_wall, _, _ = run_on_card(cfg, **kw)
     t0 = time.perf_counter()
-    again = run_simulation(cfg, ra_solver=ra_solver, device=DEV)
-    torch.cuda.synchronize()
-    warm_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ref = run_simulation(cfg, ra_solver=ra_solver, device="cpu")
+    ref = run_simulation(cfg, device="cpu", **kw)
     cpu_wall = time.perf_counter() - t0
-    name = "polyblock_solve_fused (K1)" if counter is polyblock_solve_fused \
-        else "polyblock_project (K2)"
-    line(f"main path ra_solver={ra_solver} rounds={cfg.rounds}: {name} launches={launches} "
-         f"(other kernel {other}); gpu wall_s first run={wall:.3f} (plan_wall_s="
-         f"{hist.plan_wall_s:.4f}), second run={warm_wall:.3f} (plan_wall_s="
-         f"{again.plan_wall_s:.4f}); cpu wall_s={cpu_wall:.3f} (plan_wall_s="
-         f"{ref.plan_wall_s:.4f})")
+    name = " ".join(f"{k}={v}" for k, v in kw.items()) or "engine=loop"
+    line(f"main path {name} aggregation={cfg.aggregation} rounds={cfg.rounds}: launches "
+         + " ".join(f"{k}={v}" for k, v in launches.items())
+         + f"; host reads={syncs} ({syncs / cfg.rounds:.2f} per round); gpu wall_s first "
+         f"run={wall:.3f} (plan_wall_s={hist.plan_wall_s:.4f}), second run={warm_wall:.3f} "
+         f"(plan_wall_s={again.plan_wall_s:.4f}); cpu wall_s={cpu_wall:.3f} "
+         f"(plan_wall_s={ref.plan_wall_s:.4f})")
     line("  loss: " + " ".join(f"{x:.4f}" for x in hist.global_loss))
     line("  acc:  " + " ".join(f"{x:.3f}" for x in hist.accuracy))
-    tx_same = np.array_equal(hist.tx_trace, ref.tx_trace)
-    age_same = np.array_equal(hist.age_trace, ref.age_trace)
-    lat_rel = float(np.max(np.abs(hist.latency_all - ref.latency_all)
-                           / np.maximum(ref.latency_all, 1e-300)))
-    line(f"  tx trace == cpu: {tx_same}; age trace == cpu: {age_same}; "
-         f"latency max_rel vs cpu: {lat_rel:.3e}; transmissions: {int(hist.tx_trace.sum())}")
-    if launches < 1:
-        raise AssertionError(f"{name} was not launched on the main path")
+    same = {f: np.array_equal(getattr(hist, f), getattr(ref, f))
+            for f in ("tx_trace", "age_trace", "commit_trace")
+            if getattr(ref, f) is not None}
+    lat_rel = max_rel(hist.latency_all, ref.latency_all)
+    loss_rel = max_rel(hist.global_loss, ref.global_loss)
+    line("  " + "; ".join(f"{f} == cpu: {v}" for f, v in same.items())
+         + f"; latency max_rel vs cpu: {lat_rel:.3e} (limit 1e-6); loss max_rel vs cpu: "
+         f"{loss_rel:.3e} (limit 1e-4); transmissions: {int(hist.tx_trace.sum())}")
+    for kernel in need:
+        if launches[kernel] < 1:
+            raise AssertionError(f"{kernel} was not launched on the main path {name}")
     if not (np.all(np.isfinite(hist.global_loss)) and hist.global_loss.shape == (cfg.rounds,)):
         raise AssertionError("losses are not finite / not one per round")
     if not hist.global_loss[-1] < hist.global_loss[0]:
         raise AssertionError("training did not lower the loss")
     if not np.array_equal(again.tx_trace, hist.tx_trace):
         raise AssertionError("two runs of the same seed on the card differ in tx")
-    if not (tx_same and age_same):
-        raise AssertionError("tx/age traces differ from the CPU run")
-    return launches, wall
+    if not all(same.values()):
+        raise AssertionError("traces differ from the CPU run")
+    if not (lat_rel <= 1e-6 and loss_rel <= 1e-4):
+        raise AssertionError("latency or loss too far from the CPU run")
+    return hist, launches
+
+
+def profile_run(cfg: SimConfig, **kw) -> None:
+    """Where a warm run's time goes: one run under torch.profiler (after an
+    unprofiled warm-up run): wall time, the card's busy time (the sum of
+    its kernels' self time; one stream, so kernels do not overlap), its
+    idle share, the kernel count, and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    run_simulation(cfg, device=DEV, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_simulation(cfg, device=DEV, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    name = " ".join(f"{k}={v}" for k, v in kw.items()) or "engine=loop"
+    if busy_ms == 0:
+        line(f"profile {name}: wall_s={wall:.3f}; device time not measured (no device events)")
+        return
+    line(f"profile {name} rounds={cfg.rounds}: wall_s={wall:.3f} (profiled) device_busy_ms="
+         f"{busy_ms:.2f} device_idle_share={1 - busy_ms / 1e3 / wall:.4f} "
+         f"kernel_launches={sum(e.count for e in kernels)}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        line(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}")
+
+
+def count_syncs(cfg: SimConfig, **kw) -> None:
+    """Every host sync of one run, as torch's sync debug mode reports them
+    (one warning per synchronizing call), by the source line that made it,
+    beside the engine's own count of its host reads (`host_int`)."""
+    host_int.syncs = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run_simulation(cfg, device=DEV, **kw)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    by_line = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+    name = " ".join(f"{k}={v}" for k, v in kw.items()) or "engine=loop"
+    line(f"syncs {name} rounds={cfg.rounds}: {len(syncs)} synchronizing calls "
+         f"({len(syncs) / cfg.rounds:.2f} per round); host_int reads={host_int.syncs}; "
+         "by source line: " + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(8)))
+
+
+def assert_bitwise(a, b, what: str) -> None:
+    """Every per-round field of two histories equal to the bit."""
+    diff = []
+    for f in dataclasses.fields(a):
+        if f.name in ("wall_s", "plan_wall_s", "commit_trace", "async_trace"):
+            continue
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if not (np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y):
+            diff.append(f.name)
+    line(f"{what}: bitwise equal in every field: {not diff}" + (f" (differ: {diff})" if diff else ""))
+    if diff:
+        raise AssertionError(f"{what}: fields differ: {diff}")
 
 
 def main() -> None:
@@ -337,13 +517,17 @@ def main() -> None:
 
     # ---- 2. kernel build --------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_polyblock()
-    info = _build.build_info()
-    line(f"build: {info['library']} nvcc_s={info['seconds']:.2f} "
-         f"(load total {time.perf_counter() - t0:.2f}s) flags: {' '.join(_build.NVCC_FLAGS)}")
-    for ln in info["log"].splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-            line("  ptxas: " + ln.strip())
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(_build.load_polyblock), pool.submit(_build.load_fedavg)]:
+            fut.result()
+    line(f"build: both libraries loaded in {time.perf_counter() - t0:.2f}s; "
+         f"flags: {' '.join(_build.NVCC_FLAGS)}")
+    for lib in ("polyblock", "fedavg_agg"):
+        info = _build.build_info(lib)
+        line(f"  {lib}: {info['library']} nvcc_s={info['seconds']:.2f}")
+        for ln in info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                line("  ptxas: " + ln.strip())
 
     cfg_w = WirelessConfig()
     to = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float64, device=DEV)
@@ -377,23 +561,52 @@ def main() -> None:
     k1_main = check_k1(to(mb), to(mh), to(me), mcfg, "main-path shape (rounds=30)",
                        reps=50)
 
-    # ---- 5. the main path -----------------------------------------------------
-    k1_launches, _ = drive(main_cfg, "fused", polyblock_solve_fused)
-    k2_launches, _ = drive(step_cfg, "step", polyblock_project)
+    # ---- 5. K3 ---------------------------------------------------------------
+    gen = torch.Generator(DEV).manual_seed(5)
+    leaves = [torch.randn((4,) + p.shape, generator=gen, device=DEV).reshape(4, -1)
+              for p in get_small_model(main_cfg.dataset).parameters()]
+    k3_main = check_k3(leaves, "main-path shape (mnist MLP leaves, one aggregation)",
+                       reps=50, plain_reps=3)
+    big = torch.randn(16, 1 << 25, generator=gen, device=DEV)
+    check_k3([big], "K=16 N=2^25", reps=20, plain_reps=2)
+    del big
 
-    # ---- 6. kernel list -----------------------------------------------------
-    src = "src/repro_torch/csrc/polyblock.cu"
+    # ---- 6. the main paths ----------------------------------------------------
+    _, loop_launches = drive(main_cfg, ("polyblock_fused", "fedavg_agg"))
+    _, step_launches = drive(step_cfg, ("polyblock_project", "fedavg_agg"), ra_solver="step")
+    scan, scan_launches = drive(main_cfg, ("polyblock_fused", "fedavg_agg"), engine="scan")
+    _, async_launches = drive(dataclasses.replace(main_cfg, aggregation="async"),
+                              ("polyblock_fused", "fedavg_agg"), engine="async")
+    full, _, _, _ = run_on_card(dataclasses.replace(main_cfg, aggregation="async_full"),
+                                engine="async")
+    assert_bitwise(full, scan, "async_full vs scan on the card")
+    profile_run(main_cfg)
+    profile_run(main_cfg, engine="scan")
+    count_syncs(main_cfg)
+    count_syncs(main_cfg, engine="scan")
+    count_syncs(dataclasses.replace(main_cfg, aggregation="async"), engine="async")
+    line("K3 launches per run_simulation: "
+         + " ".join(f"{name}={c['fedavg_agg']}" for name, c in (
+             ("loop", loop_launches), ("loop_step", step_launches),
+             ("scan", scan_launches), ("async", async_launches))))
+
+    # ---- 7. kernel list -----------------------------------------------------
     kernels = []
-    for name, replaces, launches, res in (
-            ("polyblock_fused", "src/repro/kernels/polyblock_fused/kernel.py:61",
-             k1_launches, k1_main[torch.float64]),
-            ("polyblock_project", "src/repro/kernels/polyblock_project/kernel.py:39",
-             k2_launches, k2_main[torch.float64])):
+    for name, src, replaces, launches, res in (
+            ("polyblock_fused", "src/repro_torch/csrc/polyblock.cu",
+             "src/repro/kernels/polyblock_fused/kernel.py:61",
+             loop_launches["polyblock_fused"], dict(k1_main[torch.float64], library_ms=None)),
+            ("polyblock_project", "src/repro_torch/csrc/polyblock.cu",
+             "src/repro/kernels/polyblock_project/kernel.py:39",
+             step_launches["polyblock_project"], dict(k2_main[torch.float64], library_ms=None)),
+            ("fedavg_agg", "src/repro_torch/csrc/fedavg_agg.cu",
+             "src/repro/kernels/fedavg_agg/kernel.py:22",
+             scan_launches["fedavg_agg"], k3_main)):
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=launches, max_abs_err=res["max_abs_err"],
                             ms=res["ms"], plain_ms=res["plain_ms"],
                             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
-                            library_ms=None))
+                            library_ms=res["library_ms"]))
     line(f"total wall_s={time.perf_counter() - t_all:.1f}")
     line(json.dumps({"kernels": kernels}))
     line(json.dumps({"ok": True, "device": {"platform": "gpu",

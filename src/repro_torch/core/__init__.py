@@ -10,6 +10,9 @@
   aou              -- Age-of-Update state, eqs. 6-7, NumPy copy
   selection        -- Algorithm 3 + benchmark schemes, NumPy copy
   stackelberg      -- per-round game orchestration, NumPy copy
+  leader_torch     -- the per-round leader (AoU, Algorithms 2-3) on tensors
+                      for the device engines; import it as
+                      `repro_torch.core.leader_torch`
 """
 from .aou import AoUState, aou_weights, init_aou, step_aou
 from .feasibility import feasible_mask, is_infeasible, min_comm_energy

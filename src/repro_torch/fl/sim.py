@@ -5,7 +5,7 @@ wireless network) with the learning plane (real training of the paper's
 models on seeded synthetic datasets).  One `run_simulation` call produces
 the trajectory behind one curve of Figs. 3-9.
 
-The round loop of the JAX package's `engine="loop"`, stage by stage:
+Every engine shares the same first two stages:
 
   1. NumPy world (`_prepare`): dataset and partition, topology, the whole
      channel horizon and scenario traces, and every round's injected
@@ -14,25 +14,36 @@ The round loop of the JAX package's `engine="loop"`, stage by stage:
   2. whole-horizon Γ (`_solve_horizons`): Algorithm 1 for every (round,
      sub-channel, device) pair in one batch, on kernel K1
      (`core.monotonic_torch.solve_pairs_fused`) or, with
-     `ra_solver="step"`, on the step driver over kernel K2;
-  3. per round, the NumPy Stackelberg leader (`core.stackelberg.plan_round`:
-     AoU priority, Algorithm 3 selection, Algorithm 2 matching);
-  4. local SGD of the transmitting devices on the device (`fl.client`);
-  5. eq.-34 aggregation (`fl.server.aggregate`).
+     `ra_solver="step"`, on the step driver over kernel K2.
+
+Then one of three round loops:
+
+  * engine="loop": per round, the NumPy Stackelberg leader
+    (`core.stackelberg.plan_round`), local SGD of the transmitting devices
+    (`fl.client`) and eq.-34 aggregation (`fl.server.aggregate`);
+  * engine="scan": the device-resident round loop (`_build_scan_runner`):
+    the same stages with the leader on tensors (`core.leader_torch`,
+    float32 leader plane) and every per-round trace kept on the device
+    until the run ends;
+  * engine="async": the buffered event-timeline loop (`fl.async_loop`);
+    every cell whose `SimConfig.aggregation` names an async commit policy
+    runs here, whatever `engine` says.
+
+Every aggregation is a weighted mean on kernel K3 (`kernels.fedavg_agg`)
+when the run is on the card.  Cells run one at a time; the JAX package
+batches a group's cells into one program (ROADMAP Queue 1).
 
 The learning plane's random draws all go through `training_draws`: the
 initial parameters, then one (K, local_steps, batch) block of minibatch
-uniforms per round in which some device transmits.  A `torch.Generator`
-seeded with `cfg.seed` makes them; the differential tests replace the
+uniforms per round (or event) in which some device transmits.  A CPU
+`torch.Generator` seeded with `cfg.seed` makes them, so a run on the card
+and on the CPU train on the same draws; the differential tests replace the
 function with the JAX package's exact draws.
-
-Only `engine="loop"` with synchronous aggregation is ported; the other
-engines raise `NotImplementedError` naming the ROADMAP item that ports
-them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Sequence
 
@@ -42,6 +53,7 @@ from torch.func import functional_call, grad
 
 from ..core import (RAResult, RoundPolicy, RoundRandomness, WirelessConfig,
                     init_aou, make_clusters, plan_round)
+from ..core.leader_torch import first_true, host_int
 from ..core.monotonic import fixed_ra
 from ..core.monotonic_torch import solve_pairs_fused, solve_pairs_step
 from ..data.fl_datasets import (Dataset, FLPartition, make_dataset,
@@ -52,8 +64,11 @@ from ..scenarios import (Scenario, apply_dynamics, compose_gains, get_scenario,
                          sample_churn, sample_distances, sample_energy,
                          sample_fading)
 from ..train.optimizer import make_optimizer
+from .async_loop import build_async_runner
 from .client import make_local_trainer
-from .server import aggregate
+from .engine_common import (make_eval_fn, make_leader_branches, make_xs,
+                            run_leader, train_clients)
+from .server import AsyncAggregation, aggregate, get_aggregation
 
 __all__ = ["SimConfig", "SimHistory", "run_simulation", "run_many", "TABLE1",
            "training_draws"]
@@ -64,12 +79,6 @@ TABLE1 = {
     "cifar10": dict(model_bits=5e6, e_max=0.1, lr=0.001, batch=512, optimizer="adam"),
     "sst2": dict(model_bits=5e6, e_max=0.1, lr=0.01, batch=128, optimizer="sgd"),
 }
-
-_NOT_PORTED = {
-    "scan": "ROADMAP.md Queue 1 item 2 (device leader plane and the scan engine)",
-    "async": "ROADMAP.md Queue 1 item 3 (async server half and fl/async_loop.py)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
@@ -96,7 +105,10 @@ class SimConfig:
     partition: str = "iid"             # "iid" (paper) | "dirichlet" (non-IID ext.)
     dirichlet_alpha: float = 0.5
     scenario: str | Scenario = "static"  # environment preset name or Scenario
-    aggregation: str = "sync"          # only eq.-34 "sync" is ported
+    # Server aggregation discipline: "sync" (eq. 34, round barrier) or an
+    # async preset name / `AsyncAggregation` spec (buffered staleness-
+    # weighted commits; routes the cell through engine="async").
+    aggregation: str | AsyncAggregation = "sync"
 
     def wireless(self) -> WirelessConfig:
         t1 = TABLE1[self.dataset]
@@ -134,6 +146,11 @@ class SimHistory:
     energy_all: np.ndarray | None = None    # (rounds,)
     tx_trace: np.ndarray | None = None      # (rounds, N) bool
     age_trace: np.ndarray | None = None     # (rounds, N) post-update AoU
+    # Async-engine extras (None on sync runs): `tx_trace` records
+    # DISPATCHES there and `commit_trace` the server-side commits;
+    # `async_trace` holds n_pending / overflow / rem_dispatch per event.
+    commit_trace: np.ndarray | None = None  # (rounds, N) bool
+    async_trace: dict | None = None
 
 
 def _eval_rounds(rounds: int, eval_every: int) -> list[int]:
@@ -319,20 +336,27 @@ def _slice_ra(ra: RAResult, t: int) -> RAResult:
                     iterations=ra.iterations[t])
 
 
-def training_draws(cfg: SimConfig, model: SmallModel, batch: int,
-                   device: torch.device
+def training_draws(cfg: SimConfig, batch: int, device: torch.device
                    ) -> tuple[dict[str, torch.Tensor], Callable[[], torch.Tensor]]:
     """The learning plane's only random draws: the initial parameters, and
     a function giving one (K, local_steps, batch) float32 block of minibatch
-    uniforms in [0, 1) per round in which some device transmits."""
-    gen = torch.Generator(device=device)
+    uniforms in [0, 1) per round in which some device transmits.
+
+    Both come from a CPU generator seeded with `cfg.seed` whatever the
+    device, so the card and the CPU train on the same numbers; a block
+    reaches the card by an asynchronous copy from pinned memory (no host
+    sync)."""
+    gen = torch.Generator()
     gen.manual_seed(cfg.seed)
-    params0 = model.init_params(gen)
+    params0 = {k: v.to(device)
+               for k, v in get_small_model(cfg.dataset).init_params(gen).items()}
     shape = (cfg.n_subchannels, cfg.local_steps, batch)
 
     def next_uniforms() -> torch.Tensor:
-        return torch.rand(shape, generator=gen, device=device,
-                          dtype=torch.float32)
+        u = torch.rand(shape, generator=gen, dtype=torch.float32)
+        if device.type == "cuda":
+            return u.pin_memory().to(device, non_blocking=True)
+        return u
 
     return params0, next_uniforms
 
@@ -346,7 +370,7 @@ def _run_prepared(prep: _Prepared, ra_all: RAResult, plan_wall_s: float,
 
     # ---- model + trainer --------------------------------------------------
     model = get_small_model(cfg.dataset).to(device)
-    params, next_uniforms = training_draws(cfg, model, batch, device)
+    params, next_uniforms = training_draws(cfg, batch, device)
     opt = make_optimizer(cfg.optimizer or t1["optimizer"], cfg.lr or t1["lr"])
     trainer = make_local_trainer(model, opt, batch_size=batch,
                                  local_steps=cfg.local_steps)
@@ -438,39 +462,305 @@ def _run_prepared(prep: _Prepared, ra_all: RAResult, plan_wall_s: float,
     )
 
 
-def _prep_key(cfg: SimConfig) -> SimConfig:
-    """Configs identical up to the policy sample the same `_Prepared` world."""
-    return dataclasses.replace(cfg, policy=RoundPolicy())
+# ---------------------------------------------------------------------------
+# engine="scan": the device-resident round loop
+# ---------------------------------------------------------------------------
 
+def _scan_inputs(prep: _Prepared, ra: RAResult, device: torch.device,
+                 policy_idx: int = 0) -> dict:
+    """Per-cell device tensors consumed by the device round loops.
+
+    Leader-plane operands are cast to float32 (the learning plane's dtype),
+    as the JAX package's scan engine casts them: its latency and energy
+    traces are then this engine's too.  `policy_idx` selects the cell's
+    leader branch of its group.
+    """
+    cfg = prep.cfg
+    params0, next_uniforms = training_draws(
+        cfg, cfg.batch or TABLE1[cfg.dataset]["batch"], device)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+    def i64(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+    return dict(
+        params0=params0,
+        next_uniforms=next_uniforms,
+        policy_idx=policy_idx,
+        beta=f32(prep.beta),
+        x_all=prep.x_all, y_all=prep.y_all, m_all=prep.m_all,
+        x_full=torch.from_numpy(prep.ds.x).to(device),
+        y_full=torch.from_numpy(prep.ds.y).to(device),
+        clusters=i64(prep.clusters),
+        fixed_ids=i64(prep.fixed_ids),
+        gamma=f32(ra.time_s),
+        feas=torch.as_tensor(ra.feasible, device=device),
+        energy=f32(np.where(np.isfinite(ra.energy_j), ra.energy_j, 0.0)),
+        sel_perms=i64(prep.sel_perms),
+        assign_perms=i64(prep.assign_perms),
+    )
+
+
+def _eval_mask(cfg: SimConfig) -> np.ndarray:
+    mask = np.zeros(cfg.rounds, bool)
+    mask[_eval_rounds(cfg.rounds, cfg.eval_every)] = True
+    return mask
+
+
+def _build_scan_runner(cfg: SimConfig, model: SmallModel, trainer,
+                       policies: Sequence[tuple[str, str]]):
+    """The round loop with all its state on the device: leader plane +
+    learning plane, per round.
+
+    State = (params, draws, age); per-round inputs = Γ slices + injected
+    permutations (`make_xs`).  Returns fn(data) -> ys, a dict of per-round
+    tensors with a leading rounds axis, still on the device.  The host
+    reads one scalar per round — whether anyone trains — besides the
+    leader's own reads (`core.leader_torch.host_int`).
+
+    `policies` lists the distinct (ds, sa) leader variants of the group;
+    `data["policy_idx"]` picks the cell's.
+    """
+    k, n = cfg.n_subchannels, cfg.n_devices
+    n_clusters = int(math.ceil(n / k))
+    eval_mask = _eval_mask(cfg)
+
+    def run(data):
+        device = data["beta"].device
+        ndev = torch.arange(n, device=device)
+        kslot = torch.arange(k, device=device)
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        branches = make_leader_branches(policies, data, k=k, n=n,
+                                        n_clusters=n_clusters)
+        ev = make_eval_fn(model, data, cfg.track_gradnorm)
+        xs = make_xs(data, cfg.rounds, eval_mask)
+        params, draws = data["params0"], data["next_uniforms"]
+        age = torch.ones(n, dtype=torch.int32, device=device)
+        ys = []
+        for r in range(cfg.rounds):
+            x = {name: v[r] for name, v in xs.items()}
+
+            # ---- leader plane (Algorithms 2-3 + AoU) on tensors ----------
+            lead = run_leader(branches, data["policy_idx"], age, x["feas"], x)
+            tx = lead["transmitted"]
+            ch_g = torch.where(tx, lead["channel_of"], 0)
+            t_dev = x["gamma"][ch_g, ndev]
+            latency = torch.where(
+                tx.any(), torch.where(tx, t_dev, -torch.inf).max(), zero)
+            energy = torch.where(tx, x["energy"][ch_g, ndev], zero).sum()
+
+            # ---- learning plane: train the transmitting devices ----------
+            tx_ids = first_true(tx, k)
+            cnt = tx.sum()
+            if host_int(cnt) > 0:
+                slot_w = torch.where(kslot < cnt, data["beta"][tx_ids], zero)
+                cp = train_clients(trainer, data, params, draws, tx_ids)
+                params = aggregate(params, cp, slot_w)
+
+            # ---- bookkeeping: evaluate only at eval rounds ---------------
+            loss, acc, gnorm = ev(params) if x["eval_mask"] else (zero, zero, zero)
+            age = lead["age_next"]
+            ys.append(dict(loss=loss, acc=acc, gnorm=gnorm, latency=latency,
+                           energy=energy, selected=lead["selected"],
+                           transmitted=tx, age=age))
+        return {name: torch.stack([y[name] for y in ys]) for name in ys[0]}
+
+    return run
+
+
+def _to_host(ys: dict) -> dict:
+    """The run's per-round traces to NumPy: the one copy at its end."""
+    return {name: v.cpu().numpy() for name, v in ys.items()}
+
+
+def _history_from_scan(cfg: SimConfig, beta: np.ndarray, ys: dict,
+                       wall_s: float, plan_wall_s: float) -> SimHistory:
+    lat_all = np.asarray(ys["latency"], np.float64)
+    energy_all = np.asarray(ys["energy"], np.float64)
+    tx = np.asarray(ys["transmitted"])
+    sel = np.asarray(ys["selected"])
+    age = np.asarray(ys["age"], np.int64)
+    ev = np.asarray(_eval_rounds(cfg.rounds, cfg.eval_every))
+    return SimHistory(
+        label=cfg.policy.label,
+        rounds=ev,
+        global_loss=np.asarray(ys["loss"], np.float64)[ev],
+        accuracy=np.asarray(ys["acc"], np.float64)[ev],
+        latency_s=lat_all[ev],
+        cum_time_s=np.cumsum(lat_all)[ev],
+        n_selected=sel[ev].sum(axis=1),
+        n_transmitted=tx[ev].sum(axis=1),
+        energy_j=energy_all[ev],
+        deficits=np.asarray([_participation_deficit(beta, tx[t]) for t in ev]),
+        grad_sq_norms=np.asarray(ys["gnorm"], np.float64)[ev],
+        beta=beta,
+        wall_s=wall_s,
+        plan_wall_s=plan_wall_s,
+        latency_all=lat_all,
+        energy_all=energy_all,
+        tx_trace=tx,
+        age_trace=age,
+    )
+
+
+def _scan_group_key(cfg: SimConfig) -> SimConfig:
+    """Configs identical up to seed / wireless data / policy / scenario /
+    aggregation share one model and trainer: those fields change only the
+    data flowing through the round loop, never its shapes."""
+    return dataclasses.replace(
+        cfg, seed=0, radius_m=0.0, pt_dbm=0.0, e_max_j=None,
+        policy=RoundPolicy(), scenario="static", aggregation="sync")
+
+
+def _prep_key(cfg: SimConfig) -> SimConfig:
+    """Configs identical up to the policy sample the same `_Prepared`
+    world.  The aggregation discipline does not enter it either: sync and
+    async variants of one world share its samples and its Γ solve, which
+    makes the sync-vs-async comparison differential."""
+    return dataclasses.replace(cfg, policy=RoundPolicy(), aggregation="sync")
+
+
+def _group_trainer_and_policies(cfgs: Sequence[SimConfig], device: torch.device):
+    """Shared scan/async group set-up: model, trainer, and the group's
+    distinct (ds, sa) leader variants in first-appearance order with each
+    cell's branch index."""
+    cfg = cfgs[0]
+    t1 = TABLE1[cfg.dataset]
+    model = get_small_model(cfg.dataset).to(device)
+    opt = make_optimizer(cfg.optimizer or t1["optimizer"], cfg.lr or t1["lr"])
+    trainer = make_local_trainer(model, opt, batch_size=cfg.batch or t1["batch"],
+                                 local_steps=cfg.local_steps)
+    policies: list[tuple[str, str]] = []
+    pol_idx = []
+    for c in cfgs:
+        key = (c.policy.ds, c.policy.sa)
+        if key not in policies:
+            policies.append(key)
+        pol_idx.append(policies.index(key))
+    return model, trainer, policies, pol_idx
+
+
+def _check_f32_priorities(preps: Sequence[_Prepared]) -> None:
+    # The device-resident leaders rank float32 age*beta products
+    # (core.leader_torch.priority_order); they are integer-exact — and hence
+    # tie/order identical to the host's f64 ranking — only below 2^24.
+    # Ages are bounded by rounds + 1.
+    for p in preps:
+        worst = (p.cfg.rounds + 1) * float(p.beta.max())
+        if worst >= 2 ** 24:
+            raise ValueError(
+                f"scan engine: age*beta products may reach {worst:.3g} >= "
+                f"2^24, where float32 priorities lose host equivalence — "
+                f"use engine='loop' or shrink rounds/data sizes")
+
+
+def _run_group_scan(cfgs: Sequence[SimConfig], preps: Sequence[_Prepared],
+                    ras: Sequence[RAResult], plan_walls: Sequence[float],
+                    device: torch.device) -> list[SimHistory]:
+    """Run one group of simulations through the scan engine, a cell at a
+    time over the group's shared model, trainer and leader branches."""
+    model, trainer, policies, pol_idx = _group_trainer_and_policies(cfgs, device)
+    run = _build_scan_runner(cfgs[0], model, trainer, policies)
+    _check_f32_priorities(preps)
+    out = []
+    for c, p, ra, w, i in zip(cfgs, preps, ras, plan_walls, pol_idx):
+        t_start = time.perf_counter()
+        ys = _to_host(run(_scan_inputs(p, ra, device, i)))
+        out.append(_history_from_scan(c, p.beta, ys,
+                                      time.perf_counter() - t_start + w, w))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# engine="async": the buffered event-timeline loop
+# ---------------------------------------------------------------------------
+
+def _async_spec(cfg: SimConfig) -> AsyncAggregation:
+    """The cell's commit policy.  A "sync" cell forced through the event
+    engine runs the degenerate full-buffer barrier, which reproduces the
+    scan engine bit for bit — the differential anchor."""
+    spec = get_aggregation(cfg.aggregation)
+    if spec is None:
+        spec = AsyncAggregation(buffer="full", staleness="const")
+    return spec
+
+
+def _history_from_async(cfg: SimConfig, beta: np.ndarray, ys: dict,
+                        wall_s: float, plan_wall_s: float) -> SimHistory:
+    hist = _history_from_scan(cfg, beta, ys, wall_s, plan_wall_s)
+    hist.commit_trace = np.asarray(ys["committed"])
+    hist.async_trace = dict(
+        n_pending=np.asarray(ys["n_pending"], np.int64),
+        overflow=np.asarray(ys["overflow"]),
+        rem_dispatch=np.asarray(ys["rem_dispatch"], np.float64),
+    )
+    return hist
+
+
+def _run_group_async(cfgs: Sequence[SimConfig], preps: Sequence[_Prepared],
+                     ras: Sequence[RAResult], plan_walls: Sequence[float],
+                     device: torch.device) -> list[SimHistory]:
+    """Run one group through the buffered event-timeline engine
+    (`fl.async_loop`), a cell at a time; each cell's commit batch size,
+    staleness exponent and server step enter as data."""
+    cfg = cfgs[0]
+    model, trainer, policies, pol_idx = _group_trainer_and_policies(cfgs, device)
+    run = build_async_runner(
+        model, trainer, policies, k=cfg.n_subchannels, n=cfg.n_devices,
+        rounds=cfg.rounds, eval_mask=_eval_mask(cfg),
+        track_gradnorm=cfg.track_gradnorm)
+    _check_f32_priorities(preps)
+    out = []
+    for c, p, ra, w, i in zip(cfgs, preps, ras, plan_walls, pol_idx):
+        t_start = time.perf_counter()
+        data = _scan_inputs(p, ra, device, i)
+        spec = _async_spec(c)
+        data["buffer"] = spec.resolve_buffer(c.n_devices, c.n_subchannels)
+        data["stale_exp"] = torch.tensor(spec.stale_exponent(), dtype=torch.float32,
+                                         device=device)
+        data["server_lr"] = torch.tensor(spec.server_lr, dtype=torch.float32,
+                                         device=device)
+        ys = _to_host(run(data))
+        out.append(_history_from_async(c, p.beta, ys,
+                                       time.perf_counter() - t_start + w, w))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
 
 def run_many(cfgs: Sequence[SimConfig], *, ra_solver: str = "fused",
              engine: str = "loop", device=None) -> list[SimHistory]:
     """Run several simulations, sharing ONE batched whole-horizon Γ solve.
 
-    Configs identical up to the policy share one `_Prepared` world and one
-    Γ solve per RA scheme; each simulation then replays its precomputed
-    per-round slices through the host round loop.
+    Configs identical up to the policy (and aggregation) share one
+    `_Prepared` world and one Γ solve per RA scheme; each simulation then
+    replays its precomputed per-round slices through its engine.
 
     Args:
       cfgs: the simulations to run; results are returned in the same order.
       ra_solver: "fused" (default — kernel K1 solves every pair whole) or
         "step" (the per-iteration driver over kernel K2).
-      engine: "loop"; the other engines of the JAX package are not ported.
+      engine: "loop" (host round loop), "scan" (device-resident round loop)
+        or "async" (buffered event-timeline loop).  Cells whose
+        `SimConfig.aggregation` names an async commit policy route through
+        the async engine REGARDLESS of this argument; engine="async" forces
+        every cell through it, where "sync"-aggregation cells run the
+        full-buffer barrier and reproduce the scan engine bit for bit.
       device: "cuda[:i]" or "cpu"; None means the current CUDA device and
         raises when none is visible.
     """
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: {_NOT_PORTED[engine]}")
-    if engine != "loop":
+    if engine not in ("loop", "scan", "async"):
         raise ValueError(f"unknown engine: {engine}")
     if ra_solver not in ("fused", "step"):
         raise ValueError(f"unknown ra_solver: {ra_solver}")
-    for c in cfgs:
-        if c.aggregation != "sync":
-            raise NotImplementedError(
-                f"aggregation={c.aggregation!r} is not ported yet: "
-                f"{_NOT_PORTED['async']}")
+    # Per-cell mode: an async aggregation spec overrides the requested sync
+    # engine (and validates eagerly, before any sampling).
+    modes = ["async" if engine == "async" or get_aggregation(c.aggregation)
+             is not None else engine for c in cfgs]
     device = resolve_device(device)
 
     preps_by_key: dict[SimConfig, _Prepared] = {}
@@ -493,8 +783,22 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_solver: str = "fused",
             transformed[id(ra)] = apply_dynamics(
                 ra, p.avail, p.slowdown, p.beta, p.wcfg)
         ras[i] = transformed[id(ra)]
-    return [_run_prepared(p, ra, w, device)
-            for p, ra, w in zip(preps, ras, plan_walls)]
+
+    out: list[SimHistory | None] = [None] * len(cfgs)
+    groups: dict[tuple[str, SimConfig], list[int]] = {}
+    for i, (c, mode) in enumerate(zip(cfgs, modes)):
+        if mode == "loop":
+            out[i] = _run_prepared(preps[i], ras[i], plan_walls[i], device)
+        else:
+            groups.setdefault((mode, _scan_group_key(c)), []).append(i)
+    for (mode, _), idx in groups.items():
+        run_group = _run_group_scan if mode == "scan" else _run_group_async
+        hists = run_group([cfgs[i] for i in idx], [preps[i] for i in idx],
+                          [ras[i] for i in idx], [plan_walls[i] for i in idx],
+                          device)
+        for i, h in zip(idx, hists):
+            out[i] = h
+    return out
 
 
 def run_simulation(cfg: SimConfig, *, ra_solver: str = "fused",

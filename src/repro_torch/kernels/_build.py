@@ -21,7 +21,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_polyblock", "build_info", "check_launch", "NVCC_FLAGS"]
+__all__ = ["load_polyblock", "load_fedavg", "build_info", "check_launch",
+           "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -32,15 +33,20 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+_PROJECT = [_P] * 5 + [_I64, _I32] + [_F64] * 5 + [_P]
+_SOLVE = [_P] * 8 + [_I64, _F64, _I32, _I32] + [_F64] * 6 + [_P]
+# One library per source file csrc/<name>.cu: its C functions' argtypes.
+_SIGNATURES = {
+    "polyblock": {"polyblock_project_f64": _PROJECT, "polyblock_project_f32": _PROJECT,
+                  "polyblock_solve_f64": _SOLVE, "polyblock_solve_f32": _SOLVE},
+    "fedavg_agg": {"fedavg_agg_f32": [_P, _P, _P, _I32, _I64, _P]},
+}
+
+# A lock per library, so two libraries can build at the same time.
+_locks = {name: threading.Lock() for name in _SIGNATURES}
 _libs: dict[str, ctypes.CDLL] = {}
 _info: dict[str, dict] = {}
-
-_P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
-_SIGNATURES = {
-    "polyblock_project": [_P] * 5 + [_I64, _I32] + [_F64] * 5 + [_P],
-    "polyblock_solve": [_P] * 8 + [_I64, _F64, _I32, _I32] + [_F64] * 6 + [_P],
-}
 
 
 def _nvcc() -> str:
@@ -85,18 +91,26 @@ def _build(name: str, sources: list[Path]) -> Path:
     return lib
 
 
+def _load(name: str) -> ctypes.CDLL:
+    with _locks[name]:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_build(name, [_CSRC / f"{name}.cu"])))
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]
+
+
 def load_polyblock() -> ctypes.CDLL:
     """The Algorithm-1 kernels (K1 solve, K2 project), built on first call."""
-    with _lock:
-        if "polyblock" not in _libs:
-            lib = ctypes.CDLL(str(_build("polyblock", [_CSRC / "polyblock.cu"])))
-            for base, argtypes in _SIGNATURES.items():
-                for suffix in ("f64", "f32"):
-                    fn = getattr(lib, f"{base}_{suffix}")
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-            _libs["polyblock"] = lib
-        return _libs["polyblock"]
+    return _load("polyblock")
+
+
+def load_fedavg() -> ctypes.CDLL:
+    """The eq.-34 aggregation kernel (K3), built on first call."""
+    return _load("fedavg_agg")
 
 
 def build_info(name: str = "polyblock") -> dict:

@@ -51,11 +51,12 @@ def feasible_pairs(n: int, seed: int):
 
 
 def jax_training_draws(cfg):
-    """The JAX package's exact learning-plane draws for `cfg` under
-    `engine="loop"`: its initial parameters (numpy pytree) and a function
-    giving each training round's (K, local_steps, batch) minibatch
-    uniforms, in the order `fl/sim.py::_run_prepared` and
-    `fl/client.py` consume the PRNG stream."""
+    """The JAX package's exact learning-plane draws for `cfg`: its initial
+    parameters (numpy pytree) and a function giving each training event's
+    (K, local_steps, batch) minibatch uniforms, in the order
+    `fl/sim.py::_run_prepared`, `fl/engine_common.py::train_clients` and
+    `fl/client.py` consume the PRNG stream (the same on all three
+    engines)."""
     from repro.fl.sim import TABLE1
     from repro.models.small import get_small_model
 
@@ -84,7 +85,7 @@ def inject_jax_draws(monkeypatch):
     import repro_torch.fl.sim as port_sim
     from repro_torch.models.small import params_from_jax
 
-    def draws(cfg, model, batch, device):
+    def draws(cfg, batch, device):
         params, next_u = jax_training_draws(cfg)
         return (params_from_jax(params, device=device),
                 lambda: torch.from_numpy(next_u()).to(device))

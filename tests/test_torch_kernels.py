@@ -1,9 +1,11 @@
-"""The port's Algorithm-1 kernels, plain versions against the JAX package.
+"""The port's kernels, plain versions against the JAX package.
 
 K2 (projection): `project_bisect` against `project_jnp` (float64) and the
 Pallas kernel in interpret mode (float32).  K1 (whole solve):
 `polyblock_solve_plain` against `polyblock_solve_fused(interpret=True)` in
-float64 and float32.  The CUDA kernels themselves run only on the card
+float64 and float32.  K3 (eq.-34 mean): `fedavg_agg_plain` against the
+Pallas kernel in interpret mode and its jnp oracle.  The CUDA kernels
+themselves run only on the card
 (tests/test_torch_cuda.py); here each wrapper is given CPU tensors, where
 it runs its plain version.
 """
@@ -14,9 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.fedavg_agg.ops import fedavg_aggregate as jax_fedavg
+from repro.kernels.fedavg_agg.ops import fedavg_aggregate_tree as jax_fedavg_tree
+from repro.kernels.fedavg_agg.ref import fedavg_agg_ref
 from repro.kernels.polyblock_fused.ops import polyblock_solve_fused as jax_fused
 from repro.kernels.polyblock_project.ops import project_jnp, project_pallas
 from repro_torch.core.wireless import WirelessConfig as PortConfig
+from repro_torch.fl.server import masked_weighted_mean
+from repro_torch.kernels.fedavg_agg import (fedavg_agg_plain, fedavg_aggregate,
+                                            fedavg_aggregate_tree)
 from repro_torch.kernels.polyblock_fused.ops import (polyblock_solve_fused,
                                                      polyblock_solve_plain)
 from repro_torch.kernels.polyblock_project.ops import (polyblock_project,
@@ -141,3 +149,67 @@ def test_plain_fused_respects_max_iter():
     _, _, _, it = polyblock_solve_plain(_t(beta), _t(h2), _t(e), PCFG, max_iter=2)
     assert it.max().item() <= 2
     np.testing.assert_array_equal(it.numpy(), ref)
+
+
+# ---------------------------------------------------------------------------
+# K3: the eq.-34 weighted mean
+# ---------------------------------------------------------------------------
+
+K3_WEIGHTS = {
+    "mixed": [3.0, 0.0, 5.0, 17.0],
+    "all_zero": [0.0, 0.0, 0.0, 0.0],
+    "one_slot": [0.0, 0.0, 42.0, 0.0],
+}
+
+
+def _k3_inputs(weights, n=5000, seed=31):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(len(weights), n)).astype(np.float32)
+    return x, np.asarray(weights, np.float32)
+
+
+@pytest.mark.parametrize("case", sorted(K3_WEIGHTS))
+def test_fedavg_plain_matches_pallas_interpret(case):
+    """float32 throughout: the Pallas kernel's (w / wsum) @ x and the jnp
+    oracle's einsum sum the K products in their own order, the plain
+    version in slot order, so they agree to 1e-6 relative (a few ulps);
+    all-zero weights give exactly 0, one non-zero slot exactly that slot."""
+    x, w = _k3_inputs(K3_WEIGHTS[case])
+    got = fedavg_agg_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    assert got.dtype == np.float32 and got.shape == (x.shape[1],)
+    for want in (np.asarray(jax_fedavg(jnp.asarray(x), jnp.asarray(w), interpret=True)),
+                 np.asarray(fedavg_agg_ref(jnp.asarray(x), jnp.asarray(w)))):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    if case == "all_zero":
+        assert not got.any()
+    if case == "one_slot":
+        np.testing.assert_array_equal(got, x[2])
+
+
+def test_fedavg_tree_matches_jax_tree():
+    rng = np.random.default_rng(32)
+    w = np.asarray([2.0, 0.0, 7.0], np.float32)
+    leaves = {"a": rng.normal(size=(3, 7, 5)), "b": rng.normal(size=(3, 11)),
+              "c": rng.normal(size=(3,))}
+    leaves = {k: v.astype(np.float32) for k, v in leaves.items()}
+    want = jax_fedavg_tree({k: jnp.asarray(v) for k, v in leaves.items()},
+                           jnp.asarray(w), interpret=True)
+    got = fedavg_aggregate_tree({k: torch.from_numpy(v) for k, v in leaves.items()},
+                                torch.from_numpy(w))
+    for k, v in leaves.items():
+        assert got[k].shape == v.shape[1:]
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_fedavg_wrappers_on_cpu_are_the_plain_version():
+    """`fedavg_aggregate` and the server's `masked_weighted_mean` take the
+    plain version for a CPU tensor, bit for bit, and launch nothing."""
+    x, w = _k3_inputs(K3_WEIGHTS["mixed"], n=60)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    before = fedavg_aggregate.launches
+    want = fedavg_agg_plain(xt, wt)
+    torch.testing.assert_close(fedavg_aggregate(xt, wt), want, rtol=0, atol=0)
+    torch.testing.assert_close(masked_weighted_mean(xt.reshape(4, 3, 20), wt),
+                               want.reshape(3, 20), rtol=0, atol=0)
+    assert fedavg_aggregate.launches == before

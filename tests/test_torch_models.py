@@ -1,13 +1,15 @@
 """The port's learning plane against the JAX package: the three paper
 models after `params_from_jax`, the two Table-I optimizers, the local
-trainer fed the JAX package's exact minibatch uniforms, and eq.-34
-aggregation.
+trainer fed the JAX package's exact minibatch uniforms, eq.-34
+aggregation, and the async server's buffered commit.
 
 Tolerances are float32 ones: the two frameworks order their sums
 differently (matmul and convolution reductions, the loss mean), so results
 agree to a few float32 ulps per operation, compounded over the steps.
 """
 from _torch_oracle import jax_training_draws, rel_err  # noqa: I001  (alias first)
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -16,10 +18,12 @@ import pytest
 import torch
 
 from repro.fl.client import make_local_trainer as jax_trainer
+from repro.fl import server as jax_server
 from repro.fl.server import aggregate as jax_aggregate
 from repro.models.small import get_small_model as jax_model
 from repro.train.optimizer import make_optimizer as jax_optimizer
 from repro_torch.fl.client import make_local_trainer
+from repro_torch.fl import server
 from repro_torch.fl.server import aggregate
 from repro_torch.fl.sim import SimConfig
 from repro_torch.models.small import get_small_model, params_from_jax
@@ -153,3 +157,45 @@ def test_aggregate_matches(weights):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
     if not w.any():
         np.testing.assert_array_equal(got, g["w"])
+
+
+@pytest.mark.parametrize("server_lr", [1.0, 0.5])
+@pytest.mark.parametrize("weights", [[3.0, 0.0, 5.0], [0.0, 0.0, 0.0]])
+def test_aggregate_buffered_matches(weights, server_lr):
+    """The buffered commit against the JAX package's, and its exact
+    endpoints: m = 1 is bitwise `aggregate`, no commit is bitwise identity."""
+    rng = np.random.default_rng(4)
+    g = {"w": rng.normal(size=(4, 2)).astype(np.float32)}
+    c = {"w": rng.normal(size=(3, 4, 2)).astype(np.float32)}
+    w = np.asarray(weights, np.float32)
+    want = np.asarray(jax_server.aggregate_buffered(
+        g, c, jnp.asarray(w), jnp.float32(server_lr))["w"])
+    tg, tc, tw = ({"w": torch.from_numpy(g["w"])}, {"w": torch.from_numpy(c["w"])},
+                  torch.from_numpy(w))
+    got = server.aggregate_buffered(tg, tc, tw, torch.tensor(server_lr))["w"]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    if server_lr == 1.0:
+        torch.testing.assert_close(got, aggregate(tg, tc, tw)["w"], rtol=0, atol=0)
+    if not w.any():
+        np.testing.assert_array_equal(got.numpy(), g["w"])
+
+
+def test_staleness_weight_and_presets():
+    s = np.arange(6, dtype=np.int32)
+    for exponent in (0.5, 0.0, 2.0):
+        got = server.staleness_weight(torch.from_numpy(s), torch.tensor(exponent))
+        want = np.asarray(jax_server.staleness_weight(jnp.asarray(s),
+                                                      jnp.float32(exponent)))
+        assert got.dtype == torch.float32 and got[0].item() == 1.0
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    assert server.AGGREGATION_PRESETS.keys() == jax_server.AGGREGATION_PRESETS.keys()
+    for name, spec in server.AGGREGATION_PRESETS.items():
+        assert dataclasses.asdict(spec) == dataclasses.asdict(
+            jax_server.AGGREGATION_PRESETS[name])
+        assert spec.resolve_buffer(20, 4) == jax_server.AGGREGATION_PRESETS[
+            name].resolve_buffer(20, 4)
+    assert server.get_aggregation("sync") is None
+    with pytest.raises(ValueError):
+        server.get_aggregation("bogus")
+    with pytest.raises(ValueError):
+        server.AsyncAggregation(buffer=4).resolve_buffer(20, 4)

@@ -1,8 +1,8 @@
 """The whole slice: the port's `run_simulation(..., device="cpu")` against
 the JAX package's `run_simulation(..., engine="loop", ra_backend="bisect")`
 with the JAX initial parameters and minibatch uniforms injected; and three
-properties of the package (no JAX import, no silent CPU, unported engines
-refuse).
+properties of the package (no JAX import, no silent CPU, unknown engine and
+aggregation names refused).
 
 Tolerances: the world, Γ and the leader's decisions are float64 / integer
 and agree exactly (tx, AoU, selection counts) or to the log1p ulp carried
@@ -103,7 +103,12 @@ def test_entry_points_refuse_a_silent_cpu():
 
 @pytest.mark.parametrize("engine", ["scan", "async"])
 def test_unported_engines_raise(engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_simulation(SimConfig(**SMALL), engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_simulation(SimConfig(**SMALL, aggregation="async"), device="cpu")
+    """Both device engines are ported and run; what the entry points refuse
+    is an engine or aggregation name they do not know (ValueError)."""
+    h = run_simulation(SimConfig(**dict(SMALL, rounds=2)), engine=engine, device="cpu")
+    assert h.tx_trace.shape == (2, SMALL["n_devices"])
+    with pytest.raises(ValueError, match="unknown engine"):
+        run_simulation(SimConfig(**SMALL), engine=engine + "_v2", device="cpu")
+    with pytest.raises(ValueError, match="unknown aggregation"):
+        run_simulation(SimConfig(**SMALL, aggregation=engine + "_v2"), engine=engine,
+                       device="cpu")
