@@ -4,11 +4,12 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the paper simulation
-(`run_simulation`) through them on all three engines, and checks its
-traces against the same runs on the CPU.  Phases, in order:
+(`run_simulation`) through K1-K3 on all three engines and checks its traces
+against the same runs on the CPU, and serves two 7B models of the model zoo
+(`serve_loop`) at full width and depth through K4 and K5.  Phases, in order:
 
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
-  2. kernel build (one nvcc per source, started together; plain C
+  2. kernel build (one nvcc per source, all four started together; plain C
      interfaces loaded with ctypes);
   3. K2, the polyblock projection, against its plain version, float64 and
      float32, at 2 x 131072 vertices and at the main path's shape;
@@ -18,18 +19,32 @@ traces against the same runs on the CPU.  Phases, in order:
   5. K3, the eq.-34 weighted mean, against its plain version (random,
      all-zero and single-slot weights) at the main path's shapes (the six
      mnist-MLP leaves, K = 4) and at K = 16, N = 2^25;
-  6. the main paths, each driven with every launch counter set to 0 just
-     before it and read just after: run_simulation(SimConfig(rounds=30))
-     — mnist MLP at full width, N=20, K=4, Table-I settings, Γ through K1,
-     aggregation through K3 — on engine="loop", then ra_solver="step" for
-     10 rounds through K2, then engine="scan", then aggregation="async"
-     and "async_full" on the async engine; traces equal to the
-     device="cpu" run, losses within 1e-4 of it, and async_full bitwise
-     equal to the card's scan run; then one warm run of the loop and scan
-     engines under torch.profiler (the card's busy time and idle share)
-     and one run of each engine under torch's sync debug mode (every host
-     sync, by source line);
-  7. the kernel list as one JSON line.
+  6. K4, flash attention, against its plain version at qwen2-7b's prefill
+     shape (B 4, S 512, Hq 28, Hkv 4, D 128, causal) in bf16 and f32 and at
+     a right-aligned, windowed shape (Sq < Sk); K5, the WKV6 recurrence, at
+     rwkv6-7b's prefill shape (4 x 512 x 64 heads x 64) and its T = 1
+     decode shape; each with its time on the card, as called, its bound,
+     the plain version's time and the library call's (SDPA for K4);
+  7. the simulation's main paths, each driven with every launch counter
+     set to 0 just before it and read just after:
+     run_simulation(SimConfig(rounds=30)) — mnist MLP at full width, N=20,
+     K=4, Table-I settings, Γ through K1, aggregation through K3 — on
+     engine="loop", then ra_solver="step" for 10 rounds through K2, then
+     engine="scan", then aggregation="async" and "async_full" on the async
+     engine; traces equal to the device="cpu" run, losses within 1e-4 of
+     it, and async_full bitwise equal to the card's scan run; then one warm
+     run of the loop and scan engines under torch.profiler (the card's busy
+     time and idle share) and one run of each engine under torch's sync
+     debug mode (every host sync, by source line);
+  8. the serving paths: serve_loop at full width and depth (random weights
+     from a seed) for qwen2-7b with attn_impl="pallas" and for rwkv6-7b
+     with rwkv_wkv_impl="pallas", batch 4, prompt 512, 32 new tokens, the
+     launch counters set to 0 just before each and read just after (K4
+     exactly 28, K5 exactly 1 088); prefill logits within 4e-2 of the
+     "ref" path on the same weights on the card, tokens in range, logits
+     finite; a second, warm run under torch's sync debug mode (no host
+     sync inside the decode loop) and a third under torch.profiler;
+  9. the kernel list as one JSON line.
 
 Any failure raises; the last line is the device JSON only when every phase
 passed.  Exits non-zero without a CUDA device or without the repository's
@@ -55,12 +70,19 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import WirelessConfig, is_infeasible, total_energy  # noqa: E402
 from repro_torch.core.leader_torch import host_int  # noqa: E402
 from repro_torch.fl import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fl.sim import _prepare  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.data.pipeline import synthetic_token_batch  # noqa: E402
 from repro_torch.kernels.fedavg_agg import fedavg_agg_plain, fedavg_aggregate  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
+from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain  # noqa: E402
+from repro_torch.launch.serve import serve_loop  # noqa: E402
+from repro_torch.models.transformer import forward, init_params  # noqa: E402
 from repro_torch.models.small import get_small_model  # noqa: E402
 from repro_torch.kernels.polyblock_fused.ops import (  # noqa: E402
     polyblock_solve_fused, polyblock_solve_plain)
@@ -68,10 +90,10 @@ from repro_torch.kernels.polyblock_project.ops import (  # noqa: E402
     polyblock_project, project_bisect)
 
 DEV = torch.device("cuda", 0)
-# Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet, dense,
-# outside the tensor cores): float64 34 TFLOP/s, float32 67 TFLOP/s; HBM3
-# 3.35 TB/s.
-PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12}
+# Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet, dense):
+# float64 34 TFLOP/s and float32 67 TFLOP/s outside the tensor cores, bf16
+# 989 TFLOP/s on them; HBM3 3.35 TB/s.
+PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 # Add-equivalent op counts of the JAX package's cost model
 # (launch/analytic.py: OP_WEIGHTS prices a division at 4 and a log1p at 12;
@@ -371,12 +393,122 @@ def check_k3(xs: list[torch.Tensor], label: str, reps: int, plain_reps: int) -> 
 
 
 # ---------------------------------------------------------------------------
+# K4: flash attention; K5: the WKV6 recurrence
+# ---------------------------------------------------------------------------
+
+def attn_pairs(sq: int, sk: int, window: int) -> int:
+    """(query, key) pairs the causal (and window) mask leaves, per head."""
+    i = torch.arange(sq, dtype=torch.int64)[:, None] + (sk - sq)
+    j = torch.arange(sk, dtype=torch.int64)[None, :]
+    keep = j <= i
+    if window > 0:
+        keep &= j > i - window
+    return int(keep.sum())
+
+
+def sdpa_call(q, k, v, window: int):
+    """One PyTorch call for the same function, as a yardstick only: causal
+    SDPA with GQA; an explicit boolean mask where the queries are
+    right-aligned (Sq < Sk) or a window applies, since SDPA's is_causal
+    aligns them top-left."""
+    import torch.nn.functional as F
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    sq, sk = q.shape[1], k.shape[1]
+    if sq == sk and window == 0:
+        kw = dict(is_causal=True)
+    else:
+        i = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        j = torch.arange(sk, device=q.device)[None, :]
+        kw = dict(attn_mask=(j <= i) & ((j > i - window) if window > 0 else True))
+    # Output in the model's (B, S, H, D) layout, as a view.
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True,  # noqa: E731
+                                                  **kw).transpose(1, 2)
+
+
+def check_k4(b, sq, sk, hq, hkv, d, window, dtype, label: str, reps: int) -> dict:
+    """The kernel against its plain version on random inputs: both take
+    f32 scores, softmax and P.V and cast once, so f32 must agree to 1e-5
+    and bf16 to one ulp (plus that 1e-5 floor near 0)."""
+    gen = torch.Generator(DEV).manual_seed(sq * 7 + window)
+    q = torch.randn(b, sq, hq, d, generator=gen, device=DEV).to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device=DEV).to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device=DEV).to(dtype)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    diff = (got.double() - want.double()).abs()
+    if dtype == torch.float32:
+        ok, limit = bool(diff.max() <= 1e-5), "1e-5"
+    else:
+        mag = torch.maximum(got.double().abs(), want.double().abs()).clamp_min(2.0**-126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        ok, limit = bool((diff <= ulp + 1e-5).all()), "1 bf16 ulp + 1e-5"
+    lib = sdpa_call(q, k, v, window)
+    lib_err = float((lib().double() - want.double()).abs().max())
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True, window=window), reps, prefill=True)
+    host_ms = time_ms(lambda: flash_attention(q, k, v, causal=True, window=window), reps)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True, window=window),
+                       max(2, reps // 4), prefill=True)
+    library_ms = time_ms(lib, reps, prefill=True)
+    pairs = attn_pairs(sq, sk, window)
+    elt = q.element_size()
+    b_ms, b_by = bound_ms(4 * b * hq * d * pairs, (2 * b * sq * hq + 2 * b * sk * hkv) * d * elt,
+                          dtype)
+    max_abs = float(diff.max())
+    line(f"K4 {label} {str(dtype)[6:]}: B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d} "
+         f"window={window} max_abs_err={max_abs:.3e} (limit {limit}) sdpa_max_abs_err="
+         f"{lib_err:.3e} kernel_ms={ms:.4f} kernel_ms_with_host_enqueue={host_ms:.4f} "
+         f"plain_ms={plain_ms:.4f} library_ms(sdpa)={library_ms:.4f} bound_ms={b_ms:.5f} "
+         f"({b_by}) achieved_TFLOP/s={4 * b * hq * d * pairs / ms / 1e9:.2f}")
+    if not ok:
+        raise AssertionError(f"K4 {label} {dtype}: kernel disagrees with plain")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def check_k5(b, t, h, hs, label: str, reps: int) -> dict:
+    """The kernel against its plain version with random non-zero u and
+    initial state: both make the same f32 operations in the same order, so
+    they should agree to the bit; the gate is y and the final state within
+    1e-5 of their scale."""
+    gen = torch.Generator(DEV).manual_seed(t)
+    r, k, v = (torch.randn(b, t, h, hs, generator=gen, device=DEV) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand(b, t, h, hs, generator=gen, device=DEV) * 7 - 7))
+    u = torch.randn(h, hs, generator=gen, device=DEV)
+    s0 = torch.randn(b, h, hs, hs, generator=gen, device=DEV)
+    y, s = wkv6(r, k, v, w, u, s0)
+    y_p, s_p = wkv6_plain(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    rel_y = float((y - y_p).abs().max() / y_p.abs().max())
+    rel_s = float((s - s_p).abs().max() / s_p.abs().max())
+    ms = time_ms(lambda: wkv6(r, k, v, w, u, s0), reps, prefill=True)
+    host_ms = time_ms(lambda: wkv6(r, k, v, w, u, s0), reps)
+    plain_ms = time_ms(lambda: wkv6_plain(r, k, v, w, u, s0), 2)
+    # 7 flops per (t, i, j): k*v, u*kv, + S, r*(.), + y, w*S, + kv.
+    b_ms, b_by = bound_ms(7 * b * t * h * hs * hs,
+                          (5 * b * t * h * hs + 2 * b * h * hs * hs + h * hs) * 4, torch.float32)
+    max_abs = max(float((y - y_p).abs().max()), float((s - s_p).abs().max()))
+    bitwise = bool(torch.equal(y, y_p) and torch.equal(s, s_p))
+    line(f"K5 {label}: B={b} T={t} H={h} hs={hs} rel_err(y)={rel_y:.3e} rel_err(state)="
+         f"{rel_s:.3e} (limit 1e-5 of scale) bitwise_equal_plain={bitwise} "
+         f"max_abs_err={max_abs:.3e} kernel_ms={ms:.4f} "
+         f"kernel_ms_with_host_enqueue={host_ms:.4f} plain_ms={plain_ms:.4f} "
+         f"library_ms=None bound_ms={b_ms:.5f} ({b_by})")
+    if not (rel_y < 1e-5 and rel_s < 1e-5):
+        raise AssertionError(f"K5 {label}: kernel disagrees with plain")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+# ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
 
 COUNTERS = {"polyblock_fused": polyblock_solve_fused,
             "polyblock_project": polyblock_project,
-            "fedavg_agg": fedavg_aggregate}
+            "fedavg_agg": fedavg_aggregate,
+            "flash_attention": flash_attention,
+            "rwkv6_wkv": wkv6}
 
 
 def run_on_card(cfg: SimConfig, **kw):
@@ -486,6 +618,106 @@ def count_syncs(cfg: SimConfig, **kw) -> None:
          "by source line: " + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(8)))
 
 
+# ---------------------------------------------------------------------------
+# the serving paths (model zoo)
+# ---------------------------------------------------------------------------
+
+SERVE = dict(batch=4, prompt_len=512, new_tokens=32, seed=0)
+
+
+def serve_phase(arch: str, kernel: str, expect: int) -> dict:
+    """Serve `arch` at full width and depth on the kernel path: random
+    weights from the seed, the launch counters set to 0 just before
+    serve_loop and read just after; `kernel` must have launched exactly
+    `expect` times.  Then prefill logits on the kernel path against the
+    "ref" path on the same weights and prompt (4e-2 of the scale, the JAX
+    package's serving tolerance), a warm second run under torch's sync
+    debug mode (every host sync, by source line) and a third under
+    torch.profiler (the card's busy time and idle share)."""
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, attn_impl="pallas", rwkv_wkv_impl="pallas")
+    ref_cfg = dataclasses.replace(base, attn_impl="ref", rwkv_wkv_impl="ref")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(SERVE["seed"]))
+    torch.cuda.synchronize()
+    line(f"serve {arch}: init_params {time.perf_counter() - t0:.2f}s; "
+         f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    first = serve_loop(cfg, device=DEV, params=params, **SERVE)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    line(f"main path serve {arch} (kernel path) B={SERVE['batch']} prompt={SERVE['prompt_len']} "
+         f"new_tokens={SERVE['new_tokens']}: launches "
+         + " ".join(f"{k}={v}" for k, v in launches.items())
+         + f"; first run wall_s={wall:.3f} prefill_s={first.prefill_s:.4f} "
+         f"({first.prefill_tok_s:.0f} tok/s) decode_s={first.decode_s:.4f} "
+         f"({first.decode_tok_s:.1f} tok/s)")
+    if launches[kernel] != expect:
+        raise AssertionError(f"serve {arch}: {kernel} launched {launches[kernel]} times, "
+                             f"expected {expect}")
+    others = [k for k, v in launches.items() if v and k != kernel]
+    if others:
+        raise AssertionError(f"serve {arch}: unexpected kernels launched: {others}")
+    toks = first.tokens
+    if not (toks.shape == (SERVE["batch"], SERVE["new_tokens"] + 1)
+            and ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"serve {arch}: generated tokens out of range / wrong shape")
+
+    prompt = synthetic_token_batch(np.random.default_rng(SERVE["seed"]), SERVE["batch"],
+                                   SERVE["prompt_len"], cfg.vocab)["tokens"]
+    batch = {"tokens": torch.from_numpy(prompt).to(DEV)}
+    got = forward(cfg, params, batch)[0]
+    want = forward(ref_cfg, params, batch)[0]
+    finite = bool(torch.isfinite(got.float()).all()) and bool(torch.isfinite(want.float()).all())
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    same_next = float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).float().mean())
+    line(f"  prefill logits, kernel path vs ref on the card: rel_err={err:.3e} (limit 4e-2); "
+         f"finite={finite}; max|logit|={float(want.float().abs().max()):.3f}; same next "
+         f"token {same_next:.2f}; first decoded row: {toks[0, :8].tolist()}")
+    del got, want
+    if not (finite and err <= 4e-2):
+        raise AssertionError(f"serve {arch}: prefill logits off the ref path ({err:.3e})")
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            warm = serve_loop(cfg, device=DEV, params=params, log_every=SERVE["new_tokens"],
+                              **SERVE)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    by_line = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+    line(f"  warm run: prefill_s={warm.prefill_s:.4f} ({warm.prefill_tok_s:.0f} tok/s) "
+         f"decode_s={warm.decode_s:.4f} ({warm.decode_tok_s:.1f} tok/s, "
+         f"{warm.decode_s / SERVE['new_tokens'] * 1e3:.3f} ms/step); same tokens as the first "
+         f"run: {bool(np.array_equal(warm.tokens, toks))}; {len(syncs)} synchronizing calls: "
+         + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(6)))
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prof_run = serve_loop(cfg, device=DEV, params=params, log_every=SERVE["new_tokens"],
+                              **SERVE)
+        prof_wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    line(f"  profile (profiled run): wall_s={prof_wall:.3f} prefill_s={prof_run.prefill_s:.4f} "
+         f"decode_s={prof_run.decode_s:.4f} device_busy_ms={busy_ms:.2f} device_idle_share="
+         f"{1 - busy_ms / 1e3 / prof_wall:.4f} kernel_launches={n_launch} "
+         f"(~{n_launch / (SERVE['new_tokens'] + 2):.0f} per step)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        line(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, first=first, warm=warm, err=err)
+
+
 def assert_bitwise(a, b, what: str) -> None:
     """Every per-round field of two histories equal to the bit."""
     diff = []
@@ -517,14 +749,14 @@ def main() -> None:
 
     # ---- 2. kernel build --------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(_build.load_polyblock), pool.submit(_build.load_fedavg)]:
+    with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
+        for fut in [pool.submit(_build.load, lib) for lib in _build.LIBRARIES]:
             fut.result()
-    line(f"build: both libraries loaded in {time.perf_counter() - t0:.2f}s; "
-         f"flags: {' '.join(_build.NVCC_FLAGS)}")
-    for lib in ("polyblock", "fedavg_agg"):
+    line(f"build: {len(_build.LIBRARIES)} libraries loaded in {time.perf_counter() - t0:.2f}s")
+    for lib in _build.LIBRARIES:
         info = _build.build_info(lib)
-        line(f"  {lib}: {info['library']} nvcc_s={info['seconds']:.2f}")
+        line(f"  {lib}: {info['library']} nvcc_s={info['seconds']:.2f} "
+             f"flags: {' '.join(_build.nvcc_flags(lib))}")
         for ln in info["log"].splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 line("  ptxas: " + ln.strip())
@@ -571,7 +803,22 @@ def main() -> None:
     check_k3([big], "K=16 N=2^25", reps=20, plain_reps=2)
     del big
 
-    # ---- 6. the main paths ----------------------------------------------------
+    # ---- 6. K4 and K5 -----------------------------------------------------------
+    qwen, rwkv = get_config("qwen2-7b"), get_config("rwkv6-7b")
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    attn_shape = (b, s, s, qwen.n_heads, qwen.n_kv_heads, qwen.head_dim, 0)
+    k4_main = check_k4(*attn_shape, torch.bfloat16, "main-path shape (qwen2-7b prefill)",
+                       reps=20)
+    check_k4(*attn_shape, torch.float32, "main-path shape (qwen2-7b prefill)", reps=10)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_k4(b, 384, s, qwen.n_heads, qwen.n_kv_heads, qwen.head_dim, 128, dtype,
+                 "Sq < Sk, window 128", reps=10)
+    wkv_shape = (b, rwkv.n_rwkv_heads, rwkv.rwkv_head_size)
+    k5_main = check_k5(b, s, *wkv_shape[1:], "main-path prefill shape (rwkv6-7b)", reps=20)
+    k5_decode = check_k5(b, 1, *wkv_shape[1:], "main-path decode shape (rwkv6-7b, T=1)",
+                         reps=200)
+
+    # ---- 7. the simulation's main paths ---------------------------------------
     _, loop_launches = drive(main_cfg, ("polyblock_fused", "fedavg_agg"))
     _, step_launches = drive(step_cfg, ("polyblock_project", "fedavg_agg"), ra_solver="step")
     scan, scan_launches = drive(main_cfg, ("polyblock_fused", "fedavg_agg"), engine="scan")
@@ -590,7 +837,14 @@ def main() -> None:
              ("loop", loop_launches), ("loop_step", step_launches),
              ("scan", scan_launches), ("async", async_launches))))
 
-    # ---- 7. kernel list -----------------------------------------------------
+    # ---- 8. the serving paths ------------------------------------------------
+    n_new = SERVE["new_tokens"]
+    qwen_serve = serve_phase("qwen2-7b", "flash_attention", qwen.n_layers)
+    rwkv_serve = serve_phase("rwkv6-7b", "rwkv6_wkv", rwkv.n_layers * (1 + n_new + 1))
+    line(f"K5 per launch on the card: prefill {k5_main['ms']:.4f} ms, decode "
+         f"{k5_decode['ms']:.4f} ms")
+
+    # ---- 9. kernel list -----------------------------------------------------
     kernels = []
     for name, src, replaces, launches, res in (
             ("polyblock_fused", "src/repro_torch/csrc/polyblock.cu",
@@ -601,7 +855,13 @@ def main() -> None:
              step_launches["polyblock_project"], dict(k2_main[torch.float64], library_ms=None)),
             ("fedavg_agg", "src/repro_torch/csrc/fedavg_agg.cu",
              "src/repro/kernels/fedavg_agg/kernel.py:22",
-             scan_launches["fedavg_agg"], k3_main)):
+             scan_launches["fedavg_agg"], k3_main),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:25",
+             qwen_serve["launches"]["flash_attention"], k4_main),
+            ("rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
+             "src/repro/kernels/rwkv6_wkv/kernel.py:26",
+             rwkv_serve["launches"]["rwkv6_wkv"], k5_main)):
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=launches, max_abs_err=res["max_abs_err"],
                             ms=res["ms"], plain_ms=res["plain_ms"],

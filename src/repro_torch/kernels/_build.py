@@ -21,19 +21,23 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_polyblock", "load_fedavg", "build_info", "check_launch",
-           "NVCC_FLAGS"]
+__all__ = ["load", "load_polyblock", "load_fedavg", "build_info", "check_launch",
+           "nvcc_flags", "LIBRARIES", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# --fmad=false keeps every a*b+c as two rounded operations, so the float64
-# kernels track the plain torch versions (and the JAX reference) bit for bit
-# wherever log1p agrees.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+# --fmad=false keeps every a*b+c as two rounded operations, so the float64
+# Algorithm-1 kernels track the plain torch versions (and the JAX reference)
+# bit for bit wherever log1p agrees, and K3 and K5 give their plain
+# versions' bits.  The attention kernel is held to a tolerance and keeps
+# the FMAs.
+_EXTRA_FLAGS = {name: ("--fmad=false",) for name in ("polyblock", "fedavg_agg", "rwkv6_wkv")}
 
 _P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+_F32 = ctypes.c_float
 _PROJECT = [_P] * 5 + [_I64, _I32] + [_F64] * 5 + [_P]
 _SOLVE = [_P] * 8 + [_I64, _F64, _I32, _I32] + [_F64] * 6 + [_P]
 # One library per source file csrc/<name>.cu: its C functions' argtypes.
@@ -41,7 +45,11 @@ _SIGNATURES = {
     "polyblock": {"polyblock_project_f64": _PROJECT, "polyblock_project_f32": _PROJECT,
                   "polyblock_solve_f64": _SOLVE, "polyblock_solve_f32": _SOLVE},
     "fedavg_agg": {"fedavg_agg_f32": [_P, _P, _P, _I32, _I64, _P]},
+    "flash_attention": {f"flash_attention_{t}": [_P] * 4 + [_I32] * 6 + [_F32, _I32, _I32, _P]
+                        for t in ("f32", "bf16")},
+    "rwkv6_wkv": {"wkv6_f32": [_P] * 8 + [_I32] * 4 + [_P]},
 }
+LIBRARIES = tuple(_SIGNATURES)
 
 # A lock per library, so two libraries can build at the same time.
 _locks = {name: threading.Lock() for name in _SIGNATURES}
@@ -62,11 +70,17 @@ def _nvcc() -> str:
     return str(path)
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags library `name` is built with."""
+    return NVCC_FLAGS + _EXTRA_FLAGS.get(name, ())
+
+
 def _build(name: str, sources: list[Path]) -> Path:
+    flags = nvcc_flags(name)
     digest = hashlib.sha256()
     for src in sources:
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         _info[name] = {"library": str(lib), "seconds": 0.0, "cached": True, "log": ""}
@@ -74,7 +88,7 @@ def _build(name: str, sources: list[Path]) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sources)]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -91,7 +105,9 @@ def _build(name: str, sources: list[Path]) -> Path:
     return lib
 
 
-def _load(name: str) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
+    """The library built from csrc/<name>.cu (one of LIBRARIES), built on
+    first call."""
     with _locks[name]:
         if name not in _libs:
             lib = ctypes.CDLL(str(_build(name, [_CSRC / f"{name}.cu"])))
@@ -105,12 +121,12 @@ def _load(name: str) -> ctypes.CDLL:
 
 def load_polyblock() -> ctypes.CDLL:
     """The Algorithm-1 kernels (K1 solve, K2 project), built on first call."""
-    return _load("polyblock")
+    return load("polyblock")
 
 
 def load_fedavg() -> ctypes.CDLL:
     """The eq.-34 aggregation kernel (K3), built on first call."""
-    return _load("fedavg_agg")
+    return load("fedavg_agg")
 
 
 def build_info(name: str = "polyblock") -> dict:

@@ -1,0 +1,416 @@
+"""Model-zoo assembly (PyTorch copy of the JAX package's
+`models/transformer.py`), for the two layer kinds the port runs so far:
+`LayerKind("attn", "dense")` (GQA + SwiGLU: qwen2-7b) and
+`LayerKind("rwkv", "rwkv_cm")` (RWKV-6 time-mix + channel-mix: rwkv6-7b).
+Any other mixer or FFN raises NotImplementedError.
+
+The stage plan is the JAX package's: layers are grouped into stages, each
+a periodic pattern of sublayer kinds repeated `repeats` times.  Where the
+JAX package stacks a group's parameters on a leading `repeats` axis and
+scans over it, the port keeps one parameter dict per layer in a list and
+runs a Python loop over the layers:
+
+    params["s{si}_l{li}"] = [layer_0, layer_1, ...]      (repeats entries)
+
+The decode caches keep the JAX package's stage-stacked layout, e.g. for an
+attention group {"k": (repeats, B, C, Hkv, Dh), "v": ..., "pos":
+(repeats, C), "idx": (repeats,)}, so they compare leaf for leaf; each
+layer reads and writes its own slice in place (`decode_step`).
+
+Modes:
+  forward(..., mode="train")   -> (logits, aux)
+  forward(..., mode="prefill") -> (logits, aux, cache)  also seeds the caches
+  decode_step(...)             -> (logits, cache)       one token, ring caches
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..kernels.rwkv6_wkv.ops import wkv6
+from .attention import gqa_decode, gqa_forward, gqa_init, init_kv_cache
+from .layers import DTYPE, dense, dense_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .ssm import (init_rwkv6_state, rwkv6_channel_mix, rwkv6_init, rwkv6_time_mix,
+                  wkv6_scan_ref)
+
+__all__ = [
+    "LayerKind",
+    "Stage",
+    "stage_plan",
+    "init_params",
+    "params_from_jax",
+    "forward",
+    "decode_step",
+    "init_cache",
+    "clone_cache",
+    "cache_len_for",
+    "param_count",
+]
+
+ATTN_CHUNK = 1024  # query-chunked softmax ("ref") kicks in above 2x this seq length
+
+
+def _wkv_impl(cfg: ArchConfig):
+    """The WKV6 recurrence: the K5 wrapper (kernel on the card, plain
+    version on the CPU) for "pallas", the plain loop for "ref".  Prefill and
+    decode both take it."""
+    return wkv6 if cfg.rwkv_wkv_impl == "pallas" else wkv6_scan_ref
+
+
+# ==========================================================================
+# Stage planning
+# ==========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    mixer: str        # "attn" | "mla" | "rwkv" | "mamba"
+    ffn: str          # "dense" | "moe" | "rwkv_cm"
+    cross: bool = False
+
+    @property
+    def tag(self) -> str:
+        return f"{self.mixer}-{self.ffn}" + ("-x" if self.cross else "")
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    pattern: tuple[LayerKind, ...]
+    repeats: int
+
+
+PORTED_KINDS = (LayerKind("attn", "dense"), LayerKind("rwkv", "rwkv_cm"))
+
+
+def _kind_of(cfg: ArchConfig, i: int, *, decoder: bool) -> LayerKind:
+    if cfg.family == "ssm":
+        return LayerKind("rwkv", "rwkv_cm")
+    if cfg.family == "hybrid":
+        mixer = "attn" if cfg.is_attn_layer(i) else "mamba"
+    elif cfg.use_mla:
+        mixer = "mla"
+    else:
+        mixer = "attn"
+    ffn = "moe" if cfg.is_moe_layer(i) else "dense"
+    cross = decoder and cfg.is_encoder_decoder
+    return LayerKind(mixer, ffn, cross)
+
+
+def _smallest_period(kinds: list[LayerKind]) -> int:
+    n = len(kinds)
+    for p in range(1, n + 1):
+        if n % p == 0 and all(kinds[i] == kinds[i % p] for i in range(n)):
+            return p
+    return n
+
+
+def stage_plan(cfg: ArchConfig) -> list[Stage]:
+    kinds = [_kind_of(cfg, i, decoder=True) for i in range(cfg.n_layers)]
+    stages = []
+    start = 0
+    nd = cfg.n_dense_layers
+    if nd > 0 and nd < cfg.n_layers:
+        assert all(k == kinds[0] for k in kinds[:nd]), "dense prefix must be homogeneous"
+        stages.append(Stage(pattern=(kinds[0],), repeats=nd))
+        start = nd
+    rest = kinds[start:]
+    if rest:
+        p = _smallest_period(rest)
+        stages.append(Stage(pattern=tuple(rest[:p]), repeats=len(rest) // p))
+    return stages
+
+
+def _ported_plan(cfg: ArchConfig) -> list[Stage]:
+    """The stage plan, or NotImplementedError for a layer kind still to port."""
+    stages = stage_plan(cfg)
+    for st in stages:
+        for kind in st.pattern:
+            if kind not in PORTED_KINDS:
+                raise NotImplementedError(
+                    f"{cfg.name}: layer kind {kind.tag!r} is still to port to PyTorch "
+                    f"(ROADMAP.md, Queue 1 'LLM zoo'); the port runs "
+                    f"{[k.tag for k in PORTED_KINDS]}")
+    if cfg.is_encoder_decoder or cfg.mtp or cfg.use_mrope:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder, MTP and M-RoPE are "
+                                  "still to port (ROADMAP.md, Queue 1 'LLM zoo')")
+    return stages
+
+
+# ==========================================================================
+# Parameters
+# ==========================================================================
+
+def _init_sublayer(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind):
+    p: dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, gen.device)}
+    if kind.mixer == "attn":
+        p["attn"] = gqa_init(gen, cfg)
+    else:
+        p["rwkv"] = rwkv6_init(gen, cfg)
+    p["ln2"] = rmsnorm_init(cfg.d_model, gen.device)
+    if kind.ffn == "dense":
+        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.ffn_dense)
+    return p
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator):
+    """Random parameters on `gen`'s device, drawn from `gen` with the JAX
+    package's distributions (normal * scale stored bf16, f32 norms, RWKV
+    w0 = -6 and u = 0).  The two frameworks draw different numbers from one
+    seed: tests hand the JAX package's draws over with `params_from_jax`."""
+    stages = _ported_plan(cfg)
+    embed = torch.randn(cfg.vocab, cfg.d_model, generator=gen, device=gen.device) * 0.02
+    p: dict[str, Any] = {
+        "embed": {"w": embed.to(DTYPE)},
+        "final_ln": rmsnorm_init(cfg.d_model, gen.device),
+        "lm_head": dense_init(gen, cfg.d_model, cfg.vocab, scale=0.02),
+    }
+    del embed
+    for si, st in enumerate(stages):
+        for li, kind in enumerate(st.pattern):
+            p[f"s{si}_l{li}"] = [_init_sublayer(gen, cfg, kind) for _ in range(st.repeats)]
+    return p
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # numpy's bf16 extension type: move the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(cfg: ArchConfig, jax_params, device="cpu"):
+    """The port's parameters from the JAX package's `init_params` tree (its
+    leaves as numpy arrays, or anything np.asarray takes): each stacked
+    `s{si}_l{li}` group is unstacked along its leading `repeats` axis into
+    a list of per-layer dicts."""
+    stages = _ported_plan(cfg)
+    out: dict[str, Any] = {}
+    for name, sub in jax_params.items():
+        if name.startswith("s") and "_l" in name:
+            si, li = (int(x) for x in name[1:].split("_l"))
+            reps = stages[si].repeats
+            out[name] = [_tree_map(lambda a: _leaf_to_torch(np.asarray(a)[i], device), sub)
+                         for i in range(reps)]
+        else:
+            out[name] = _tree_map(lambda a: _leaf_to_torch(a, device), sub)
+    return out
+
+
+def param_count(params) -> int:
+    count = 0
+
+    def add(t):
+        nonlocal count
+        count += t.numel()
+
+    _tree_map(add, params)
+    return count
+
+
+# ==========================================================================
+# Full-sequence forward (train / prefill)
+# ==========================================================================
+
+def _sublayer_full(cfg, kind: LayerKind, p, x, positions, chunk: int, want_cache: bool):
+    """Returns (x, cache contribution)."""
+    cache: dict[str, Any] = {}
+    h_in = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind.mixer == "attn":
+        if want_cache:
+            h, (k_, v_) = gqa_forward(p["attn"], cfg, h_in, positions=positions, chunk=chunk,
+                                      return_kv=True)
+            cache = {"k": k_, "v": v_}
+        else:
+            h = gqa_forward(p["attn"], cfg, h_in, positions=positions, chunk=chunk)
+    else:
+        st = init_rwkv6_state(cfg, x.shape[0], x.device)
+        h, st = rwkv6_time_mix(p["rwkv"], cfg, h_in, st, wkv_impl=_wkv_impl(cfg))
+        if want_cache:
+            cache = {"rwkv": st}
+    x = x + h
+    if kind.ffn == "dense":
+        x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    else:
+        cm_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        y, cm_prev = rwkv6_channel_mix(p["rwkv"], cfg, cm_in, torch.zeros_like(x[:, 0]))
+        x = x + y
+        if want_cache:
+            cache["cm_prev"] = cm_prev
+    return x, cache
+
+
+def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headroom: int = 0):
+    """mode: "train" -> (logits, aux); "prefill" -> (logits, aux, cache).
+
+    batch["tokens"]: (B, S) integer tensor on the parameters' device.
+    cache_headroom: extra decode slots to allocate in the prefill cache
+    (full-attention configs need >= the number of tokens to decode)."""
+    stages = _ported_plan(cfg)
+    want_cache = mode == "prefill"
+    h = params["embed"]["w"][batch["tokens"].long()]
+    b, s, _ = h.shape
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
+    chunk = ATTN_CHUNK if s > 2 * ATTN_CHUNK else 0
+    all_caches = []
+    for si, st in enumerate(stages):
+        layers = [params[f"s{si}_l{li}"] for li in range(len(st.pattern))]
+        got: list[list] = [[] for _ in st.pattern]
+        for rep in range(st.repeats):
+            for li, kind in enumerate(st.pattern):
+                h, c = _sublayer_full(cfg, kind, layers[li][rep], h, positions, chunk,
+                                      want_cache)
+                got[li].append(c)
+        all_caches.append(got)
+    h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
+    logits = dense(params["lm_head"], h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if mode == "train":
+        return logits, aux
+    return logits, aux, _assemble_prefill_cache(cfg, stages, all_caches, s, cache_headroom)
+
+
+# ==========================================================================
+# Caches
+# ==========================================================================
+
+def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
+    """Physical cache length: sliding-window archs cap at the window."""
+    if cfg.sliding_window > 0:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def _stacked(t: torch.Tensor, repeats: int) -> torch.Tensor:
+    """`repeats` independent copies of t on a new leading axis (each layer
+    writes its own slice in place, so no stride-0 broadcast)."""
+    return t[None].repeat((repeats,) + (1,) * t.ndim)
+
+
+def _empty_sublayer_cache(cfg: ArchConfig, kind: LayerKind, batch: int, cache_len: int,
+                          device):
+    if kind.mixer == "attn":
+        c: dict[str, Any] = init_kv_cache(cfg, batch, cache_len, device)
+    else:
+        c = {"rwkv": init_rwkv6_state(cfg, batch, device)}
+    if kind.ffn == "rwkv_cm":
+        c["cm_prev"] = torch.zeros(batch, cfg.d_model, dtype=DTYPE, device=device)
+    return c
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device):
+    """Empty ring-buffer caches for every layer, stacked per stage pattern
+    slot."""
+    clen = cache_len_for(cfg, seq_len)
+    cache: dict[str, Any] = {}
+    for si, st in enumerate(_ported_plan(cfg)):
+        for li, kind in enumerate(st.pattern):
+            one = _empty_sublayer_cache(cfg, kind, batch, clen, device)
+            cache[f"s{si}_l{li}"] = _tree_map(lambda a: _stacked(a, st.repeats), one)
+    return cache
+
+
+def clone_cache(cache):
+    """A copy of a decode cache that `decode_step` may update without
+    touching the original."""
+    return _tree_map(torch.clone, cache)
+
+
+def _ring_from_prefill(seq_tensor, s, clen, seq_axis):
+    """Place prefill entries for positions [0, s) into a clen-slot ring so
+    that position p lands at slot p % clen (matching decode's write rule)."""
+    if clen >= s:
+        pad_shape = list(seq_tensor.shape)
+        pad_shape[seq_axis] = clen - s
+        pad = torch.zeros(pad_shape, dtype=seq_tensor.dtype, device=seq_tensor.device)
+        return torch.cat([seq_tensor, pad], dim=seq_axis)
+    taken = seq_tensor.narrow(seq_axis, s - clen, clen)
+    return torch.roll(taken, s % clen, dims=seq_axis)
+
+
+def _ring_positions(s, clen, repeats, device):
+    if clen >= s:
+        pos = torch.cat([torch.arange(s, dtype=torch.int32, device=device),
+                         torch.full((clen - s,), -1, dtype=torch.int32, device=device)])
+    else:
+        pos = torch.roll(torch.arange(s - clen, s, dtype=torch.int32, device=device), s % clen)
+    return _stacked(pos, repeats)
+
+
+def _assemble_prefill_cache(cfg, stages, all_caches, s, headroom):
+    """Convert prefill-collected K/V + states into decode ring caches."""
+    clen = cache_len_for(cfg, s + headroom)
+    cache: dict[str, Any] = {}
+    for si, st in enumerate(stages):
+        for li, kind in enumerate(st.pattern):
+            got = all_caches[si][li]
+            stack = lambda f: torch.stack([f(g) for g in got])   # noqa: E731
+            if kind.mixer == "attn":
+                device = got[0]["k"].device
+                c: dict[str, Any] = {
+                    "k": _ring_from_prefill(stack(lambda g: g["k"]), s, clen, 2),
+                    "v": _ring_from_prefill(stack(lambda g: g["v"]), s, clen, 2),
+                    "pos": _ring_positions(s, clen, st.repeats, device),
+                    "idx": torch.full((st.repeats,), s, dtype=torch.int32, device=device),
+                }
+            else:
+                c = {"rwkv": {"wkv": stack(lambda g: g["rwkv"]["wkv"]),
+                              "prev_tok": stack(lambda g: g["rwkv"]["prev_tok"])}}
+            if kind.ffn == "rwkv_cm":
+                c["cm_prev"] = stack(lambda g: g["cm_prev"])
+            cache[f"s{si}_l{li}"] = c
+    return cache
+
+
+# ==========================================================================
+# Decode
+# ==========================================================================
+
+def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos):
+    """Layer i of its group; reads and writes slice i of the group's cache
+    `c` in place."""
+    h_in = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind.mixer == "attn":
+        view = {name: c[name][i] for name in ("k", "v", "pos", "idx")}
+        h, _ = gqa_decode(p["attn"], cfg, h_in, view, cur_pos)
+    else:
+        st = {"wkv": c["rwkv"]["wkv"][i], "prev_tok": c["rwkv"]["prev_tok"][i]}
+        h, new = rwkv6_time_mix(p["rwkv"], cfg, h_in, st, wkv_impl=_wkv_impl(cfg))
+        st["wkv"].copy_(new["wkv"])
+        st["prev_tok"].copy_(new["prev_tok"])
+    x = x + h
+    if kind.ffn == "dense":
+        x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    else:
+        cm_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        y, prev = rwkv6_channel_mix(p["rwkv"], cfg, cm_in, c["cm_prev"][i])
+        x = x + y
+        c["cm_prev"][i].copy_(prev)
+    return x
+
+
+def decode_step(cfg: ArchConfig, params, batch, cache):
+    """One-token decode. batch: {"token": (B, 1) integer tensor, "pos": ()
+    integer tensor, the global position, both on the parameters' device}.
+    Updates `cache` IN PLACE (ring writes, write index, recurrent states)
+    and returns (logits (B, 1, V), cache); pass `clone_cache(cache)` to keep
+    the old one."""
+    cur_pos = batch["pos"]
+    h = params["embed"]["w"][batch["token"].long()]
+    for si, st in enumerate(_ported_plan(cfg)):
+        for rep in range(st.repeats):
+            for li, kind in enumerate(st.pattern):
+                h = _sublayer_decode(cfg, kind, params[f"s{si}_l{li}"][rep], h,
+                                     cache[f"s{si}_l{li}"], rep, cur_pos)
+    h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
+    return dense(params["lm_head"], h), cache

@@ -91,3 +91,33 @@ def inject_jax_draws(monkeypatch):
                 lambda: torch.from_numpy(next_u()).to(device))
 
     monkeypatch.setattr(port_sim, "training_draws", draws)
+
+
+# --------------------------------------------------------------------------
+# The model zoo (tests/test_torch_llm_*.py)
+# --------------------------------------------------------------------------
+
+def f32(x) -> np.ndarray:
+    """A JAX array, torch tensor or numpy array as float64 numpy (bf16 too)."""
+    if hasattr(x, "detach"):
+        return x.detach().float().cpu().numpy().astype(np.float64)
+    return np.asarray(jax.numpy.asarray(x).astype(jax.numpy.float32), np.float64)
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want|: the JAX package's serving metric
+    (tests/test_serving.py)."""
+    got, want = f32(got), f32(want)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+
+def bf16_ulp(x) -> np.ndarray:
+    """One bf16 ulp (8 significant bits) at |x|, elementwise."""
+    x = np.maximum(np.abs(np.asarray(x, np.float64)), 2.0**-126)
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def jax_llm_params(cfg, seed: int = 0):
+    """The JAX package's `init_params(cfg, PRNGKey(seed))` with numpy leaves."""
+    from repro.models.transformer import init_params
+    return jax.tree_util.tree_map(np.asarray, init_params(cfg, jax.random.PRNGKey(seed)))

@@ -6,19 +6,25 @@ imports no JAX, so it runs on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import WirelessConfig, is_infeasible
 from repro_torch.core.monotonic_torch import solve_pairs_fused, solve_pairs_step
 from repro_torch.fl import SimConfig, run_simulation
+from repro_torch.kernels import flash_attention, flash_attention_plain, wkv6, wkv6_plain
 from repro_torch.kernels.fedavg_agg import (fedavg_agg_plain, fedavg_aggregate,
                                             fedavg_aggregate_tree)
 from repro_torch.kernels.polyblock_fused.ops import (polyblock_solve_fused,
                                                      polyblock_solve_plain)
 from repro_torch.kernels.polyblock_project.ops import (polyblock_project,
                                                        project_bisect)
+from repro_torch.launch.serve import serve_loop
+from repro_torch.models.transformer import forward, init_params
 
 pytestmark = pytest.mark.cuda
 CFG = WirelessConfig()
@@ -197,3 +203,117 @@ def test_fedavg_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fedavg_aggregate(x, w.cpu())
     with pytest.raises(ValueError):
         fedavg_aggregate(x, w[:3])
+
+
+# --------------------------------------------------------------------------
+# K4 flash attention and K5 WKV6 (the model zoo's serving path)
+# --------------------------------------------------------------------------
+
+def _rel_max(got, want) -> float:
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _bf16_ulp(x):
+    x = x.double().abs().clamp_min(2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,window", [
+    (4, 512, 512, 28, 4, 128, 0),        # qwen2-7b prefill at the serving shape
+    (2, 100, 300, 8, 2, 128, 64),        # right-aligned queries, window, ragged tiles
+    (2, 64, 64, 4, 2, 64, 0),            # the smoke configs' head dim
+    (1, 33, 70, 7, 1, 64, 17)])
+def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, hq, hkv, d, window):
+    """Both accumulate in f32 and cast once: f32 within 1e-5 (summation
+    order, FMA), bf16 within one ulp plus that floor."""
+    gen = torch.Generator(dev).manual_seed(sq + window)
+    q = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    diff = (got.double() - want.double()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() < 1e-5
+    else:
+        assert bool((diff <= _bf16_ulp(torch.maximum(got.abs(), want.abs())) + 1e-5).all())
+
+
+@pytest.mark.parametrize("b,t,h,hs", [(4, 512, 64, 64), (4, 1, 64, 64), (3, 37, 5, 32)])
+def test_wkv6_kernel_matches_plain(dev, b, t, h, hs):
+    """The rwkv6-7b prefill and T = 1 decode shapes (and a smoke-size one),
+    random non-zero u and initial state: kernel and plain version make the
+    same f32 operations in the same order (one pairwise tree over i, no
+    contraction), so y and the final state agree to the bit."""
+    gen = torch.Generator(dev).manual_seed(t)
+    r, k, v = (torch.randn(b, t, h, hs, generator=gen, device=dev) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand(b, t, h, hs, generator=gen, device=dev) * 7 - 7))
+    u = torch.randn(h, hs, generator=gen, device=dev)
+    s0 = torch.randn(b, h, hs, hs, generator=gen, device=dev)
+    before = wkv6.launches
+    y, s = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    y_p, s_p = wkv6_plain(r, k, v, w, u, s0)
+    assert torch.equal(y, y_p) and torch.equal(s, s_p)
+
+
+def test_llm_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q = torch.randn(1, 16, 4, 64, device=dev, dtype=torch.bfloat16)
+    kv = torch.randn(1, 16, 2, 64, device=dev, dtype=torch.bfloat16)
+    for bad in (dict(q=q.half(), k=kv.half(), v=kv.half()),            # dtype
+                dict(q=q, k=kv.float(), v=kv),                          # mixed dtypes
+                dict(q=q.transpose(1, 2).contiguous().transpose(1, 2), k=kv, v=kv),  # layout
+                dict(q=q[..., :48].contiguous(), k=kv[..., :48].contiguous(),
+                     v=kv[..., :48].contiguous()),                      # head dim 48
+                dict(q=q[:, :, :3].contiguous(), k=kv, v=kv),           # Hq % Hkv
+                dict(q=torch.cat([q, q], 1), k=kv, v=kv),               # Sq > Sk
+                dict(q=q, k=kv.cpu(), v=kv)):                           # device
+        with pytest.raises(ValueError):
+            flash_attention(bad["q"], bad["k"], bad["v"], causal=True)
+    r = torch.randn(2, 3, 4, 32, device=dev)
+    u, s0 = torch.randn(4, 32, device=dev), torch.randn(2, 4, 32, 32, device=dev)
+    for bad in ((r.bfloat16(),) * 4 + (u, s0),                          # dtype
+                (r.transpose(1, 2).contiguous().transpose(1, 2), r, r, r, u, s0),  # layout
+                (r, r, r, r, u[:3], s0),                                # u shape
+                (r[..., :16].contiguous(),) * 4 + (u[:, :16].contiguous(),
+                                                   s0[..., :16, :16].contiguous()),  # hs 16
+                (r, r, r, r.cpu(), u, s0)):                             # device
+        with pytest.raises(ValueError):
+            wkv6(*bad)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b-smoke", "rwkv6-7b-smoke"])
+def test_serve_loop_on_the_card_goes_through_the_kernels(dev, arch):
+    """serve_loop with the kernel path on the card: K4 once per attention
+    layer (prefill), K5 once per RWKV layer in prefill and in each of the
+    new_tokens + 1 decode steps (warm-up included); prefill logits within
+    4e-2 of the same weights on the CPU's plain versions."""
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas", rwkv_wkv_impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = _to(params, dev)
+    flash_attention.launches = wkv6.launches = 0
+    res = serve_loop(cfg, batch=2, prompt_len=64, new_tokens=4, device=dev, params=on_card)
+    attn = cfg.family == "dense"
+    assert flash_attention.launches == (cfg.n_layers if attn else 0)
+    assert wkv6.launches == (0 if attn else cfg.n_layers * (1 + 4 + 1))
+    assert res.tokens.shape == (2, 5) and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=torch.Generator().manual_seed(1))
+    got = forward(cfg, on_card, {"tokens": toks.to(dev)})[0]
+    want = forward(cfg, params, {"tokens": toks})[0]
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel_max(got.float().cpu(), want.float()) < 4e-2
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

@@ -85,6 +85,7 @@ def test_package_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "print(' '.join(names))\n"
         "print(bad, len(names))\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(_SRC))
@@ -92,6 +93,11 @@ def test_package_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[-1]) >= 20          # every module was walked
+    walked = out.stdout.split()
+    for name in ("configs", "data.pipeline", "models.layers", "models.attention",
+                 "models.ssm", "models.transformer", "train.serve_step", "launch.serve",
+                 "kernels.flash_attention.ops", "kernels.rwkv6_wkv.ops"):
+        assert "repro_torch." + name in walked        # the model zoo's modules too
 
 
 def test_entry_points_refuse_a_silent_cpu():
