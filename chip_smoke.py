@@ -24,7 +24,9 @@ against the same runs on the CPU, and serves two 7B models of the model zoo
      a right-aligned, windowed shape (Sq < Sk); K5, the WKV6 recurrence, at
      rwkv6-7b's prefill shape (4 x 512 x 64 heads x 64) and its T = 1
      decode shape; each with its time on the card, as called, its bound,
-     the plain version's time and the library call's (SDPA for K4);
+     the plain version's time and the library call's (SDPA for K4); the
+     bf16 K4 entry's tensor-core instructions (SASS), shared memory and
+     registers, and K5's threads per block, shared memory and registers;
   7. the simulation's main paths, each driven with every launch counter
      set to 0 just before it and read just after:
      run_simulation(SimConfig(rounds=30)) — mnist MLP at full width, N=20,
@@ -718,6 +720,19 @@ def serve_phase(arch: str, kernel: str, expect: int) -> dict:
     return dict(launches=launches, first=first, warm=warm, err=err)
 
 
+def ptxas_lines(lib: str, kernel: str) -> list[str]:
+    """ptxas's report (-Xptxas=-v: registers, static shared memory, spills)
+    for every entry of library `lib` whose name contains `kernel`."""
+    out, keep = [], False
+    for ln in _build.build_info(lib)["log"].splitlines():
+        if "Compiling entry" in ln:
+            keep = kernel in ln
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif keep and ("Used" in ln or "spill" in ln):
+            out.append(f"{name}: {ln.strip()}")
+    return out or [f"{kernel}: no ptxas report in the build log of {lib}"]
+
+
 def assert_bitwise(a, b, what: str) -> None:
     """Every per-round field of two histories equal to the bit."""
     diff = []
@@ -805,6 +820,19 @@ def main() -> None:
 
     # ---- 6. K4 and K5 -----------------------------------------------------------
     qwen, rwkv = get_config("qwen2-7b"), get_config("rwkv6-7b")
+    fa_lib, wkv_lib = _build.load("flash_attention"), _build.load("rwkv6_wkv")
+    for fn, opcodes in _build.sass_opcodes("flash_attention", ("HGMMA", "HMMA")).items():
+        if "flash_fwd_bf16_wgmma" in fn:
+            line(f"K4 bf16 entry SASS, {fn}: tensor-core instructions "
+                 + " ".join(f"{op}={n}" for op, n in opcodes.items()))
+    line("K4 bf16 entry: dynamic shared memory "
+         + ", ".join(f"D={d}: {fa_lib.flash_attention_bf16_smem_bytes(d)} bytes" for d in (64, 128)))
+    for ln in ptxas_lines("flash_attention", "flash_fwd_bf16_wgmma"):
+        line("  ptxas: " + ln)
+    line(f"K5 wkv6_f32: {wkv_lib.wkv6_threads_per_block(rwkv.rwkv_head_size)} threads per block "
+         f"at hs={rwkv.rwkv_head_size}")
+    for ln in ptxas_lines("rwkv6_wkv", "wkv6_kernel"):
+        line("  ptxas: " + ln)
     b, s = SERVE["batch"], SERVE["prompt_len"]
     attn_shape = (b, s, s, qwen.n_heads, qwen.n_kv_heads, qwen.head_dim, 0)
     k4_main = check_k4(*attn_shape, torch.bfloat16, "main-path shape (qwen2-7b prefill)",

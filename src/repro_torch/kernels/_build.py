@@ -4,7 +4,8 @@ The sources in `repro_torch/csrc/` are compiled with `nvcc` on first use
 into a shared library with a plain C interface and loaded with `ctypes`
 (no PyTorch headers, so a build takes seconds).  The library lands in the
 checkout's `build/kernels/` directory, named by a hash of its source and
-flags, so an edited source is never served a stale build.
+flags, so an edited source is never served a stale build; nvcc's output
+(with ptxas's register report) is kept beside it as `<library>.log`.
 
 Nothing here runs at import: a CPU-only machine imports every module of
 the port without `nvcc`.
@@ -22,7 +23,7 @@ import time
 from pathlib import Path
 
 __all__ = ["load", "load_polyblock", "load_fedavg", "build_info", "check_launch",
-           "nvcc_flags", "LIBRARIES", "NVCC_FLAGS"]
+           "nvcc_flags", "sass_opcodes", "LIBRARIES", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -38,6 +39,8 @@ _EXTRA_FLAGS = {name: ("--fmad=false",) for name in ("polyblock", "fedavg_agg", 
 
 _P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 _F32 = ctypes.c_float
+_FLASH = [_P] * 4 + [_I32] * 6 + [_F32, _I32, _I32, _P]
+_WKV6 = [_P] * 8 + [_I32] * 4 + [_P]
 _PROJECT = [_P] * 5 + [_I64, _I32] + [_F64] * 5 + [_P]
 _SOLVE = [_P] * 8 + [_I64, _F64, _I32, _I32] + [_F64] * 6 + [_P]
 # One library per source file csrc/<name>.cu: its C functions' argtypes.
@@ -45,9 +48,9 @@ _SIGNATURES = {
     "polyblock": {"polyblock_project_f64": _PROJECT, "polyblock_project_f32": _PROJECT,
                   "polyblock_solve_f64": _SOLVE, "polyblock_solve_f32": _SOLVE},
     "fedavg_agg": {"fedavg_agg_f32": [_P, _P, _P, _I32, _I64, _P]},
-    "flash_attention": {f"flash_attention_{t}": [_P] * 4 + [_I32] * 6 + [_F32, _I32, _I32, _P]
-                        for t in ("f32", "bf16")},
-    "rwkv6_wkv": {"wkv6_f32": [_P] * 8 + [_I32] * 4 + [_P]},
+    "flash_attention": {"flash_attention_f32": _FLASH, "flash_attention_bf16": _FLASH,
+                        "flash_attention_bf16_smem_bytes": [_I32]},
+    "rwkv6_wkv": {"wkv6_f32": _WKV6, "wkv6_threads_per_block": [_I32]},
 }
 LIBRARIES = tuple(_SIGNATURES)
 
@@ -57,15 +60,16 @@ _libs: dict[str, ctypes.CDLL] = {}
 _info: dict[str, dict] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str) -> str:
+    """A CUDA toolkit program (nvcc, cuobjdump), from PATH or CUDA_HOME."""
+    found = shutil.which(name)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(cuda_home) / "bin" / "nvcc"
+    path = Path(cuda_home) / "bin" / name
     if not path.exists():
         raise RuntimeError(
-            "nvcc not found (looked on PATH and under CUDA_HOME); the CUDA "
+            f"{name} not found (looked on PATH and under CUDA_HOME); the CUDA "
             "toolkit is needed to build the port's kernels")
     return str(path)
 
@@ -82,13 +86,15 @@ def _build(name: str, sources: list[Path]) -> Path:
         digest.update(src.read_bytes())
     digest.update(" ".join(flags).encode())
     lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    log = lib.with_name(lib.name + ".log")
     if lib.exists():
-        _info[name] = {"library": str(lib), "seconds": 0.0, "cached": True, "log": ""}
+        _info[name] = {"library": str(lib), "seconds": 0.0, "cached": True,
+                       "log": log.read_text() if log.exists() else ""}
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sources)]
+    cmd = [_tool("nvcc"), *flags, "-o", tmp, *map(str, sources)]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -96,6 +102,7 @@ def _build(name: str, sources: list[Path]) -> Path:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                 f"{proc.stdout}\n{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
@@ -133,6 +140,27 @@ def build_info(name: str = "polyblock") -> dict:
     """Library path, build seconds and nvcc's output (with `-Xptxas=-v`'s
     register and spill report) of the last build of `name`."""
     return dict(_info.get(name, {}))
+
+
+def sass_opcodes(name: str, opcodes: tuple[str, ...]) -> dict[str, dict[str, int]]:
+    """How often each of `opcodes` (e.g. "HGMMA") occurs in the SASS of
+    every kernel of library `name`, by `cuobjdump -sass` of its built
+    library: {mangled kernel name: {opcode: count}}.  Loads (and so builds)
+    the library first."""
+    load(name)
+    out = subprocess.run([_tool("cuobjdump"), "-sass", _info[name]["library"]],
+                         capture_output=True, text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            current = counts.setdefault(ln.split("Function :", 1)[1].strip(),
+                                        dict.fromkeys(opcodes, 0))
+        elif current is not None and "/*" in ln:
+            words = ln.split("*/", 1)[-1].replace(";", " ").split()
+            for op in opcodes:
+                current[op] += sum(w == op or w.startswith(op + ".") for w in words)
+    return counts
 
 
 def check_launch(err: int, what: str) -> None:

@@ -2,8 +2,10 @@
 
   flash_attention       -- q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) in the
                            model's layout -> (B, Sq, Hq, D): the wrapper of
-                           `flash_fwd_kernel` (csrc/flash_attention.cu), which
-                           replaces the Pallas kernel
+                           csrc/flash_attention.cu's kernels,
+                           `flash_fwd_bf16_wgmma` (bf16, tensor cores) and
+                           `flash_fwd_kernel` (f32), which replace the Pallas
+                           kernel
                            `kernels/flash_attention/kernel.py::flash_attention_kernel`;
   flash_attention_plain -- the plain torch version (`.ref`).
 
@@ -29,8 +31,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     output in q's dtype.
 
     On the card q, k and v are contiguous, of one dtype (bf16 or f32) and on
-    one device, with D in HEAD_DIMS, Hq a multiple of Hkv and Sq <= Sk;
-    anything else raises."""
+    one device, with D in HEAD_DIMS, Hq a multiple of Hkv and Sq <= Sk; in
+    bf16 they also start on a 16-byte boundary (the kernel reads them by
+    TMA); anything else raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -47,6 +50,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"q is {q.dtype} on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: bf16 {name} does not start on a 16-byte "
+                             "boundary, which the kernel's TMA loads need")
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:

@@ -16,7 +16,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import WirelessConfig, is_infeasible
 from repro_torch.core.monotonic_torch import solve_pairs_fused, solve_pairs_step
 from repro_torch.fl import SimConfig, run_simulation
-from repro_torch.kernels import flash_attention, flash_attention_plain, wkv6, wkv6_plain
+from repro_torch.kernels import _build, flash_attention, flash_attention_plain, wkv6, wkv6_plain
 from repro_torch.kernels.fedavg_agg import (fedavg_agg_plain, fedavg_aggregate,
                                             fedavg_aggregate_tree)
 from repro_torch.kernels.polyblock_fused.ops import (polyblock_solve_fused,
@@ -224,7 +224,9 @@ def _bf16_ulp(x):
     (4, 512, 512, 28, 4, 128, 0),        # qwen2-7b prefill at the serving shape
     (2, 100, 300, 8, 2, 128, 64),        # right-aligned queries, window, ragged tiles
     (2, 64, 64, 4, 2, 64, 0),            # the smoke configs' head dim
-    (1, 33, 70, 7, 1, 64, 17)])
+    (1, 33, 70, 7, 1, 64, 17),
+    (8, 200, 333, 28, 4, 128, 0),        # more query blocks than SMs; Sq, Sk off the tiles
+    (1, 130, 260, 4, 4, 64, 100)])       # G = 1, a window across a tile edge
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, hq, hkv, d, window):
     """Both accumulate in f32 and cast once: f32 within 1e-5 (summation
     order, FMA), bf16 within one ulp plus that floor."""
@@ -245,7 +247,8 @@ def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, hq, hkv, d, window):
         assert bool((diff <= _bf16_ulp(torch.maximum(got.abs(), want.abs())) + 1e-5).all())
 
 
-@pytest.mark.parametrize("b,t,h,hs", [(4, 512, 64, 64), (4, 1, 64, 64), (3, 37, 5, 32)])
+@pytest.mark.parametrize("b,t,h,hs", [(4, 512, 64, 64), (4, 1, 64, 64), (3, 37, 5, 32),
+                                      (2, 70, 3, 64)])      # ragged: the last 16-step chunk holds 6
 def test_wkv6_kernel_matches_plain(dev, b, t, h, hs):
     """The rwkv6-7b prefill and T = 1 decode shapes (and a smoke-size one),
     random non-zero u and initial state: kernel and plain version make the
@@ -262,6 +265,36 @@ def test_wkv6_kernel_matches_plain(dev, b, t, h, hs):
     assert wkv6.launches == before + 1
     y_p, s_p = wkv6_plain(r, k, v, w, u, s0)
     assert torch.equal(y, y_p) and torch.equal(s, s_p)
+
+
+def test_flash_bf16_kernel_runs_on_the_tensor_cores(dev):
+    """The bf16 K4 entry's kernel (both head dims) issues wgmma: HGMMA in
+    its SASS; the f32 SIMT kernel issues none."""
+    counts = _build.sass_opcodes("flash_attention", ("HGMMA", "HMMA"))
+    tc = {name: c for name, c in counts.items() if "flash_fwd_bf16_wgmma" in name}
+    assert len(tc) == 2, sorted(counts)
+    assert all(c["HGMMA"] > 0 for c in tc.values()), tc
+    simt = {name: c for name, c in counts.items() if "flash_fwd_kernel" in name}
+    assert simt and all(c["HGMMA"] == 0 and c["HMMA"] == 0 for c in simt.values()), simt
+
+
+def test_flash_bf16_rejects_a_view_off_the_16_byte_boundary(dev):
+    """The bf16 kernel reads q, k and v by TMA, which needs them 16-byte
+    aligned: a contiguous view at an odd offset raises a ValueError that
+    says so, and the same view in f32 (SIMT kernel) still runs."""
+    shape = (1, 16, 4, 64)
+    for dtype in (torch.bfloat16, torch.float32):
+        flat = torch.randn(1 + 16 * 4 * 64, device=dev).to(dtype)
+        odd = flat[1:].view(shape)
+        kv = torch.randn(1, 16, 2, 64, device=dev).to(dtype)
+        assert odd.is_contiguous() and odd.data_ptr() % 16
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="16-byte"):
+                flash_attention(odd, kv, kv, causal=True)
+        else:
+            got = flash_attention(odd, kv, kv, causal=True)
+            want = flash_attention_plain(odd, kv, kv, causal=True)
+            assert (got - want).abs().max().item() < 1e-5
 
 
 def test_llm_wrappers_reject_what_the_kernels_do_not_take(dev):

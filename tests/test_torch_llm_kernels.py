@@ -5,6 +5,11 @@ of kernels K4 (flash attention) and K5 (the WKV6 recurrence).
 The JAX K4 runs as its Pallas kernel in interpret mode.  The JAX K5 kernel
 does not run under the installed jax (its `pl.store` is gone), so K5's
 plain version is held to the kernel's own oracle, `wkv6_scan_ref`.
+
+The CUDA kernels' numerics are held here too, by torch emulations of their
+arithmetic: the bf16 tensor-core K4's split of P into bf16 p_hi + p_lo
+against the card's gate, and K5's tree sum spread over threads against
+the plain version's tree, to the bit.
 """
 from _torch_oracle import bf16_ulp, f32, rel_max  # noqa: I001  (alias first)
 
@@ -20,6 +25,7 @@ from repro.models import layers as JL
 from repro.models.ssm import wkv6_scan_ref
 from repro_torch.data.pipeline import synthetic_token_batch
 from repro_torch.kernels import flash_attention, flash_attention_plain, wkv6, wkv6_plain
+from repro_torch.kernels.rwkv6_wkv.ref import _tree_sum
 from repro_torch.models import layers as TL
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -149,6 +155,73 @@ def test_flash_wrapper_runs_the_plain_version_on_the_cpu():
     assert flash_attention.launches == before          # no kernel launched on the CPU
 
 
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """bf16(x) as the kernel rounds it, by integer work: 0x8000 added to the
+    bits of f32 x, the low 16 cleared (to nearest, ties away from zero)."""
+    return ((x.view(torch.int32) + 0x8000) & -65536).view(torch.float32)
+
+
+def _flash_split_p(q, k, v, *, window, tile=64, split=True):
+    """The bf16 tensor-core K4's arithmetic (csrc/flash_attention.cu,
+    flash_fwd_bf16_wgmma) in torch: f32 scores in the log2 domain, the
+    online softmax over tiles of 64 keys, and each tile's probabilities
+    split into bf16 p_hi + p_lo (p_hi = bf16(p), p_lo = bf16(p - p_hi)),
+    both multiplied by V and accumulated in f32; one cast at the end.
+    split=False drops p_lo (P rounded to bf16 once, to nearest)."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale_log2 = torch.tensor(d**-0.5, dtype=torch.float32) * torch.tensor(1.4426950408889634,
+                                                                            dtype=torch.float32)
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale_log2
+    rows = torch.arange(sq)[:, None] + (sk - sq)
+    cols = torch.arange(sk)[None, :]
+    mask = cols <= rows
+    if window > 0:
+        mask &= cols > rows - window
+    s = torch.where(mask, s, -1e30)
+    m = torch.full(s.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (d,))
+    for k0 in range(0, sk, tile):
+        x, vt = s[..., k0:k0 + tile], v.float()[:, k0:k0 + tile]
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        if split:
+            hi = _bf16_round(p)
+            lo = _bf16_round(p - hi)
+        else:
+            hi, lo = p.bfloat16().float(), torch.zeros_like(p)
+        pv = (torch.einsum("bhgqk,bkhd->bhgqd", hi, vt)
+              + torch.einsum("bhgqk,bkhd->bhgqd", lo, vt))
+        acc = acc * alpha + pv
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("g", [1, 7])
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (100, 230)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_split_p_stays_within_the_card_gate(d, sq, sk, window, g):
+    """The bf16 K4 kernel's P.V with P split into bf16 p_hi + p_lo stays
+    within the card's gate (chip_smoke.py, tests/test_torch_cuda.py) of the
+    plain version: one bf16 ulp plus 1e-5 on every output.  P rounded to
+    bf16 alone breaks it."""
+    (_, _, _), (qt, kt, vt) = _qkv(1, sq, sk, 2 * g, 2, d, "bf16", d + sq + window + g)
+    want = flash_attention_plain(qt, kt, vt, causal=True, window=window)
+
+    def within_gate(got):
+        diff = np.abs(f32(got) - f32(want))
+        return diff <= bf16_ulp(np.maximum(np.abs(f32(got)), np.abs(f32(want)))) + 1e-5
+
+    assert np.all(within_gate(_flash_split_p(qt, kt, vt, window=window)))
+    assert not np.all(within_gate(_flash_split_p(qt, kt, vt, window=window, split=False)))
+
+
 # --------------------------------------------------------------------------
 # K5: the WKV6 recurrence
 # --------------------------------------------------------------------------
@@ -160,6 +233,61 @@ def _wkv_inputs(b, t, h, hs, seed):
     u = rng.standard_normal((h, hs)).astype(np.float32)
     s0 = rng.standard_normal((b, h, hs, hs)).astype(np.float32)
     return r, k, v, w, u, s0
+
+
+def _split_tree_sum(x: torch.Tensor, tpc: int) -> torch.Tensor:
+    """The K5 kernel's sum over the last dim with `tpc` threads per column
+    (csrc/rwkv6_wkv.cu): thread c owns the entries i = c, c + tpc, ...,
+    sums them by its own pairwise tree, and the last log2(tpc) levels add
+    thread c + off's partial sum into thread c's for off = tpc/2, ..., 1."""
+    lanes = [_tree_sum(x[..., c::tpc], dim=-1) for c in range(tpc)]
+    off = tpc // 2
+    while off:
+        lanes = [lanes[c] + lanes[c + off] for c in range(off)]
+        off //= 2
+    return lanes[0]
+
+
+@pytest.mark.parametrize("tpc", [2, 4, 8])
+@pytest.mark.parametrize("hs", [32, 64])
+def test_wkv6_split_tree_is_the_plain_tree(hs, tpc):
+    """The tree spread over tpc threads is the plain version's `_tree_sum`,
+    to the bit, on sums whose terms span six decades (where any other
+    order, such as a left fold, rounds differently)."""
+    rng = np.random.default_rng(hs * tpc)
+    x = torch.from_numpy((rng.standard_normal((4096, hs))
+                          * 10.0 ** rng.uniform(-3, 3, (4096, hs))).astype(np.float32))
+    want = _tree_sum(x, dim=-1)
+    assert torch.equal(_split_tree_sum(x, tpc), want)
+    fold = x[:, 0]
+    for i in range(1, hs):
+        fold = fold + x[:, i]
+    assert not torch.equal(fold, want)               # the data can tell orders apart
+
+
+def _wkv6_split(r, k, v, w, u, state, tpc):
+    """`wkv6_plain` with the sum over i taken as the K5 kernel takes it with
+    `tpc` threads per column."""
+    s, ys = state, []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        a = s + u[None, :, :, None] * kv
+        ys.append(_split_tree_sum((r_t[..., :, None] * a).transpose(-1, -2), tpc))
+        s = w_t[..., None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
+@pytest.mark.parametrize("tpc", [4, 8])
+@pytest.mark.parametrize("t", [1, 7, 37])
+def test_wkv6_split_matches_plain_bitwise(t, tpc):
+    """The K5 kernel's arithmetic with 4 or 8 threads per column gives the
+    plain version's y and final state to the bit (hs 64, random non-zero u
+    and initial state)."""
+    args = [torch.from_numpy(a) for a in _wkv_inputs(2, t, 3, 64, 100 + t)]
+    y, s = _wkv6_split(*args, tpc)
+    y_p, s_p = wkv6_plain(*args)
+    assert torch.equal(y, y_p) and torch.equal(s, s_p)
 
 
 @pytest.mark.parametrize("t", [1, 7, 128])
