@@ -15,10 +15,15 @@ against the same runs on the CPU, and serves two 7B models of the model zoo
      float32, at 2 x 131072 vertices and at the main path's shape;
   4. K1, the whole Algorithm-1 solve, against its plain version, float64
      and float32, at 32768 devices x 4 sub-channels and at the main path's
-     shape;
+     shape; at both, the one-thread-per-pair schedule and the cooperative
+     one at 4, 8 and 16 lanes per child timed side by side and held
+     bitwise equal, with each one's critical path (the longest pair's
+     dependent evaluations of g at the measured latency per evaluation);
   5. K3, the eq.-34 weighted mean, against its plain version (random,
-     all-zero and single-slot weights) at the main path's shapes (the six
-     mnist-MLP leaves, K = 4) and at K = 16, N = 2^25;
+     all-zero and single-slot weights, bitwise) at the main path's shapes
+     (the six mnist-MLP leaves, K = 4, one grouped launch, timed on the card
+     and as called beside the same leaves one launch each) and at K = 16,
+     N = 2^25;
   6. K4, flash attention, against its plain version at qwen2-7b's prefill
      shape (B 4, S 512, Hq 28, Hkv 4, D 128, causal) in bf16 and f32 and at
      a right-aligned, windowed shape (Sq < Sk); K5, the WKV6 recurrence, at
@@ -79,7 +84,8 @@ from repro_torch.fl import SimConfig, run_simulation  # noqa: E402
 from repro_torch.fl.sim import _prepare  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.data.pipeline import synthetic_token_batch  # noqa: E402
-from repro_torch.kernels.fedavg_agg import fedavg_agg_plain, fedavg_aggregate  # noqa: E402
+from repro_torch.kernels.fedavg_agg import (  # noqa: E402
+    fedavg_agg_plain, fedavg_aggregate, fedavg_aggregate_leaves)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain  # noqa: E402
@@ -87,7 +93,7 @@ from repro_torch.launch.serve import serve_loop  # noqa: E402
 from repro_torch.models.transformer import forward, init_params  # noqa: E402
 from repro_torch.models.small import get_small_model  # noqa: E402
 from repro_torch.kernels.polyblock_fused.ops import (  # noqa: E402
-    polyblock_solve_fused, polyblock_solve_plain)
+    LANES, coop_lanes, polyblock_solve_fused, polyblock_solve_plain)
 from repro_torch.kernels.polyblock_project.ops import (  # noqa: E402
     polyblock_project, project_bisect)
 
@@ -283,7 +289,27 @@ def fmt(share, errs, dt, n_rest) -> str:
             f"max_abs_dT_rest={dt:.2e}")
 
 
-def check_k1(beta64, h264, e64, cfg, label: str, reps: int) -> dict:
+def chain_calls(beta, h2, e_max, iters, cfg, lanes: int, n_bisect: int = 60) -> int:
+    """Dependent evaluations of g on the longest pair's serial chain: one
+    lane per pair runs 1 + 2 * iters projections one after the other,
+    2L lanes run the two children of an iteration at once (1 + iters deep)
+    and 60 halvings in ceil(60 / d) speculative rounds (L = 2^d); each
+    projection first tests its vertex, and halves only outside G.  The
+    cooperative count is an upper bound: its rounds evaluate nothing once
+    the bracket settles at float precision (~24 halvings in float32, ~53 in
+    float64)."""
+    one = torch.ones(beta.shape[0], 2, dtype=beta.dtype, device=beta.device)
+    need0 = project_need(one, beta, h2, e_max, cfg).long()
+    it = iters.long()
+    if lanes == 1:
+        calls = (1 + 2 * it) * (1 + need0 * n_bisect)
+    else:
+        d = lanes.bit_length() - 1
+        calls = (1 + it) * (1 + need0 * -(-n_bisect // d))
+    return int(calls.max())
+
+
+def check_k1(beta64, h264, e64, cfg, label: str, reps: int, bulk_iters: int = 0) -> dict:
     """float64: against the plain float64 version under the trajectory
     contract of the JAX package's float32 study (tests/test_kernels.py) —
     > 97% of pairs on its trajectory, within 1e-9 relative there, |dT| <= eps
@@ -293,7 +319,15 @@ def check_k1(beta64, h264, e64, cfg, label: str, reps: int) -> dict:
     |dT| <= eps off trajectory) hold on its 140-pair grid but not at 10^5
     pairs, for the plain float32 version as much as for the kernel: float32
     noise moves tau and p of flat optima by percents and re-routes a few
-    slow pairs (T ~ 10^3 s) to a stop up to ~2.5e-3 away."""
+    slow pairs (T ~ 10^3 s) to a stop up to ~2.5e-3 away.
+
+    Then every schedule (LANES: one thread per pair, 4, 8 and 16 lanes per
+    child) must give the one-lane schedule's bits, and each is timed in
+    this run (CUDA events, queue prefilled) beside its critical path: its
+    `chain_calls` at the latency per evaluation the one-lane time implies.
+    With `bulk_iters`, the chosen and the one-lane schedules are timed once
+    more with every pair cut at that many iterations: the batch's bulk
+    without its few long pairs' chains."""
     out = {}
     p64 = None
     for dtype in (torch.float64, torch.float32):
@@ -314,15 +348,43 @@ def check_k1(beta64, h264, e64, cfg, label: str, reps: int) -> dict:
                         "plain f32 vs plain f64: " + fmt(*trajectory(want, p64)))
         max_abs = max(float((g.double() - w.double()).abs().max())
                       for g, w in zip(got[:3], want[:3]))
-        ms = time_ms(lambda: polyblock_solve_fused(*args, cfg), reps)
+        one_lane = polyblock_solve_fused(*args, cfg, lanes=1)
+        sched = {}
+        for lanes in LANES:
+            res = polyblock_solve_fused(*args, cfg, lanes=lanes)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(res, one_lane))
+            if not bitwise:
+                raise AssertionError(f"K1 {label} {dtype}: lanes={lanes} differs from "
+                                     "the one-lane schedule")
+            ms_l = time_ms(lambda: polyblock_solve_fused(*args, cfg, lanes=lanes), reps,
+                           prefill=True)
+            sched[lanes] = (ms_l, chain_calls(*args, got[3], cfg, lanes))
+        per_call_ns = sched[1][0] / sched[1][1] * 1e6
+        chosen = coop_lanes(beta64.shape[0])
+        ms = sched[chosen][0]
         plain_ms = time_ms(lambda: polyblock_solve_plain(*args, cfg), 1)
         ops = k1_ops(*args, got[3], cfg)
         nbytes = beta64.shape[0] * (6 * args[0].element_size() + 4)
         b_ms, b_by = bound_ms(ops, nbytes, dtype)
+        crit_ms = sched[chosen][1] * per_call_ns * 1e-6
         line(f"K1 {label} {str(dtype)[6:]}: pairs={beta64.shape[0]} {verdict} "
              f"mean_iters={float(got[3].double().mean()):.3f} max_iters={int(got[3].max())} "
-             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms={b_ms:.5f} ({b_by}) "
+             f"lanes={chosen} kernel_ms={ms:.4f} plain_ms={plain_ms:.2f} "
+             f"bound_ms={b_ms:.5f} ({b_by}) critical_path_ms={crit_ms:.4f} "
              f"speedup_vs_plain={plain_ms / ms:.1f}x")
+        line(f"  schedules, bitwise equal to lanes=1: True; latency per evaluation of g "
+             f"(lanes=1 ms / its chain) {per_call_ns:.1f} ns; "
+             + "; ".join(f"lanes={k}: kernel_ms={v[0]:.4f} chain={v[1]} "
+                         f"critical_path_ms={v[1] * per_call_ns * 1e-6:.4f}"
+                         for k, v in sched.items()))
+        if bulk_iters:
+            cut = []
+            for lanes in (chosen, 1):
+                cut_ms = time_ms(lambda: polyblock_solve_fused(
+                    *args, cfg, max_iter=bulk_iters, lanes=lanes), reps, prefill=True)
+                cut.append(f"lanes={lanes}: kernel_ms={cut_ms:.4f}")
+            line(f"  bulk alone, every pair cut at max_iter={bulk_iters}: " + "; ".join(cut))
         if not ok:
             raise AssertionError(f"K1 {label} {dtype}: kernel disagrees with plain")
         out[dtype] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
@@ -342,54 +404,59 @@ def k3_weight_cases(k: int, gen) -> list[tuple[str, torch.Tensor]]:
 
 
 def check_k3(xs: list[torch.Tensor], label: str, reps: int, plain_reps: int) -> dict:
-    """The kernel against its plain version on each (K, N) tensor of `xs`
-    (one call per tensor, as the server calls it once per leaf), for random,
+    """The kernel against its plain version on the (K, n_i) leaves `xs` of
+    one aggregation (one grouped call, as the server makes it), for random,
     all-zero and single-slot weights.  Both make the same float32
-    operations in the same order, so they must agree to 1e-6 relative (and
-    in practice to the bit); all-zero weights must give exactly 0 and a
-    single non-zero slot exactly that slot.  Times are for the whole list:
-    one aggregation's launches: `ms`, `plain_ms` and `library_ms` are the
-    card's own time (queue prefilled, see `time_ms`), `host_ms` the
-    kernel's time as a caller sees it, host enqueue included.  A prefilled
-    timing keeps its launches (reps x launches per call) below ~1000, the
-    depth of the card's launch queue: past it the host blocks, and the
-    card catches up before the host has enqueued everything."""
+    operations in the same order, so they must agree to the bit; all-zero
+    weights must give exactly 0 and a single non-zero slot exactly that
+    slot.  Times are for the whole aggregation: `ms`, `plain_ms` and
+    `library_ms` (`torch.matmul` per leaf) are the card's own time (queue
+    prefilled, see `time_ms`), `host_ms` the kernel's time as a caller sees
+    it, host enqueue included; `per_leaf` the same leaves one call (and
+    launch) each.  A prefilled timing keeps its launches (reps x launches
+    per call) below ~1000, the depth of the card's launch queue: past it
+    the host blocks, and the card catches up before the host has enqueued
+    everything."""
     gen = torch.Generator(DEV).manual_seed(len(xs))
     k = xs[0].shape[0]
-    max_abs, bitwise = 0.0, True
+    max_abs = 0.0
     for case, w in k3_weight_cases(k, gen):
-        for x in xs:
-            got = fedavg_aggregate(x, w)
+        before = fedavg_aggregate_leaves.launches
+        got = fedavg_aggregate_leaves(xs, w)
+        torch.cuda.synchronize()
+        launches = fedavg_aggregate_leaves.launches - before
+        for g, x in zip(got, xs):
             want = fedavg_agg_plain(x, w)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
+            err = float((g - want).abs().max())
             max_abs = max(max_abs, err)
-            bitwise &= bool(torch.equal(got, want))
-            if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
-                raise AssertionError(f"K3 {label} {case}: kernel disagrees with plain "
+            if not torch.equal(g, want):
+                raise AssertionError(f"K3 {label} {case}: kernel differs from plain "
                                      f"(max_abs {err:.3e})")
-            if case == "all_zero" and bool(got.any()):
+            if case == "all_zero" and bool(g.any()):
                 raise AssertionError(f"K3 {label}: all-zero weights did not give 0")
-            if case == "one_slot" and not torch.equal(got, x[k // 2]):
+            if case == "one_slot" and not torch.equal(g, x[k // 2]):
                 raise AssertionError(f"K3 {label}: one slot did not give that slot")
+        if launches != 1:
+            raise AssertionError(f"K3 {label}: {launches} launches for one aggregation")
     w = k3_weight_cases(k, gen)[0][1]
     w_hat = w / w.sum()
-    host_ms = time_ms(lambda: [fedavg_aggregate(x, w) for x in xs], reps)
-    ms = time_ms(lambda: [fedavg_aggregate(x, w) for x in xs], reps, prefill=True)
+    host_ms = time_ms(lambda: fedavg_aggregate_leaves(xs, w), reps)
+    ms = time_ms(lambda: fedavg_aggregate_leaves(xs, w), reps, prefill=True)
+    leaf_host_ms = time_ms(lambda: [fedavg_aggregate(x, w) for x in xs], reps)
+    leaf_ms = time_ms(lambda: [fedavg_aggregate(x, w) for x in xs], reps, prefill=True)
     plain_ms = time_ms(lambda: [fedavg_agg_plain(x, w) for x in xs], plain_reps,
                        prefill=True)
     library_ms = time_ms(lambda: [torch.matmul(w_hat, x) for x in xs], reps, prefill=True)
     n_total = sum(x.shape[1] for x in xs)
     b_ms, b_by = bound_ms(2 * k * n_total, (k + 1) * n_total * 4, torch.float32)
-    line(f"K3 {label}: K={k} N={'+'.join(str(x.shape[1]) for x in xs)} launches={len(xs)} "
-         f"max_abs_err={max_abs:.3e} bitwise_equal_plain={bitwise} kernel_ms={ms:.4f} "
+    line(f"K3 {label}: K={k} N={'+'.join(str(x.shape[1]) for x in xs)} launches=1 "
+         f"max_abs_err={max_abs:.3e} bitwise_equal_plain=True kernel_ms={ms:.4f} "
          f"kernel_ms_with_host_enqueue={host_ms:.4f} "
          f"plain_ms={plain_ms:.4f} library_ms(matmul)={library_ms:.4f} "
          f"bound_ms={b_ms:.5f} ({b_by}) achieved_GB/s={(k + 1) * n_total * 4 / ms / 1e6:.1f}")
     if len(xs) > 1:
-        for x in xs:
-            leaf_ms = time_ms(lambda: fedavg_aggregate(x, w), reps, prefill=True)
-            line(f"  leaf N={x.shape[1]}: kernel_ms={leaf_ms:.4f}")
+        line(f"  per leaf, one launch each ({len(xs)} launches): kernel_ms={leaf_ms:.4f} "
+             f"kernel_ms_with_host_enqueue={leaf_host_ms:.4f}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms)
 
@@ -508,7 +575,7 @@ def check_k5(b, t, h, hs, label: str, reps: int) -> dict:
 
 COUNTERS = {"polyblock_fused": polyblock_solve_fused,
             "polyblock_project": polyblock_project,
-            "fedavg_agg": fedavg_aggregate,
+            "fedavg_agg": fedavg_aggregate_leaves,
             "flash_attention": flash_attention,
             "rwkv6_wkv": wkv6}
 
@@ -802,7 +869,7 @@ def main() -> None:
          f"{int(keep.sum())} Prop-1 feasible pairs")
     check_k1(to(beta_mat[keep]), to(h2_mat[keep]),
              to(np.full(int(keep.sum()), cfg_w.e_max_j)), cfg_w,
-             f"{n_dev}x{k_sub}", reps=10)
+             f"{n_dev}x{k_sub}", reps=10, bulk_iters=9)
     main_cfg = SimConfig(rounds=30)
     mb, mh, me, mcfg = main_path_pairs(main_cfg)
     k1_main = check_k1(to(mb), to(mh), to(me), mcfg, "main-path shape (rounds=30)",
@@ -847,11 +914,11 @@ def main() -> None:
                          reps=200)
 
     # ---- 7. the simulation's main paths ---------------------------------------
-    _, loop_launches = drive(main_cfg, ("polyblock_fused", "fedavg_agg"))
-    _, step_launches = drive(step_cfg, ("polyblock_project", "fedavg_agg"), ra_solver="step")
+    loop, loop_launches = drive(main_cfg, ("polyblock_fused", "fedavg_agg"))
+    step, step_launches = drive(step_cfg, ("polyblock_project", "fedavg_agg"), ra_solver="step")
     scan, scan_launches = drive(main_cfg, ("polyblock_fused", "fedavg_agg"), engine="scan")
-    _, async_launches = drive(dataclasses.replace(main_cfg, aggregation="async"),
-                              ("polyblock_fused", "fedavg_agg"), engine="async")
+    asy, async_launches = drive(dataclasses.replace(main_cfg, aggregation="async"),
+                                ("polyblock_fused", "fedavg_agg"), engine="async")
     full, _, _, _ = run_on_card(dataclasses.replace(main_cfg, aggregation="async_full"),
                                 engine="async")
     assert_bitwise(full, scan, "async_full vs scan on the card")
@@ -860,10 +927,19 @@ def main() -> None:
     count_syncs(main_cfg)
     count_syncs(main_cfg, engine="scan")
     count_syncs(dataclasses.replace(main_cfg, aggregation="async"), engine="async")
-    line("K3 launches per run_simulation: "
-         + " ".join(f"{name}={c['fedavg_agg']}" for name, c in (
-             ("loop", loop_launches), ("loop_step", step_launches),
-             ("scan", scan_launches), ("async", async_launches))))
+    # One K3 launch per aggregation: every round with a transmission (loop,
+    # scan), every commit event (async: one per round).
+    k3 = {name: (c["fedavg_agg"], rounds if name == "async" else int(h.tx_trace.any(1).sum()))
+          for name, c, h, rounds in (("loop", loop_launches, loop, main_cfg.rounds),
+                                     ("loop_step", step_launches, step, step_cfg.rounds),
+                                     ("scan", scan_launches, scan, main_cfg.rounds),
+                                     ("async", async_launches, asy, main_cfg.rounds))}
+    line("K3 launches per run_simulation: " + " ".join(f"{k}={v[0]}" for k, v in k3.items())
+         + " (aggregations: " + " ".join(f"{k}={v[1]}" for k, v in k3.items()) + ")")
+    if any(n != want for n, want in k3.values()):
+        raise AssertionError("K3 did not launch once per aggregation")
+    if any(c["polyblock_fused"] != 1 for c in (loop_launches, scan_launches, async_launches)):
+        raise AssertionError("K1 did not launch exactly once per run")
 
     # ---- 8. the serving paths ------------------------------------------------
     n_new = SERVE["new_tokens"]

@@ -4,9 +4,9 @@ plus the staleness-weighted buffered commit of the async engine.
     w^{t+1} = sum_n S_n (sum_k psi_kn) beta_n w_n / sum_n S_n (sum_k psi_kn) beta_n
 
 The weighted mean runs on kernel K3 (`kernels.fedavg_agg`) for CUDA
-tensors, once per parameter leaf.  If no device transmits in a round
-(all-infeasible corner of Prop. 1), the global model is unchanged (weights
-sum to 0 -> guarded).
+tensors, one launch over every parameter leaf per aggregation.  If no
+device transmits in a round (all-infeasible corner of Prop. 1), the global
+model is unchanged (weights sum to 0 -> guarded).
 
 Asynchronous surface (`engine="async"`): an `AsyncAggregation` spec names
 the buffered server's commit policy — how many in-flight uploads the server
@@ -28,7 +28,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.fedavg_agg import fedavg_aggregate
+from ..kernels.fedavg_agg import fedavg_aggregate_leaves
 
 __all__ = ["masked_weighted_mean", "aggregate", "AsyncAggregation",
            "AGGREGATION_PRESETS", "get_aggregation", "staleness_weight",
@@ -39,9 +39,9 @@ def masked_weighted_mean(stacked: torch.Tensor, weights: torch.Tensor) -> torch.
     """Weighted mean over the leading axis; identity-safe at zero weight.
 
     Kernel K3 for a CUDA float32 tensor, its plain version for a CPU one;
-    anything else raises (`fedavg_aggregate`)."""
-    k = stacked.shape[0]
-    return fedavg_aggregate(stacked.reshape(k, -1), weights).reshape(stacked.shape[1:])
+    anything else raises (`fedavg_aggregate_leaves`, which `aggregate` and
+    `aggregate_buffered` call once for all of a model's leaves)."""
+    return fedavg_aggregate_leaves([stacked], weights)[0]
 
 
 def aggregate(global_params: dict, client_params: dict,
@@ -50,9 +50,9 @@ def aggregate(global_params: dict, client_params: dict,
     weights (K,) = S_n * sum_k psi_kn * beta_n per slot (0 for empty slots).
     Keeps the previous global model when sum(weights) == 0."""
     keep = weights.sum() > 0
-    return {k: torch.where(keep, masked_weighted_mean(client_params[k], weights),
-                           g).to(g.dtype)
-            for k, g in global_params.items()}
+    means = fedavg_aggregate_leaves([client_params[k] for k in global_params], weights)
+    return {k: torch.where(keep, mean, g).to(g.dtype)
+            for (k, g), mean in zip(global_params.items(), means)}
 
 
 # ---------------------------------------------------------------------------
@@ -164,10 +164,10 @@ def aggregate_buffered(global_params: dict, committed_params: dict,
     """
     wsum = weights.sum()
     m = torch.where(wsum > 0, server_lr, 0.0)
+    means = fedavg_aggregate_leaves([committed_params[k] for k in global_params], weights)
     out = {}
-    for k, g in global_params.items():
-        agg = torch.where(wsum > 0, masked_weighted_mean(committed_params[k], weights),
-                          g).to(g.dtype)
+    for (k, g), mean in zip(global_params.items(), means):
+        agg = torch.where(wsum > 0, mean, g).to(g.dtype)
         mixed = ((1.0 - m) * g + m * agg).to(g.dtype)
         out[k] = torch.where(m >= 1.0, agg, torch.where(m <= 0.0, g, mixed))
     return out

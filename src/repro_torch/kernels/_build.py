@@ -42,12 +42,14 @@ _F32 = ctypes.c_float
 _FLASH = [_P] * 4 + [_I32] * 6 + [_F32, _I32, _I32, _P]
 _WKV6 = [_P] * 8 + [_I32] * 4 + [_P]
 _PROJECT = [_P] * 5 + [_I64, _I32] + [_F64] * 5 + [_P]
-_SOLVE = [_P] * 8 + [_I64, _F64, _I32, _I32] + [_F64] * 6 + [_P]
+_SOLVE = [_P] * 8 + [_I64, _F64, _I32, _I32, _I32] + [_F64] * 6 + [_P]
 # One library per source file csrc/<name>.cu: its C functions' argtypes.
 _SIGNATURES = {
     "polyblock": {"polyblock_project_f64": _PROJECT, "polyblock_project_f32": _PROJECT,
-                  "polyblock_solve_f64": _SOLVE, "polyblock_solve_f32": _SOLVE},
-    "fedavg_agg": {"fedavg_agg_f32": [_P, _P, _P, _I32, _I64, _P]},
+                  "polyblock_solve_f64": _SOLVE, "polyblock_solve_f32": _SOLVE,
+                  "polyblock_solve_max_iter": [_I32, _I32]},
+    "fedavg_agg": {"fedavg_agg_leaves_f32": [_P, _I32, _P, _I32, _P],
+                   "fedavg_agg_table_leaves": []},
     "flash_attention": {"flash_attention_f32": _FLASH, "flash_attention_bf16": _FLASH,
                         "flash_attention_bf16_smem_bytes": [_I32]},
     "rwkv6_wkv": {"wkv6_f32": _WKV6, "wkv6_threads_per_block": [_I32]},

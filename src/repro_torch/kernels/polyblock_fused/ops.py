@@ -10,8 +10,14 @@ store writes masked by the active set.  Returns (tau*, p*, T*, iterations).
   polyblock_solve_plain -- the plain torch version: the Pallas body
                            vectorised over pairs, (m, n) store tensors and a
                            `while active.any()` loop;
-  polyblock_solve_fused -- the wrapper of the CUDA kernel `solve_kernel`
-                           (csrc/polyblock.cu), one thread per pair.
+  polyblock_solve_fused -- the wrapper of the CUDA kernels (csrc/polyblock.cu):
+                           `solve_coop_kernel`, 2L lanes of a warp per pair
+                           (L = 4, 8 or 16 lanes per child, chosen from the
+                           pair count by `coop_lanes`), or `solve_kernel`,
+                           one thread per pair (lanes=1, the reference
+                           schedule);
+  first_max_lanes       -- a plain emulation of the cooperative kernel's
+                           selection (strided scan, butterfly), for tests.
 
 Callers pass feasible pairs only (infeasibility is resolved before, as in
 `core.monotonic_torch`).
@@ -24,9 +30,53 @@ from ...core.wireless import WirelessConfig, total_time
 from .._build import check_launch, load_polyblock
 from ..polyblock_project.ops import project_bisect
 
-__all__ = ["polyblock_solve_plain", "polyblock_solve_fused"]
+__all__ = ["polyblock_solve_plain", "polyblock_solve_fused", "coop_lanes", "first_max_lanes",
+           "LANES"]
 
 _DTYPES = (torch.float64, torch.float32)
+# Lanes per child the C entry takes: 1 is `solve_kernel` (one thread per
+# pair), 4, 8 and 16 `solve_coop_kernel`.
+LANES = (1, 4, 8, 16)
+# Pair counts up to this take 16 lanes per child, larger ones 4: about the
+# warps the card holds at once (132 SMs x 24-28), so up to it every pair
+# has a warp of its own from the start (the same-run sweep in PERF.md).
+WIDE_MAX_PAIRS = 4096
+
+
+def coop_lanes(n: int) -> int:
+    """Lanes per child for a batch of n pairs.  Where the batch leaves the
+    card idle (the main path's ~10^3 pairs), the widest speculation
+    shortens the serial chain most; where it fills the card (~10^5 pairs),
+    speculation's extra evaluations (2^d - 1 per d levels) cost issue
+    slots, and the narrowest groups win.  From a same-run sweep of 4, 8
+    and 16 lanes on the card at 883 and 116 865 pairs (PERF.md)."""
+    return 16 if n <= WIDE_MAX_PAIRS else 4
+
+
+def first_max_lanes(f, nvalid, group: int):
+    """Plain emulation of `group_first_max` (csrc/polyblock.cu) for pairs on
+    `group` lanes each: f (m, n) store values, nvalid (n,) written slots.
+    Lane g scans slots g, g + group, ... below nvalid in ascending order
+    with a strict >; a butterfly then keeps the larger value and, on equal
+    values, the lower slot.  Returns every lane's (value, slot), each
+    (group, n) — all lanes agree, on the serial scan's first max."""
+    m, n = f.shape
+    big = torch.iinfo(torch.int64).max
+    bf = torch.full((group, n), -torch.inf, dtype=f.dtype)
+    bi = torch.full((group, n), big, dtype=torch.int64)
+    for g in range(group):
+        for s in range(g, m, group):
+            take = (s < nvalid) & ((bi[g] == big) | (f[s] > bf[g]))
+            bf[g] = torch.where(take, f[s], bf[g])
+            bi[g] = torch.where(take, s, bi[g])
+    off = group // 2
+    while off:
+        partner = torch.arange(group) ^ off
+        of, oi = bf[partner], bi[partner]
+        take = (of > bf) | ((of == bf) & (oi < bi))
+        bf, bi = torch.where(take, of, bf), torch.where(take, oi, bi)
+        off //= 2
+    return bf, bi
 
 
 def polyblock_solve_plain(beta, h2, e_max, cfg: WirelessConfig, *,
@@ -107,14 +157,19 @@ def polyblock_solve_plain(beta, h2, e_max, cfg: WirelessConfig, *,
 
 def polyblock_solve_fused(beta, h2, e_max, cfg: WirelessConfig, *,
                           eps: float = 0.01, max_iter: int = 64,
-                          n_bisect: int = 60):
+                          n_bisect: int = 60, lanes: int | None = None):
     """Solve n feasible pairs: beta / h2 / e_max (n,), one dtype (float64 or
     float32), one device, contiguous.  Returns (tau, p, time_s) in that
     dtype and iterations as int32.
 
-    A CUDA tensor launches the kernel; a CPU tensor runs
-    `polyblock_solve_plain`.
+    A CUDA tensor launches the kernel with `lanes` lanes per child (one of
+    LANES; None: `coop_lanes(n)`), every choice giving the same bits; a CPU
+    tensor runs `polyblock_solve_plain`.  With lanes > 1 the vertex store
+    lives in shared memory, so max_iter is capped (about 1 800 in float64
+    at 4 lanes); a larger one raises.
     """
+    if lanes is not None and lanes not in LANES:
+        raise ValueError(f"polyblock_solve_fused: lanes must be one of {LANES}, got {lanes}")
     if beta.device.type == "cpu":
         return polyblock_solve_plain(beta, h2, e_max, cfg, eps=eps,
                                      max_iter=max_iter, n_bisect=n_bisect)
@@ -133,23 +188,33 @@ def polyblock_solve_fused(beta, h2, e_max, cfg: WirelessConfig, *,
             raise ValueError(f"polyblock_solve_fused: {name} is not contiguous")
     if max_iter < 1:
         raise ValueError(f"polyblock_solve_fused: max_iter must be >= 1, got {max_iter}")
+    lib = load_polyblock()
+    lanes = coop_lanes(n) if lanes is None else lanes
+    if lanes > 1:
+        limit = lib.polyblock_solve_max_iter(lanes, beta.element_size())
+        if max_iter > limit:
+            raise ValueError(
+                f"polyblock_solve_fused: max_iter={max_iter} needs a vertex store of "
+                f"{(max_iter + 1) * 4 * beta.element_size()} bytes per pair, and at "
+                f"{lanes} lanes per child the 227 KB of shared memory a block may use "
+                f"holds max_iter <= {limit}; pass lanes=1 (store in global memory)")
     tau, p, time_s = (torch.empty_like(beta) for _ in range(3))
     iters = torch.empty(n, dtype=torch.int32, device=beta.device)
     if n == 0:
         return tau, p, time_s, iters
-    # Vertex store scratch, laid out [slot][field][pair] (coalesced).
-    store = torch.empty((max_iter + 1) * 5 * n, dtype=beta.dtype,
-                        device=beta.device)
-    lib = load_polyblock()
+    # lanes=1: the vertex store in a global scratch laid out [slot][field][pair];
+    # lanes > 1: the counter the pair groups claim their next pairs from.
+    store = (torch.empty((max_iter + 1) * 5 * n, dtype=beta.dtype, device=beta.device)
+             if lanes == 1 else torch.empty(1, dtype=torch.int64, device=beta.device))
     fn = (lib.polyblock_solve_f64 if beta.dtype == torch.float64
           else lib.polyblock_solve_f32)
     with torch.cuda.device(beta.device):
         err = fn(beta.data_ptr(), h2.data_ptr(), e_max.data_ptr(),
                  tau.data_ptr(), p.data_ptr(), time_s.data_ptr(),
-                 iters.data_ptr(), store.data_ptr(), n, float(eps),
-                 int(max_iter), int(n_bisect), cfg.kappa0 * cfg.mu_cycles,
-                 cfg.mu_cycles, cfg.cpu_hz, cfg.pt_w, cfg.model_bits,
-                 cfg.bandwidth_hz,
+                 iters.data_ptr(), store.data_ptr(), n,
+                 float(eps), int(max_iter), int(n_bisect), int(lanes),
+                 cfg.kappa0 * cfg.mu_cycles, cfg.mu_cycles, cfg.cpu_hz, cfg.pt_w,
+                 cfg.model_bits, cfg.bandwidth_hz,
                  torch.cuda.current_stream(beta.device).cuda_stream)
     check_launch(err, "polyblock_solve_fused")
     polyblock_solve_fused.launches += 1

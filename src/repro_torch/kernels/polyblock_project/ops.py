@@ -7,6 +7,8 @@ already feasible.
 
   project_bisect    -- the plain torch version, the mirror of the JAX
                        package's `project_jnp` (same arithmetic, same order);
+  project_speculative -- a plain emulation of K1's cooperative projection
+                       (`coop_project` in csrc/polyblock.cu), for tests;
   polyblock_project -- the wrapper of the CUDA kernel `project_kernel`
                        (csrc/polyblock.cu), which replaces the Pallas kernel
                        `kernels/polyblock_project/kernel.py::_project_kernel`.
@@ -19,7 +21,7 @@ from ...core.wireless import WirelessConfig, total_energy
 from .._build import check_launch, load_polyblock
 from .ref import TINY
 
-__all__ = ["project_bisect", "polyblock_project"]
+__all__ = ["project_bisect", "project_speculative", "polyblock_project"]
 
 _DTYPES = (torch.float64, torch.float32)
 
@@ -40,6 +42,54 @@ def project_bisect(v, beta, h2, e_max, cfg: WirelessConfig, *,
         mid = 0.5 * (lo + hi)
         take_hi = g_con(mid * tau_v, mid * p_v) > 0.0
         lo, hi = torch.where(take_hi, lo, mid), torch.where(take_hi, mid, hi)
+    zeta = torch.where(need_root, lo, 1.0)
+    return zeta[..., None] * v
+
+
+def project_speculative(v, beta, h2, e_max, cfg: WirelessConfig, *,
+                        n_bisect: int = 60, depth: int = 4):
+    """Plain emulation of K1's speculative bisection (`coop_project`): per
+    round, the 2^depth - 1 nodes of the next `depth` levels of the
+    bisection tree are evaluated at once — node r (heap order) reaches its
+    (lo, hi) by the halvings of its own path, r's bits below the leading
+    one, 1 = the g > 0 branch — and the signs then walk the levels; the
+    last round covers n_bisect % depth.  A bracket whose halving no longer
+    moves an end is settled and evaluates nothing more: at mid == lo no
+    later halving changes lo, and at mid == hi neither (g > 0 at every hi:
+    hi is 1 with g(v) > 0, or a midpoint whose g was > 0).  Bit for bit
+    `project_bisect`."""
+    tau_v, p_v = v[..., 0], v[..., 1]
+
+    def g_con(tau, p):
+        return total_energy(tau, p, beta, h2, cfg) - e_max
+
+    need_root = g_con(tau_v, p_v) > 0.0
+    lo = torch.full_like(tau_v, TINY)
+    hi = torch.ones_like(tau_v)
+    settled = torch.zeros_like(need_root)
+    for done in range(0, n_bisect, depth):
+        mid0 = 0.5 * (lo + hi)
+        settled = settled | (mid0 == lo) | (mid0 == hi)
+        go = need_root & ~settled
+        if not bool(go.any()):
+            break
+        levels = min(depth, n_bisect - done)
+        signs = [torch.zeros_like(need_root)]          # node 0: no node
+        for r in range(1, 1 << levels):
+            lo_r, hi_r = lo, hi
+            for b in range(r.bit_length() - 2, -1, -1):
+                mid = 0.5 * (lo_r + hi_r)
+                lo_r, hi_r = (lo_r, mid) if (r >> b) & 1 else (mid, hi_r)
+            mid = 0.5 * (lo_r + hi_r)
+            signs.append(g_con(mid * tau_v, mid * p_v) > 0.0)
+        signs = torch.stack(signs)
+        node = torch.ones_like(tau_v, dtype=torch.int64)
+        for _ in range(levels):
+            mid = 0.5 * (lo + hi)
+            take_hi = signs.gather(0, node[None])[0]
+            lo = torch.where(go & ~take_hi, mid, lo)
+            hi = torch.where(go & take_hi, mid, hi)
+            node = 2 * node + take_hi.to(torch.int64)
     zeta = torch.where(need_root, lo, 1.0)
     return zeta[..., None] * v
 

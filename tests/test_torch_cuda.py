@@ -17,9 +17,10 @@ from repro_torch.core import WirelessConfig, is_infeasible
 from repro_torch.core.monotonic_torch import solve_pairs_fused, solve_pairs_step
 from repro_torch.fl import SimConfig, run_simulation
 from repro_torch.kernels import _build, flash_attention, flash_attention_plain, wkv6, wkv6_plain
+from repro_torch.fl.server import aggregate, aggregate_buffered
 from repro_torch.kernels.fedavg_agg import (fedavg_agg_plain, fedavg_aggregate,
-                                            fedavg_aggregate_tree)
-from repro_torch.kernels.polyblock_fused.ops import (polyblock_solve_fused,
+                                            fedavg_aggregate_leaves, fedavg_aggregate_tree)
+from repro_torch.kernels.polyblock_fused.ops import (LANES, coop_lanes, polyblock_solve_fused,
                                                      polyblock_solve_plain)
 from repro_torch.kernels.polyblock_project.ops import (polyblock_project,
                                                        project_bisect)
@@ -81,6 +82,49 @@ def test_solve_kernel_matches_plain(dev, dtype):
     assert ((got[2][~same] - want[2][~same]).abs() <= 0.01 + 1e-6).all()
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,max_iter", [(2000, 64), (37, 3), (1, 64)])
+def test_every_lanes_choice_is_bitwise_the_one_lane_schedule(dev, dtype, n, max_iter):
+    """The cooperative schedule at 4, 8 and 16 lanes per child (and the
+    wrapper's own choice) against solve_kernel, one thread per pair: the
+    same bits in all four outputs (ragged warps: 37 and 1 pairs; max_iter
+    cutting pairs short), one launch per call."""
+    args = [x[:n].contiguous() for x in _pairs(n=2 * n + 16, seed=n, dev=dev, dtype=dtype)]
+    assert args[0].shape == (n,)
+    want = polyblock_solve_fused(*args, CFG, max_iter=max_iter, lanes=1)
+    for lanes in [x for x in LANES if x > 1] + [None]:
+        before = polyblock_solve_fused.launches
+        got = polyblock_solve_fused(*args, CFG, max_iter=max_iter, lanes=lanes)
+        torch.cuda.synchronize()
+        assert polyblock_solve_fused.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (lanes, dtype)
+    assert coop_lanes(n) in LANES
+
+
+def test_too_large_a_store_for_shared_memory_raises(dev):
+    """With lanes > 1 the vertex store lives in shared memory: a max_iter
+    whose store does not fit a block's 227 KB raises a ValueError naming
+    the limit (never a quiet fallback); the largest that fits runs, and
+    lanes=1 (store in global memory) takes the larger one."""
+    lib = _build.load_polyblock()
+    args = _pairs(n=300, dev=dev)
+    for lanes in (4, 8, 16):
+        limit = lib.polyblock_solve_max_iter(lanes, 8)
+        assert limit >= 64
+        with pytest.raises(ValueError, match="227 KB"):
+            polyblock_solve_fused(*args, CFG, max_iter=limit + 1, lanes=lanes)
+        got = polyblock_solve_fused(*args, CFG, max_iter=limit, lanes=lanes)
+        want = polyblock_solve_fused(*args, CFG, max_iter=limit, lanes=1)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    polyblock_solve_fused(*args, CFG, max_iter=lib.polyblock_solve_max_iter(4, 8) + 1, lanes=1)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        polyblock_solve_fused(*args, CFG, lanes=2)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     beta, h2, e = _pairs(n=64, dev=dev)
     v = torch.ones(beta.shape[0], 2, dtype=torch.float64, device=dev)
@@ -134,9 +178,12 @@ def test_simulation_traces_match_the_cpu(dev, engine, aggregation):
     leader plane's latencies agree to 1e-6, and float32 training on the
     card drifts from the CPU's only by summation order (1e-4)."""
     cfg = SimConfig(**SMALL, aggregation=aggregation, scenario="churn")
-    before = fedavg_aggregate.launches
+    before = fedavg_aggregate_leaves.launches
     got = run_simulation(cfg, engine=engine, device=dev)
-    assert fedavg_aggregate.launches > before           # K3 on every engine
+    # K3 once per aggregation on every engine: every round with a
+    # transmission (loop, scan), every commit event (async, one per round).
+    aggregations = cfg.rounds if engine == "async" else int(got.tx_trace.any(1).sum())
+    assert fedavg_aggregate_leaves.launches - before == aggregations > 0
     want = run_simulation(cfg, engine=engine, device="cpu")
     np.testing.assert_array_equal(got.tx_trace, want.tx_trace)
     np.testing.assert_array_equal(got.age_trace, want.age_trace)
@@ -171,10 +218,10 @@ def test_fedavg_kernel_matches_plain(dev, k, n):
     for w in (torch.rand(k, generator=gen, device=dev) * 50,
               torch.zeros(k, device=dev),
               torch.nn.functional.one_hot(torch.tensor(k - 1), k).float().to(dev) * 7):
-        before = fedavg_aggregate.launches
+        before = fedavg_aggregate_leaves.launches
         got = fedavg_aggregate(x, w)
         torch.cuda.synchronize()
-        assert fedavg_aggregate.launches == before + 1
+        assert fedavg_aggregate_leaves.launches == before + 1
         torch.testing.assert_close(got, fedavg_agg_plain(x, w), rtol=0, atol=0)
     assert torch.equal(fedavg_aggregate(x, torch.zeros(k, device=dev)),
                        torch.zeros(n, device=dev))
@@ -188,6 +235,74 @@ def test_fedavg_tree_on_the_card(dev):
     for name, v in leaves.items():
         torch.testing.assert_close(got[name], fedavg_agg_plain(v.reshape(4, -1), w)
                                    .reshape(v.shape[1:]), rtol=0, atol=0)
+
+
+def _unaligned(k, n, dev, gen):
+    """A contiguous (k, n) view that starts 4 bytes past a 16-byte boundary."""
+    flat = torch.randn(k * n + 1, generator=gen, device=dev)
+    x = flat[1:].view(k, n)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    return x
+
+
+@pytest.mark.parametrize("k", [4, 1, 16])
+def test_grouped_fedavg_matches_plain_leaf_by_leaf(dev, k):
+    """One launch over leaves of odd and aligned sizes, an empty leaf, a
+    (K, 7, 5) and a (K,) leaf, and rows off the 16-byte boundary (scalar
+    path beside float4): every output, in the leaf's trailing shape,
+    bitwise the plain version's; all-zero weights give 0, one non-zero
+    slot that slot."""
+    gen = torch.Generator(dev).manual_seed(k)
+    leaves = [torch.randn(k, n, generator=gen, device=dev) for n in (100352, 10, 0, 257, 4, 1)]
+    leaves += [torch.randn(k, 7, 5, generator=gen, device=dev), torch.randn(k, device=dev)]
+    leaves += [_unaligned(k, 1024, dev, gen), _unaligned(k, 33, dev, gen)]
+    one = torch.zeros(k, device=dev)
+    one[k - 1] = 7.0
+    for w in (torch.rand(k, generator=gen, device=dev) * 50, torch.zeros(k, device=dev), one):
+        before = fedavg_aggregate_leaves.launches
+        got = fedavg_aggregate_leaves(leaves, w)
+        torch.cuda.synchronize()
+        assert fedavg_aggregate_leaves.launches == before + 1
+        for g, x in zip(got, leaves):
+            assert g.shape == x.shape[1:]
+            torch.testing.assert_close(g, fedavg_agg_plain(x, w), rtol=0, atol=0)
+    assert all(torch.equal(g, x[k - 1]) for g, x in zip(got, leaves))
+
+
+def test_grouped_fedavg_past_one_table(dev):
+    """More leaves than one table holds (64): one launch per table, the
+    same bits."""
+    gen = torch.Generator(dev).manual_seed(3)
+    leaves = [torch.randn(4, 1 + 37 * j, generator=gen, device=dev) for j in range(150)]
+    w = torch.rand(4, generator=gen, device=dev)
+    before = fedavg_aggregate_leaves.launches
+    got = fedavg_aggregate_leaves(leaves, w)
+    torch.cuda.synchronize()
+    assert fedavg_aggregate_leaves.launches == before + 3
+    for g, x in zip(got, leaves):
+        torch.testing.assert_close(g, fedavg_agg_plain(x, w), rtol=0, atol=0)
+    assert fedavg_aggregate_leaves([torch.empty(4, 0, device=dev)], w)[0].shape == (0,)
+    assert fedavg_aggregate_leaves.launches == before + 3      # nothing to launch
+
+
+def test_server_aggregations_launch_k3_once(dev):
+    """`aggregate` and `aggregate_buffered` over the mnist MLP's six leaves:
+    one K3 launch each, the same bits as the CPU run of the same call."""
+    gen = torch.Generator(dev).manual_seed(9)
+    shapes = {"w1": (128, 784), "b1": (128,), "w2": (256, 128), "b2": (256,),
+              "w3": (10, 256), "b3": (10,)}
+    g = {k: torch.randn(s, generator=gen, device=dev) for k, s in shapes.items()}
+    c = {k: torch.randn((4,) + s, generator=gen, device=dev) for k, s in shapes.items()}
+    w = torch.tensor([2.0, 0.0, 5.0, 1.0], device=dev)
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    for call, extra in ((aggregate, ()), (aggregate_buffered, (torch.tensor(0.5, device=dev),))):
+        before = fedavg_aggregate_leaves.launches
+        got = call(g, c, w, *extra)
+        torch.cuda.synchronize()
+        assert fedavg_aggregate_leaves.launches == before + 1
+        want = call(cpu(g), cpu(c), w.cpu(), *(x.cpu() for x in extra))
+        for k in shapes:
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=0)
 
 
 def test_fedavg_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -4,7 +4,9 @@ K2 (projection): `project_bisect` against `project_jnp` (float64) and the
 Pallas kernel in interpret mode (float32).  K1 (whole solve):
 `polyblock_solve_plain` against `polyblock_solve_fused(interpret=True)` in
 float64 and float32.  K3 (eq.-34 mean): `fedavg_agg_plain` against the
-Pallas kernel in interpret mode and its jnp oracle.  The CUDA kernels
+Pallas kernel in interpret mode and its jnp oracle; the grouped entry
+`fedavg_aggregate_leaves` and the server's many-leaf aggregations against
+the JAX package's.  The CUDA kernels
 themselves run only on the card
 (tests/test_torch_cuda.py); here each wrapper is given CPU tensors, where
 it runs its plain version.
@@ -20,11 +22,13 @@ from repro.kernels.fedavg_agg.ops import fedavg_aggregate as jax_fedavg
 from repro.kernels.fedavg_agg.ops import fedavg_aggregate_tree as jax_fedavg_tree
 from repro.kernels.fedavg_agg.ref import fedavg_agg_ref
 from repro.kernels.polyblock_fused.ops import polyblock_solve_fused as jax_fused
+from repro.fl import server as jax_server
 from repro.kernels.polyblock_project.ops import project_jnp, project_pallas
 from repro_torch.core.wireless import WirelessConfig as PortConfig
+from repro_torch.fl import server
 from repro_torch.fl.server import masked_weighted_mean
 from repro_torch.kernels.fedavg_agg import (fedavg_agg_plain, fedavg_aggregate,
-                                            fedavg_aggregate_tree)
+                                            fedavg_aggregate_leaves, fedavg_aggregate_tree)
 from repro_torch.kernels.polyblock_fused.ops import (polyblock_solve_fused,
                                                      polyblock_solve_plain)
 from repro_torch.kernels.polyblock_project.ops import (polyblock_project,
@@ -207,9 +211,71 @@ def test_fedavg_wrappers_on_cpu_are_the_plain_version():
     plain version for a CPU tensor, bit for bit, and launch nothing."""
     x, w = _k3_inputs(K3_WEIGHTS["mixed"], n=60)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
-    before = fedavg_aggregate.launches
+    before = fedavg_aggregate_leaves.launches
     want = fedavg_agg_plain(xt, wt)
     torch.testing.assert_close(fedavg_aggregate(xt, wt), want, rtol=0, atol=0)
     torch.testing.assert_close(masked_weighted_mean(xt.reshape(4, 3, 20), wt),
                                want.reshape(3, 20), rtol=0, atol=0)
-    assert fedavg_aggregate.launches == before
+    assert fedavg_aggregate_leaves.launches == before
+
+
+# The mnist MLP's leaf sizes cut down, with odd ones, a 10-float bias and
+# an empty leaf: what the grouped kernel spreads its blocks over.
+LEAF_SIZES = (392, 128, 33, 10, 0, 7)
+
+
+def _leaves(k, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(k, n)).astype(np.float32) for n in LEAF_SIZES]
+
+
+@pytest.mark.parametrize("case", sorted(K3_WEIGHTS))
+def test_fedavg_leaves_on_cpu_are_per_leaf_plain_and_match_jax(case):
+    """The grouped entry on CPU tensors: bitwise the plain version leaf by
+    leaf, no launch, and within the tree test's tolerance of the JAX
+    package's `fedavg_aggregate_tree` (Pallas interpret) on the non-empty
+    leaves (the JAX tree cannot reshape an empty one)."""
+    w = np.asarray(K3_WEIGHTS[case], np.float32)
+    leaves = _leaves(w.size, seed=33)
+    before = fedavg_aggregate_leaves.launches
+    got = fedavg_aggregate_leaves([torch.from_numpy(x) for x in leaves], torch.from_numpy(w))
+    assert fedavg_aggregate_leaves.launches == before
+    for g, x in zip(got, leaves):
+        torch.testing.assert_close(g, fedavg_agg_plain(torch.from_numpy(x), torch.from_numpy(w)),
+                                   rtol=0, atol=0)
+    tree = {str(j): x for j, x in enumerate(leaves) if x.shape[1]}
+    want = jax_fedavg_tree({j: jnp.asarray(x) for j, x in tree.items()}, jnp.asarray(w),
+                           interpret=True)
+    for j in tree:
+        np.testing.assert_allclose(got[int(j)].numpy(), np.asarray(want[j]), rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("server_lr", [1.0, 0.5])
+@pytest.mark.parametrize("weights", [[3.0, 0.0, 5.0, 1.5], [0.0, 0.0, 0.0, 0.0]])
+def test_many_leaf_aggregations_match_jax(weights, server_lr):
+    """`aggregate` and `aggregate_buffered` over a many-leaf model (one K3
+    call per aggregation) against the JAX package's, leaf by leaf, to the
+    single-leaf tests' tolerance; zero weights keep the global model."""
+    w = np.asarray(weights, np.float32)
+    rng = np.random.default_rng(34)
+    shapes = {"w1": (7, 56), "b1": (7,), "w2": (10, 7), "b2": (10,), "s": ()}
+    g = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    c = {k: rng.normal(size=(w.size,) + s).astype(np.float32) for k, s in shapes.items()}
+    tg = {k: torch.from_numpy(v) for k, v in g.items()}
+    tc = {k: torch.from_numpy(v) for k, v in c.items()}
+    jg = {k: jnp.asarray(v) for k, v in g.items()}
+    jc = {k: jnp.asarray(v) for k, v in c.items()}
+    got = {"aggregate": server.aggregate(tg, tc, torch.from_numpy(w)),
+           "buffered": server.aggregate_buffered(tg, tc, torch.from_numpy(w),
+                                                 torch.tensor(server_lr))}
+    want = {"aggregate": jax_server.aggregate(jg, jc, jnp.asarray(w)),
+            "buffered": jax_server.aggregate_buffered(jg, jc, jnp.asarray(w),
+                                                      jnp.float32(server_lr))}
+    for name in got:
+        for k in shapes:
+            assert got[name][k].shape == shapes[k]
+            np.testing.assert_allclose(got[name][k].numpy(), np.asarray(want[name][k]),
+                                       rtol=1e-6, atol=1e-7, err_msg=f"{name} {k}")
+            if not w.any():
+                np.testing.assert_array_equal(got[name][k].numpy(), g[k])
