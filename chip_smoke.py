@@ -12,13 +12,18 @@ against the same runs on the CPU, and serves two 7B models of the model zoo
   2. kernel build (one nvcc per source, all four started together; plain C
      interfaces loaded with ctypes);
   3. K2, the polyblock projection, against its plain version, float64 and
-     float32, at 2 x 131072 vertices and at the main path's shape;
+     float32, at 2 x 131072 vertices and at the main path's shape; at both,
+     the one-thread-per-vertex schedule and the cooperative one at 4, 8 and
+     16 lanes per vertex timed side by side and held bitwise equal, with
+     each one's critical path, and K2's bound priced from its SASS;
   4. K1, the whole Algorithm-1 solve, against its plain version, float64
      and float32, at 32768 devices x 4 sub-channels and at the main path's
      shape; at both, the one-thread-per-pair schedule and the cooperative
      one at 4, 8 and 16 lanes per child timed side by side and held
      bitwise equal, with each one's critical path (the longest pair's
      dependent evaluations of g at the measured latency per evaluation);
+     then K2's lanes swept over 1 024 to ~2.3 x 10^5 of those pairs'
+     first children (the sizes its lanes rule is set from);
   5. K3, the eq.-34 weighted mean, against its plain version (random,
      all-zero and single-slot weights, bitwise) at the main path's shapes
      (the six mnist-MLP leaves, K = 4, one grouped launch, timed on the card
@@ -39,10 +44,11 @@ against the same runs on the CPU, and serves two 7B models of the model zoo
      engine="loop", then ra_solver="step" for 10 rounds through K2, then
      engine="scan", then aggregation="async" and "async_full" on the async
      engine; traces equal to the device="cpu" run, losses within 1e-4 of
-     it, and async_full bitwise equal to the card's scan run; then one warm
-     run of the loop and scan engines under torch.profiler (the card's busy
-     time and idle share) and one run of each engine under torch's sync
-     debug mode (every host sync, by source line);
+     it, async_full bitwise equal to the card's scan run, and K2 launched
+     exactly 9 times on the step run; then one warm run of the loop, step
+     and scan paths under torch.profiler (the card's busy time and idle
+     share; K2's summed device time on the step run) and one run of each
+     engine under torch's sync debug mode (every host sync, by source line);
   8. the serving paths: serve_loop at full width and depth (random weights
      from a seed) for qwen2-7b with attn_impl="pallas" and for rwkv6-7b
      with rwkv_wkv_impl="pallas", batch 4, prompt 512, 32 new tokens, the
@@ -95,7 +101,7 @@ from repro_torch.models.small import get_small_model  # noqa: E402
 from repro_torch.kernels.polyblock_fused.ops import (  # noqa: E402
     LANES, coop_lanes, polyblock_solve_fused, polyblock_solve_plain)
 from repro_torch.kernels.polyblock_project.ops import (  # noqa: E402
-    polyblock_project, project_bisect)
+    polyblock_project, project_bisect, project_lanes)
 
 DEV = torch.device("cuda", 0)
 # Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet, dense):
@@ -112,6 +118,9 @@ BISECT_STEP = 1 + 3 + G_EVAL + 1 + 2          # mid, scaled vertex, g, cmp, 2 se
 PROJ_FIXED = (G_EVAL + 1) + (1 + 2)           # feasibility test; select + 2 muls
 SELECT_FIXED = 2 + 3 + 6 + 1                  # incumbent / retirement bookkeeping
 EPS = 0.01
+# K2 launches of the 10-round ra_solver="step" run: the first projection of
+# (1, 1) and one children call per iteration of its slowest pair.
+K2_STEP_LAUNCHES = 9
 
 
 def line(msg: str = "") -> None:
@@ -201,6 +210,32 @@ def project_need(v, beta, h2, e_max, cfg):
     return total_energy(v[:, 0], v[:, 1], beta, h2, cfg) - e_max > 0
 
 
+def k2_chain(v, beta, h2, e_max, cfg, lanes: int, n_bisect: int = 60) -> int:
+    """Dependent evaluations of g on the longest vertex's chain: the vertex
+    test, then, outside G, n_bisect halvings one after the other on one
+    lane, or ceil(n_bisect / d) speculative rounds on L = 2^d lanes (an
+    upper bound: a settled bracket evaluates no more)."""
+    if not bool(project_need(v, beta, h2, e_max, cfg).any()):
+        return 1
+    return 1 + (n_bisect if lanes == 1 else -(-n_bisect // (lanes.bit_length() - 1)))
+
+
+def k2_schedules(args, cfg, label: str, reps: int) -> dict[int, float]:
+    """Every schedule (LANES) held to the one-lane schedule's bits, then
+    timed (CUDA events, queue prefilled): {lanes: ms}."""
+    one_lane = polyblock_project(*args, cfg, lanes=1)
+    times = {}
+    for lanes in LANES:
+        res = polyblock_project(*args, cfg, lanes=lanes)
+        torch.cuda.synchronize()
+        if not torch.equal(res, one_lane):
+            raise AssertionError(f"K2 {label}: lanes={lanes} differs from the one-lane "
+                                 "schedule")
+        times[lanes] = time_ms(lambda: polyblock_project(*args, cfg, lanes=lanes), reps,
+                               prefill=True)
+    return times
+
+
 def check_k2(v64, beta64, h264, e64, cfg, label: str, reps: int) -> dict:
     """float64: within 1e-10 relative of the plain version (log1p's last ulp
     and torch's reciprocal-multiply division by a scalar are the only
@@ -208,9 +243,17 @@ def check_k2(v64, beta64, h264, e64, cfg, label: str, reps: int) -> dict:
     whose tail at 2^18 vertices exceeds the JAX package's small-batch 1e-4
     contract for the plain version as well; so the kernel must be no less
     accurate than the plain float32 version against the float64 one (its
-    worst error at most 2x the plain version's)."""
+    worst error at most 2x the plain version's).
+
+    Then every schedule (LANES: one thread per vertex, 4, 8 and 16 lanes
+    per vertex) must give the one-lane schedule's bits, and each is timed
+    in this run (CUDA events, queue prefilled) beside its critical path:
+    its `k2_chain` at the latency per evaluation the one-lane time implies.
+    The wrapper's own choice (`project_lanes`) is also timed as called,
+    host enqueue included."""
     out = {}
     p64 = None
+    n = v64.shape[0]
     for dtype in (torch.float64, torch.float32):
         args = [x.to(dtype).contiguous() for x in (v64, beta64, h264, e64)]
         got = polyblock_project(*args, cfg)
@@ -225,20 +268,76 @@ def check_k2(v64, beta64, h264, e64, cfg, label: str, reps: int) -> dict:
             ok = e_k <= 2 * e_p
             verdict = (f"max_rel vs plain f32={r:.3e}; vs plain f64: kernel {e_k:.3e}, "
                        f"plain f32 {e_p:.3e} (limit: kernel <= 2x plain)")
-        ms = time_ms(lambda: polyblock_project(*args, cfg), reps)
+        sched = {lanes: (ms_l, k2_chain(*args, cfg, lanes))
+                 for lanes, ms_l in k2_schedules(args, cfg, f"{label} {dtype}", reps).items()}
+        per_call_ns = sched[1][0] / sched[1][1] * 1e6
+        chosen = project_lanes(n)
+        ms = sched[chosen][0]
+        host_ms = time_ms(lambda: polyblock_project(*args, cfg), reps)
         plain_ms = time_ms(lambda: project_bisect(*args, cfg), max(1, reps // 10))
         ops = k2_ops(*args, cfg)
-        nbytes = v64.shape[0] * 7 * args[0].element_size()
+        nbytes = n * 7 * args[0].element_size()
         b_ms, b_by = bound_ms(ops, nbytes, dtype)
         max_abs = float((got - want).abs().max())
-        line(f"K2 {label} {str(dtype)[6:]}: n={v64.shape[0]} {verdict} max_abs={max_abs:.3e} "
-             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
+        line(f"K2 {label} {str(dtype)[6:]}: n={n} {verdict} max_abs={max_abs:.3e} "
+             f"lanes={chosen} kernel_ms={ms:.4f} kernel_ms_with_host_enqueue={host_ms:.4f} "
+             f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
+             f"critical_path_ms={sched[chosen][1] * per_call_ns * 1e-6:.4f} "
              f"speedup_vs_plain={plain_ms / ms:.1f}x")
+        line(f"  schedules, bitwise equal to lanes=1: True; latency per evaluation of g "
+             f"(lanes=1 ms / its chain) {per_call_ns:.1f} ns; "
+             + "; ".join(f"lanes={k}: kernel_ms={v[0]:.4f} chain={v[1]} "
+                         f"critical_path_ms={v[1] * per_call_ns * 1e-6:.4f}"
+                         for k, v in sched.items()))
         if not ok:
             raise AssertionError(f"K2 {label} {dtype}: kernel disagrees with plain")
+        # Evaluations of g this data needs: every vertex's test, and 60
+        # halvings for each vertex outside G.
+        evals = n + int(project_need(*args, cfg).sum()) * 60
         out[dtype] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by)
+                          bound_ms=b_ms, bound_by=b_by, lanes=chosen, evals=evals)
     return out
+
+
+def sweep_k2(v64, beta64, h264, e64, cfg, label: str, sizes, reps: int) -> None:
+    """Where wide speculation stops paying: every schedule timed (queue
+    prefilled) on the first n vertices for each n in `sizes`, float64 and
+    float32, each held bitwise to the one-lane schedule; the sizes the
+    rule `project_lanes` is set from."""
+    for dtype in (torch.float64, torch.float32):
+        for n in sizes:
+            args = [x[:n].to(dtype).contiguous() for x in (v64, beta64, h264, e64)]
+            times = k2_schedules(args, cfg, f"sweep {label} n={n} {dtype}", reps)
+            best = min(times, key=times.get)
+            line(f"K2 sweep {label} {str(dtype)[6:]} n={n}: bitwise equal to lanes=1: True; "
+                 + " ".join(f"lanes={k}: {v:.4f}" for k, v in times.items())
+                 + f" ms; fastest lanes={best}; rule project_lanes={project_lanes(n)}")
+
+
+def k2_sass_bound(evals: int) -> None:
+    """K2's bound priced from the card's instruction count instead of the
+    JAX cost model's add-equivalents: the FP64-pipe instructions (DADD,
+    DMUL, DFMA, DSETP, DMNMX) in the SASS of the one-lane
+    `project_kernel<double>`, over its two inlined evaluations of g (the
+    vertex test and the loop body: the two call sites of energy() in
+    project()), at the card's FP64 issue rate (one instruction per FP64
+    lane per clock: PEAK_OPS / 2, an FMA being two operations).  A static
+    count, so an upper estimate: both sides of log1p's branches and the
+    divisions' slow paths are in it."""
+    ops = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU")
+    counts = _build.sass_opcodes("polyblock", ops)
+    for fn, c in counts.items():
+        if "project" in fn:
+            line(f"K2 SASS, {fn}: " + " ".join(f"{op}={k}" for op, k in c.items()))
+    one = [c for fn, c in counts.items() if "project_kernelIdE" in fn]
+    if not one:
+        raise AssertionError("K2 SASS: project_kernel<double> not found")
+    per_eval = sum(one[0][op] for op in ops[:-1]) / 2
+    b_ms = evals * per_eval / (PEAK_OPS[torch.float64] / 2) * 1e3
+    line(f"K2 SASS bound (main path f64): {per_eval:.1f} FP64-pipe instructions per "
+         f"evaluation of g (project_kernel<double>, 2 inlined); {evals} evaluations this "
+         f"data needs -> bound_ms={b_ms:.6f} at {PEAK_OPS[torch.float64] / 2:.3g} FP64 "
+         "instructions/s")
 
 
 def children_of_first_iteration(beta, h2, e_max, cfg):
@@ -388,7 +487,7 @@ def check_k1(beta64, h264, e64, cfg, label: str, reps: int, bulk_iters: int = 0)
         if not ok:
             raise AssertionError(f"K1 {label} {dtype}: kernel disagrees with plain")
         out[dtype] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by)
+                          bound_ms=b_ms, bound_by=b_by, lanes=chosen)
     return out
 
 
@@ -639,11 +738,13 @@ def drive(cfg: SimConfig, need: tuple[str, ...], **kw) -> tuple:
     return hist, launches
 
 
-def profile_run(cfg: SimConfig, **kw) -> None:
+def profile_run(cfg: SimConfig, focus: str | None = None, **kw) -> None:
     """Where a warm run's time goes: one run under torch.profiler (after an
     unprofiled warm-up run): wall time, the card's busy time (the sum of
     its kernels' self time; one stream, so kernels do not overlap), its
-    idle share, the kernel count, and the kernels that take most of it."""
+    idle share, the kernel count, and the kernels that take most of it;
+    with `focus`, the launches and summed device time of the kernels whose
+    name holds it."""
     from torch.profiler import ProfilerActivity, profile
     run_simulation(cfg, device=DEV, **kw)
     torch.cuda.synchronize()
@@ -664,6 +765,11 @@ def profile_run(cfg: SimConfig, **kw) -> None:
          f"kernel_launches={sum(e.count for e in kernels)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         line(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    if focus:
+        mine = [e for e in kernels if focus in e.key]
+        line(f"  kernels named *{focus}*: launches={sum(e.count for e in mine)} device_ms="
+             f"{sum(e.self_device_time_total for e in mine) / 1e3:.4f} ("
+             + ", ".join(f"{e.key[:60]} x{e.count}" for e in mine) + ")")
 
 
 def count_syncs(cfg: SimConfig, **kw) -> None:
@@ -858,6 +964,7 @@ def main() -> None:
     mb, mh, me, mcfg = main_path_pairs(step_cfg)
     k2_main = check_k2(*children_of_first_iteration(to(mb), to(mh), to(me), mcfg), mcfg,
                        "main-path shape (first children call, rounds=10)", reps=50)
+    k2_sass_bound(k2_main[torch.float64]["evals"])
 
     # ---- 4. K1 --------------------------------------------------------------
     n_dev, k_sub = 32768, 4
@@ -870,6 +977,11 @@ def main() -> None:
     check_k1(to(beta_mat[keep]), to(h2_mat[keep]),
              to(np.full(int(keep.sum()), cfg_w.e_max_j)), cfg_w,
              f"{n_dev}x{k_sub}", reps=10, bulk_iters=9)
+    big_children = children_of_first_iteration(
+        to(beta_mat[keep]), to(h2_mat[keep]), to(np.full(int(keep.sum()), cfg_w.e_max_j)),
+        cfg_w)
+    sweep_k2(*big_children, cfg_w, f"first children call of the {n_dev}x{k_sub} pairs",
+             (1024, 4096, 8192, 16384, 32768, 65536, big_children[0].shape[0]), reps=20)
     main_cfg = SimConfig(rounds=30)
     mb, mh, me, mcfg = main_path_pairs(main_cfg)
     k1_main = check_k1(to(mb), to(mh), to(me), mcfg, "main-path shape (rounds=30)",
@@ -923,6 +1035,7 @@ def main() -> None:
                                 engine="async")
     assert_bitwise(full, scan, "async_full vs scan on the card")
     profile_run(main_cfg)
+    profile_run(step_cfg, focus="project_", ra_solver="step")
     profile_run(main_cfg, engine="scan")
     count_syncs(main_cfg)
     count_syncs(main_cfg, engine="scan")
@@ -940,6 +1053,9 @@ def main() -> None:
         raise AssertionError("K3 did not launch once per aggregation")
     if any(c["polyblock_fused"] != 1 for c in (loop_launches, scan_launches, async_launches)):
         raise AssertionError("K1 did not launch exactly once per run")
+    if step_launches["polyblock_project"] != K2_STEP_LAUNCHES:
+        raise AssertionError(f"K2 launched {step_launches['polyblock_project']} times on the "
+                             f"step run, expected {K2_STEP_LAUNCHES}")
 
     # ---- 8. the serving paths ------------------------------------------------
     n_new = SERVE["new_tokens"]
@@ -971,6 +1087,8 @@ def main() -> None:
                             ms=res["ms"], plain_ms=res["plain_ms"],
                             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                             library_ms=res["library_ms"]))
+        if "lanes" in res:
+            kernels[-1]["lanes"] = res["lanes"]
     line(f"total wall_s={time.perf_counter() - t_all:.1f}")
     line(json.dumps({"kernels": kernels}))
     line(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,24 @@
 // Algorithm 1 (polyblock outer approximation, paper eqs. 21-29) on Hopper.
 //
-// Three kernels that share the arithmetic of one projection:
+// Four kernels that share the arithmetic of one projection:
 //
-//   K2  project_kernel  replaces the JAX package's Pallas kernel
+//   K2  project_coop_kernel replaces the JAX package's Pallas kernel
 //       kernels/polyblock_project/kernel.py::_project_kernel: for each
 //       vertex v = (tau, p), zeta from 60 halvings of (TINY, 1] on
 //       g(zeta tau, zeta p) = 0 (eq. 22), zeta = 1 when v is already
-//       feasible; writes zeta * v.  One thread per vertex.
+//       feasible; writes zeta * v.  L = 4, 8 or 16 lanes of a warp own one
+//       vertex (32 / L vertices per warp) and run K1's speculative
+//       bisection (coop_project, below), so a vertex's 60 halvings are
+//       1 + ceil(60 / log2 L) dependent evaluations of g deep, not 61.
+//
+//   K2, one lane per vertex: project_kernel, the 60 halvings in sequence
+//       on one thread.  It is the reference schedule the cooperative one
+//       is held bitwise equal to (lanes = 1 at the C entry).  The wrapper
+//       picks the lanes from the vertex count (polyblock_project.ops.
+//       project_lanes): 16 where the batch leaves the card idle and one
+//       vertex's chain is the kernel's time (the step driver's few hundred
+//       vertices per call), fewer where the batch fills the card and
+//       speculation's extra evaluations cost issue slots.
 //
 //   K1  solve_coop_kernel replaces kernels/polyblock_fused/kernel.py::
 //       _solve_kernel: all of Algorithm 1 for one feasible (beta, |h|^2,
@@ -241,9 +253,9 @@ constexpr int kCoopWarps = 4;               // warps per block, fewer if the sto
 constexpr int kSmemLimit = 232448;          // shared memory a block may opt in to (227 KB)
 constexpr int kCoopFields = 4;              // store fields: vertex tau, p; zeta; f
 
-// zeta and zeta * v for the vertex (tau_v, p_v) of this lane's child, on
-// the child's L = 2^D lanes (r = lane within the child, child_base = its
-// first lane of the warp): the speculative bisection of the note at the
+// zeta and zeta * v for the vertex (tau_v, p_v) of this lane's child (K1)
+// or vertex (K2), on its L = 2^D lanes (r = lane within them, child_base =
+// the first of them in the warp): the speculative bisection of the note at the
 // top, bit for bit project().  A bracket whose halving no longer moves an
 // end is settled, and its remaining rounds evaluate nothing (after ~24
 // halvings in float32, ~53 in float64): at mid == lo no later halving
@@ -516,23 +528,89 @@ int launch_coop(const T* beta, const T* h2, const T* e_max, T* tau, T* p, T* tim
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K2, cooperative schedule
+// ---------------------------------------------------------------------------
+
+// zeta * v for vertex i on its L = 2^D lanes (lane r of the vertex, lanes
+// child_base .. child_base + L - 1 of the warp).  Vertices are independent
+// and each costs 0 or n_bisect halvings, so a plain grid of kCoopWarps-warp
+// blocks covers them, n * L threads.  coop_project votes over the whole
+// warp, so no lane returns early: a lane past the last vertex (the tail
+// warp) runs the rounds with live = false and writes nothing.  Lane 0 of
+// the vertex writes the result.
+template <typename T, int D>
+__global__ void __launch_bounds__(kCoopWarps * 32)
+    project_coop_kernel(const T* __restrict__ v, const T* __restrict__ beta,
+                        const T* __restrict__ h2, const T* __restrict__ e_max,
+                        T* __restrict__ out, int64_t n, int n_bisect, Phys<T> c) {
+  constexpr int L = 1 << D;
+  static_assert(32 % L == 0, "a vertex's lanes must not cross a warp");
+  const int lane = threadIdx.x & 31;
+  const int r = lane % L;
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / L;
+  const bool live = i < n;
+  const T one = static_cast<T>(1);
+  T tau_v = one, p_v = one, b = one, h = one, e = one;
+  if (live) {
+    tau_v = v[2 * i];
+    p_v = v[2 * i + 1];
+    b = beta[i];
+    h = h2[i];
+    e = e_max[i];
+  }
+  T o_tau, o_p, zeta;
+  coop_project<T, D>(tau_v, p_v, b, h, e, live, n_bisect, r, lane - r, c, o_tau, o_p, zeta);
+  if (live && r == 0) {
+    out[2 * i] = o_tau;
+    out[2 * i + 1] = o_p;
+  }
+}
+
 constexpr int kBlock = 128;
 
 inline unsigned int grid_for(int64_t n) {
   return static_cast<unsigned int>((n + kBlock - 1) / kBlock);
 }
 
+template <typename T, int D>
+void launch_project_coop(const T* v, const T* beta, const T* h2, const T* e_max, T* out,
+                         int64_t n, int n_bisect, const Phys<T>& c, cudaStream_t stream) {
+  project_coop_kernel<T, D><<<grid_for(n * (1 << D)), kCoopWarps * 32, 0, stream>>>(
+      v, beta, h2, e_max, out, n, n_bisect, c);
+}
+
 template <typename T>
 int launch_project(const void* v, const void* beta, const void* h2, const void* e_max,
-                   void* out, int64_t n, int n_bisect, double kappa0_mu, double cpu_hz,
-                   double pt_w, double model_bits, double bandwidth_hz, void* stream) {
+                   void* out, int64_t n, int n_bisect, int lanes, double kappa0_mu,
+                   double cpu_hz, double pt_w, double model_bits, double bandwidth_hz,
+                   void* stream) {
   const Phys<T> c{static_cast<T>(kappa0_mu), static_cast<T>(0), static_cast<T>(cpu_hz),
                   static_cast<T>(pt_w), static_cast<T>(model_bits),
                   static_cast<T>(bandwidth_hz)};
-  if (n > 0) {
-    project_kernel<T><<<grid_for(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(v), static_cast<const T*>(beta), static_cast<const T*>(h2),
-        static_cast<const T*>(e_max), static_cast<T*>(out), n, n_bisect, c);
+  if (lanes != 1 && lanes != 4 && lanes != 8 && lanes != 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const auto vv = static_cast<const T*>(v);
+  const auto b = static_cast<const T*>(beta);
+  const auto h = static_cast<const T*>(h2);
+  const auto e = static_cast<const T*>(e_max);
+  const auto o = static_cast<T*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 1:
+      project_kernel<T><<<grid_for(n), kBlock, 0, s>>>(vv, b, h, e, o, n, n_bisect, c);
+      break;
+    case 4:
+      launch_project_coop<T, 2>(vv, b, h, e, o, n, n_bisect, c, s);
+      break;
+    case 8:
+      launch_project_coop<T, 3>(vv, b, h, e, o, n, n_bisect, c, s);
+      break;
+    default:
+      launch_project_coop<T, 4>(vv, b, h, e, o, n, n_bisect, c, s);
+      break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -582,20 +660,23 @@ int launch_solve(const void* beta, const void* h2, const void* e_max, void* tau,
 // cudaGetLastError() code right after its launch (0 = launched).
 extern "C" {
 
+// lanes = 1: project_kernel, one thread per vertex.  lanes = 4, 8 or 16:
+// project_coop_kernel with that many lanes per vertex.  Any other lanes is
+// refused.
 int polyblock_project_f64(const void* v, const void* beta, const void* h2,
-                          const void* e_max, void* out, int64_t n, int n_bisect,
+                          const void* e_max, void* out, int64_t n, int n_bisect, int lanes,
                           double kappa0_mu, double cpu_hz, double pt_w,
                           double model_bits, double bandwidth_hz, void* stream) {
-  return launch_project<double>(v, beta, h2, e_max, out, n, n_bisect, kappa0_mu, cpu_hz,
-                                pt_w, model_bits, bandwidth_hz, stream);
+  return launch_project<double>(v, beta, h2, e_max, out, n, n_bisect, lanes, kappa0_mu,
+                                cpu_hz, pt_w, model_bits, bandwidth_hz, stream);
 }
 
 int polyblock_project_f32(const void* v, const void* beta, const void* h2,
-                          const void* e_max, void* out, int64_t n, int n_bisect,
+                          const void* e_max, void* out, int64_t n, int n_bisect, int lanes,
                           double kappa0_mu, double cpu_hz, double pt_w,
                           double model_bits, double bandwidth_hz, void* stream) {
-  return launch_project<float>(v, beta, h2, e_max, out, n, n_bisect, kappa0_mu, cpu_hz,
-                               pt_w, model_bits, bandwidth_hz, stream);
+  return launch_project<float>(v, beta, h2, e_max, out, n, n_bisect, lanes, kappa0_mu,
+                               cpu_hz, pt_w, model_bits, bandwidth_hz, stream);
 }
 
 // lanes = 1: solve_kernel, one thread per pair, `store` a global scratch of

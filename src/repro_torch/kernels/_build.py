@@ -41,7 +41,7 @@ _P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_d
 _F32 = ctypes.c_float
 _FLASH = [_P] * 4 + [_I32] * 6 + [_F32, _I32, _I32, _P]
 _WKV6 = [_P] * 8 + [_I32] * 4 + [_P]
-_PROJECT = [_P] * 5 + [_I64, _I32] + [_F64] * 5 + [_P]
+_PROJECT = [_P] * 5 + [_I64, _I32, _I32] + [_F64] * 5 + [_P]
 _SOLVE = [_P] * 8 + [_I64, _F64, _I32, _I32, _I32] + [_F64] * 6 + [_P]
 # One library per source file csrc/<name>.cu: its C functions' argtypes.
 _SIGNATURES = {

@@ -28,15 +28,14 @@ import torch
 
 from ...core.wireless import WirelessConfig, total_time
 from .._build import check_launch, load_polyblock
-from ..polyblock_project.ops import project_bisect
+from ..polyblock_project.ops import LANES, project_bisect
 
 __all__ = ["polyblock_solve_plain", "polyblock_solve_fused", "coop_lanes", "first_max_lanes",
            "LANES"]
 
 _DTYPES = (torch.float64, torch.float32)
-# Lanes per child the C entry takes: 1 is `solve_kernel` (one thread per
-# pair), 4, 8 and 16 `solve_coop_kernel`.
-LANES = (1, 4, 8, 16)
+# LANES: the lanes per child the C entry takes, 1 `solve_kernel` (one
+# thread per pair), 4, 8 and 16 `solve_coop_kernel`.
 # Pair counts up to this take 16 lanes per child, larger ones 4: about the
 # warps the card holds at once (132 SMs x 24-28), so up to it every pair
 # has a warp of its own from the start (the same-run sweep in PERF.md).

@@ -7,11 +7,17 @@ already feasible.
 
   project_bisect    -- the plain torch version, the mirror of the JAX
                        package's `project_jnp` (same arithmetic, same order);
-  project_speculative -- a plain emulation of K1's cooperative projection
-                       (`coop_project` in csrc/polyblock.cu), for tests;
-  polyblock_project -- the wrapper of the CUDA kernel `project_kernel`
-                       (csrc/polyblock.cu), which replaces the Pallas kernel
-                       `kernels/polyblock_project/kernel.py::_project_kernel`.
+  project_speculative -- a plain emulation of the cooperative projection
+                       (`coop_project` in csrc/polyblock.cu, shared by K1
+                       and K2), for tests;
+  polyblock_project -- the wrapper of the CUDA kernels that replace the
+                       Pallas kernel `kernels/polyblock_project/kernel.py::
+                       _project_kernel` (csrc/polyblock.cu):
+                       `project_coop_kernel`, L = 4, 8 or 16 lanes of a warp
+                       per vertex (speculative bisection, chosen from the
+                       vertex count by `project_lanes`), or `project_kernel`,
+                       one thread per vertex (lanes=1, the reference
+                       schedule).
 """
 from __future__ import annotations
 
@@ -21,9 +27,30 @@ from ...core.wireless import WirelessConfig, total_energy
 from .._build import check_launch, load_polyblock
 from .ref import TINY
 
-__all__ = ["project_bisect", "project_speculative", "polyblock_project"]
+__all__ = ["project_bisect", "project_speculative", "polyblock_project", "project_lanes",
+           "LANES"]
 
 _DTYPES = (torch.float64, torch.float32)
+# Lanes per projection the C entries take (K2 per vertex, K1 per child): 1
+# is the one-thread schedule, 4, 8 and 16 the speculative `coop_project`.
+LANES = (1, 4, 8, 16)
+# Vertex counts up to WIDE_MAX_VERTICES take 16 lanes per vertex, up to
+# NARROW_MAX_VERTICES 4, larger ones 1 (the same-run sweep in PERF.md).
+WIDE_MAX_VERTICES = 4096
+NARROW_MAX_VERTICES = 16384
+
+
+def project_lanes(n: int) -> int:
+    """Lanes per vertex for a batch of n vertices.  Where the batch leaves
+    the card idle (the step driver's few hundred vertices per call), one
+    vertex's chain of dependent evaluations is the kernel's time, and the
+    widest speculation shortens it most (61 -> 16 evaluations); as the
+    batch fills the card, speculation's extra evaluations (2^d - 1 per d
+    levels) cost issue slots, first at 16 lanes, then at 4.  From a
+    same-run sweep of 1, 4, 8 and 16 lanes on the card (PERF.md)."""
+    if n <= WIDE_MAX_VERTICES:
+        return 16
+    return 4 if n <= NARROW_MAX_VERTICES else 1
 
 
 def project_bisect(v, beta, h2, e_max, cfg: WirelessConfig, *,
@@ -95,12 +122,16 @@ def project_speculative(v, beta, h2, e_max, cfg: WirelessConfig, *,
 
 
 def polyblock_project(v, beta, h2, e_max, cfg: WirelessConfig, *,
-                      n_bisect: int = 60):
+                      n_bisect: int = 60, lanes: int | None = None):
     """Project n vertices: v (n, 2), beta / h2 / e_max (n,), one dtype
     (float64 or float32), one device, contiguous.  Returns zeta * v (n, 2).
 
-    A CUDA tensor launches the kernel; a CPU tensor runs `project_bisect`.
+    A CUDA tensor launches the kernel with `lanes` lanes per vertex (one of
+    LANES; None: `project_lanes(n)`), every choice giving the same bits; a
+    CPU tensor runs `project_bisect`.
     """
+    if lanes is not None and lanes not in LANES:
+        raise ValueError(f"polyblock_project: lanes must be one of {LANES}, got {lanes}")
     if v.device.type == "cpu":
         return project_bisect(v, beta, h2, e_max, cfg, n_bisect=n_bisect)
     if v.device.type != "cuda":
@@ -120,12 +151,13 @@ def polyblock_project(v, beta, h2, e_max, cfg: WirelessConfig, *,
     out = torch.empty_like(v)
     if n == 0:
         return out
+    lanes = project_lanes(n) if lanes is None else lanes
     lib = load_polyblock()
     fn = (lib.polyblock_project_f64 if v.dtype == torch.float64
           else lib.polyblock_project_f32)
     with torch.cuda.device(v.device):
         err = fn(v.data_ptr(), beta.data_ptr(), h2.data_ptr(), e_max.data_ptr(),
-                 out.data_ptr(), n, int(n_bisect), cfg.kappa0 * cfg.mu_cycles,
+                 out.data_ptr(), n, int(n_bisect), int(lanes), cfg.kappa0 * cfg.mu_cycles,
                  cfg.cpu_hz, cfg.pt_w, cfg.model_bits, cfg.bandwidth_hz,
                  torch.cuda.current_stream(v.device).cuda_stream)
     check_launch(err, "polyblock_project")

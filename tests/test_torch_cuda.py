@@ -22,8 +22,9 @@ from repro_torch.kernels.fedavg_agg import (fedavg_agg_plain, fedavg_aggregate,
                                             fedavg_aggregate_leaves, fedavg_aggregate_tree)
 from repro_torch.kernels.polyblock_fused.ops import (LANES, coop_lanes, polyblock_solve_fused,
                                                      polyblock_solve_plain)
-from repro_torch.kernels.polyblock_project.ops import (polyblock_project,
-                                                       project_bisect)
+from repro_torch.kernels.polyblock_project.ops import (LANES as PROJECT_LANES,
+                                                       polyblock_project, project_bisect,
+                                                       project_lanes)
 from repro_torch.launch.serve import serve_loop
 from repro_torch.models.transformer import forward, init_params
 
@@ -62,6 +63,50 @@ def test_project_kernel_matches_plain(dev, dtype):
     # by a scalar differ; float32 roots are resolved to ~1e-5 (g's noise).
     limit = 1e-10 if dtype == torch.float64 else 1e-4
     assert ((got - want).abs() / want.abs()).max().item() < limit
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 7, 33, 600])
+def test_every_project_lanes_is_bitwise_the_one_lane_schedule(dev, dtype, n):
+    """project_coop_kernel at 4, 8 and 16 lanes per vertex (and the
+    wrapper's own choice) against project_kernel, one thread per vertex:
+    the same bits, with ragged tail warps (1, 7, 33 vertices), on random
+    (0.05, 1]^2 vertices (feasible and not) and on eq.-23 children of
+    projected (1, 1) vertices (all outside G); one launch per call."""
+    beta, h2, e = (x[:n].contiguous() for x in _pairs(n=2 * n + 16, seed=n, dev=dev,
+                                                       dtype=dtype))
+    assert beta.shape == (n,)
+    gen = torch.Generator(dev).manual_seed(n)
+    rand = torch.rand(n, 2, dtype=dtype, device=dev, generator=gen) * 0.95 + 0.05
+    one = torch.ones(n, 2, dtype=dtype, device=dev)
+    phi = project_bisect(one, beta, h2, e, CFG)
+    child = torch.stack([phi[:, 0], one[:, 1]], -1)
+    for v in (rand, child):
+        want = polyblock_project(v, beta, h2, e, CFG, lanes=1)
+        for lanes in [x for x in PROJECT_LANES if x > 1] + [None]:
+            before = polyblock_project.launches
+            got = polyblock_project(v, beta, h2, e, CFG, lanes=lanes)
+            torch.cuda.synchronize()
+            assert polyblock_project.launches == before + 1
+            assert torch.equal(got, want), (lanes, dtype)
+    assert project_lanes(n) in PROJECT_LANES
+
+
+def test_project_lanes_feasible_vertices_and_refused_lanes(dev):
+    """A batch already inside G comes back unchanged (zeta = 1) on every
+    schedule, and a lanes value the C entry does not take raises a
+    ValueError before any launch."""
+    beta, h2, e = _pairs(n=300, dev=dev)
+    v = torch.full((beta.shape[0], 2), 1e-3, dtype=torch.float64, device=dev)
+    for lanes in PROJECT_LANES:
+        got = polyblock_project(v, beta, h2, e, CFG, lanes=lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, v), lanes
+    before = polyblock_project.launches
+    for lanes in (2, 32, 0):
+        with pytest.raises(ValueError, match="lanes"):
+            polyblock_project(v, beta, h2, e, CFG, lanes=lanes)
+    assert polyblock_project.launches == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -9,7 +9,7 @@ and agree exactly (tx, AoU, selection counts) or to the log1p ulp carried
 through Algorithm 1 (latency and energy, 1e-9 relative).  Loss and accuracy
 come out of float32 training whose sums the two frameworks order
 differently; over six rounds of two local steps that stays within 1e-4
-relative.
+relative for mnist and sst2 (cifar10's Adam-trained CNN: `_LOSS_RTOL`).
 """
 from _torch_oracle import SMALL, inject_jax_draws, rel_err  # noqa: I001  (alias first)
 
@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.fl.sim as port_sim
 from repro.core import RoundPolicy as JaxPolicy
 from repro.fl import SimConfig as JaxSimConfig
 from repro.fl import run_simulation as jax_run_simulation
@@ -30,8 +31,20 @@ from repro_torch.fl import SimConfig, run_many, run_simulation
 _SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 
 
+# Loss tolerance per dataset.  cifar10 trains its CNN with Adam (Table I),
+# which is ill-conditioned in float32 here: on SMALL its loss differs from
+# JAX's by up to 5.4e-4 relative (alg3, static; 6.1e-7 on random, churn),
+# while perturbing the port's own initial weights by one ulp (2^-24
+# relative, random signs) moves its alg3 loss by 4.2e-4 and 1.7e-3 on two
+# draws, with the same tx trace (`test_cifar10_loss_moves_under_one_ulp`);
+# with sgd the same CNN moves by under 5e-6.  5e-3 is three times the
+# larger one-ulp movement: a real fault in the learning plane (a wrong
+# step, a wrong leaf) moves the loss by far more.
+_LOSS_RTOL = {"mnist": 1e-4, "sst2": 1e-4, "cifar10": 5e-3}
+
+
 @pytest.mark.parametrize("ds", ["alg3", "random"])
-@pytest.mark.parametrize("dataset", ["mnist", "sst2"])
+@pytest.mark.parametrize("dataset", ["mnist", "sst2", "cifar10"])
 def test_slice_matches_jax_loop_engine(monkeypatch, dataset, ds):
     inject_jax_draws(monkeypatch)
     kw = dict(SMALL, dataset=dataset, scenario="churn" if ds == "random" else "static")
@@ -44,9 +57,34 @@ def test_slice_matches_jax_loop_engine(monkeypatch, dataset, ds):
     assert got.tx_trace.any()
     for name in ("latency_all", "energy_all", "cum_time_s"):
         assert rel_err(getattr(got, name), getattr(want, name)) < 1e-9, name
-    assert rel_err(got.global_loss, want.global_loss) < 1e-4
+    assert rel_err(got.global_loss, want.global_loss) < _LOSS_RTOL[dataset]
     np.testing.assert_allclose(got.accuracy, want.accuracy, rtol=1e-4, atol=0)
     assert got.label == want.label
+
+
+def test_cifar10_loss_moves_under_one_ulp(monkeypatch):
+    """What cifar10's loss tolerance rests on: float32 rounding alone, a
+    one-ulp perturbation (2^-24 relative, random signs) of the port's own
+    initial weights, moves its SMALL loss by more than the 1e-4 that mnist
+    and sst2 are held to, while the tx trace stays the same."""
+    inject_jax_draws(monkeypatch)
+    cfg = SimConfig(**dict(SMALL, dataset="cifar10"))
+    base = run_simulation(cfg, device="cpu")
+    draws = port_sim.training_draws
+    moved = []
+    for seed in (1, 2):
+        def perturbed(cfg, batch, device, seed=seed):
+            params, next_u = draws(cfg, batch, device)
+            gen = torch.Generator().manual_seed(seed)
+            sign = {k: 2.0 * torch.randint(0, 2, v.shape, generator=gen) - 1.0
+                    for k, v in params.items()}
+            return {k: v * (1 + 2.0**-24 * sign[k]) for k, v in params.items()}, next_u
+
+        monkeypatch.setattr(port_sim, "training_draws", perturbed)
+        got = run_simulation(cfg, device="cpu")
+        np.testing.assert_array_equal(got.tx_trace, base.tx_trace)
+        moved.append(rel_err(got.global_loss, base.global_loss))
+    assert 1e-4 < max(moved) < _LOSS_RTOL["cifar10"], moved
 
 
 def test_step_solver_gives_the_same_simulation():
