@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the paper simulation
-(`run_simulation`) through K1-K3 on all three engines and checks its traces
+(`run_simulation`) and its multi-cell hierarchy (`run_hierarchical`,
+`run_hier_many`) through K1-K3 on all three engines and checks their traces
 against the same runs on the CPU, and serves two 7B models of the model zoo
 (`serve_loop`) at full width and depth through K4 and K5.  Phases, in order:
 
@@ -49,7 +50,20 @@ against the same runs on the CPU, and serves two 7B models of the model zoo
      and scan paths under torch.profiler (the card's busy time and idle
      share; K2's summed device time on the step run) and one run of each
      engine under torch's sync debug mode (every host sync, by source line);
-  8. the serving paths: serve_loop at full width and depth (random weights
+  8. the hierarchy's main paths, each driven with every launch counter set
+     to 0 just before it and read just after: HierSimConfig(rounds=30) —
+     mnist MLP at full width, 2 cells x 10 devices x 4 sub-channels, 400
+     samples, Γ for all cells in one K1 launch, aggregation through K3 at
+     both tiers — on engine="loop", "scan" and the two-tier async engine
+     (aggregation="async" at both tiers), async_full at both tiers held
+     bitwise equal to the card's scan run, 10 rounds with
+     ra_solver="step" through K2, and a 3-cell corr_fading world with
+     cell_coupling=0.5 on scan; traces equal to the device="cpu" run,
+     losses within 1e-4 of it, K1 exactly once per fused run, K2 as often
+     as the step driver iterates, K3 exactly as often as the traces imply
+     (`hier_k3_expected`); then one warm scan run under torch.profiler and
+     one under torch's sync debug mode;
+  9. the serving paths: serve_loop at full width and depth (random weights
      from a seed) for qwen2-7b with attn_impl="pallas" and for rwkv6-7b
      with rwkv_wkv_impl="pallas", batch 4, prompt 512, 32 new tokens, the
      launch counters set to 0 just before each and read just after (K4
@@ -57,7 +71,8 @@ against the same runs on the CPU, and serves two 7B models of the model zoo
      "ref" path on the same weights on the card, tokens in range, logits
      finite; a second, warm run under torch's sync debug mode (no host
      sync inside the decode loop) and a third under torch.profiler;
-  9. the kernel list as one JSON line.
+ 10. the kernel list as one JSON line (with K1-K3's launches on the
+     hierarchy's paths, `hier_launches`).
 
 Any failure raises; the last line is the device JSON only when every phase
 passed.  Exits non-zero without a CUDA device or without the repository's
@@ -86,7 +101,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import WirelessConfig, is_infeasible, total_energy  # noqa: E402
 from repro_torch.core.leader_torch import host_int  # noqa: E402
-from repro_torch.fl import SimConfig, run_simulation  # noqa: E402
+from repro_torch.fl import (HierSimConfig, SimConfig, run_hier_many,  # noqa: E402
+                            run_hierarchical, run_simulation)
+from repro_torch.fl import hierarchical as hier  # noqa: E402
 from repro_torch.fl.sim import _prepare  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.data.pipeline import synthetic_token_batch  # noqa: E402
@@ -679,18 +696,26 @@ COUNTERS = {"polyblock_fused": polyblock_solve_fused,
             "rwkv6_wkv": wkv6}
 
 
-def run_on_card(cfg: SimConfig, **kw):
-    """One run on the card with every launch counter (and the host-read
-    counter) set to 0 just before it; returns the history, wall seconds,
-    the launch counts and the host reads of that run."""
+def run_on_card(cfg, run=run_simulation, **kw):
+    """One run of `run(cfg, device=DEV, **kw)` on the card with every
+    launch counter (and the host-read counter) set to 0 just before it;
+    returns its result, wall seconds, the launch counts and the host reads
+    of that run."""
     for fn in COUNTERS.values():
         fn.launches = 0
     host_int.syncs = 0
     t0 = time.perf_counter()
-    hist = run_simulation(cfg, device=DEV, **kw)
+    hist = run(cfg, device=DEV, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return hist, wall, {name: fn.launches for name, fn in COUNTERS.items()}, host_int.syncs
+
+
+def run_name(run, kw: dict) -> str:
+    """A run's label in the output: the entry point's keyword arguments,
+    "hier" before them for the hierarchy."""
+    name = " ".join(f"{k}={v}" for k, v in kw.items()) or "engine=loop"
+    return name if run is run_simulation else "hier " + name
 
 
 def max_rel(a: np.ndarray, b: np.ndarray) -> float:
@@ -738,25 +763,25 @@ def drive(cfg: SimConfig, need: tuple[str, ...], **kw) -> tuple:
     return hist, launches
 
 
-def profile_run(cfg: SimConfig, focus: str | None = None, **kw) -> None:
-    """Where a warm run's time goes: one run under torch.profiler (after an
-    unprofiled warm-up run): wall time, the card's busy time (the sum of
-    its kernels' self time; one stream, so kernels do not overlap), its
-    idle share, the kernel count, and the kernels that take most of it;
-    with `focus`, the launches and summed device time of the kernels whose
-    name holds it."""
+def profile_run(cfg, focus: tuple[str, ...] = (), run=run_simulation, **kw) -> None:
+    """Where a warm run's time goes: one run of `run(cfg, device=DEV, **kw)`
+    under torch.profiler (after an unprofiled warm-up run): wall time, the
+    card's busy time (the sum of its kernels' self time; one stream, so
+    kernels do not overlap), its idle share, the kernel count, and the
+    kernels that take most of it; for each name part in `focus`, the
+    launches and summed device time of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
-    run_simulation(cfg, device=DEV, **kw)
+    run(cfg, device=DEV, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_simulation(cfg, device=DEV, **kw)
+        run(cfg, device=DEV, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    name = " ".join(f"{k}={v}" for k, v in kw.items()) or "engine=loop"
+    name = run_name(run, kw)
     if busy_ms == 0:
         line(f"profile {name}: wall_s={wall:.3f}; device time not measured (no device events)")
         return
@@ -765,32 +790,149 @@ def profile_run(cfg: SimConfig, focus: str | None = None, **kw) -> None:
          f"kernel_launches={sum(e.count for e in kernels)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         line(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    if focus:
-        mine = [e for e in kernels if focus in e.key]
-        line(f"  kernels named *{focus}*: launches={sum(e.count for e in mine)} device_ms="
+    for part in focus:
+        mine = [e for e in kernels if part in e.key]
+        line(f"  kernels named *{part}*: launches={sum(e.count for e in mine)} device_ms="
              f"{sum(e.self_device_time_total for e in mine) / 1e3:.4f} ("
              + ", ".join(f"{e.key[:60]} x{e.count}" for e in mine) + ")")
 
 
-def count_syncs(cfg: SimConfig, **kw) -> None:
-    """Every host sync of one run, as torch's sync debug mode reports them
-    (one warning per synchronizing call), by the source line that made it,
-    beside the engine's own count of its host reads (`host_int`)."""
+def count_syncs(cfg, run=run_simulation, **kw) -> None:
+    """Every host sync of one run of `run(cfg, device=DEV, **kw)`, as
+    torch's sync debug mode reports them (one warning per synchronizing
+    call), by the source line that made it, beside the engine's own count
+    of its host reads (`host_int`)."""
     host_int.syncs = 0
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            run_simulation(cfg, device=DEV, **kw)
+            run(cfg, device=DEV, **kw)
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     by_line = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
-    name = " ".join(f"{k}={v}" for k, v in kw.items()) or "engine=loop"
+    name = run_name(run, kw)
     line(f"syncs {name} rounds={cfg.rounds}: {len(syncs)} synchronizing calls "
          f"({len(syncs) / cfg.rounds:.2f} per round); host_int reads={host_int.syncs}; "
          "by source line: " + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(8)))
+
+
+# ---------------------------------------------------------------------------
+# the hierarchy's main paths (multi-cell)
+# ---------------------------------------------------------------------------
+
+def hier_sim(cfg: HierSimConfig, device, engine: str = "scan",
+             ra_solver: str = "fused") -> dict:
+    """One hierarchy run through the entry point a user calls
+    (`run_hierarchical` for the loop engine, `run_hier_many` otherwise), as
+    per-cell traces: tx and AoU (rounds, C, N), losses, latencies, the
+    async engine's commits at both tiers, and the SimHistory (`hist`; None
+    on the loop engine)."""
+    if engine == "loop":
+        out = run_hierarchical(cfg, engine="loop", device=device)
+        return dict(tx=out["tx"], age=out["age"], loss=out["loss"], acc=out["accuracy"],
+                    latency=out["latency"], hist=None)
+    h = run_hier_many([cfg], engine=engine, ra_solver=ra_solver, device=device)[0]
+    shape = (cfg.rounds, cfg.n_cells, cfg.devices_per_cell)
+    out = dict(tx=h.tx_trace.reshape(shape), age=h.age_trace.reshape(shape),
+               loss=h.global_loss, acc=h.accuracy, latency=h.latency_all, hist=h)
+    if h.commit_trace is not None:
+        out.update(committed=h.commit_trace.reshape(shape),
+                   cell_committed=h.async_trace["cell_committed"])
+    return out
+
+
+def hier_k3_expected(cfg: HierSimConfig, engine: str, out: dict) -> tuple[int, str]:
+    """The K3 launches a run's traces imply, and how.  Every aggregation is
+    one grouped K3 launch.  loop: one per (round, cell) in which the cell
+    trained, and a global one per round in which any cell trained (it
+    stacks only those cells); scan: one per (round, cell) in which the cell
+    trained, and a global one every round over all C cell slots.  async:
+    the count does not depend on the traces, by design: every event makes
+    one buffered commit per cell and one at the global tier whether or not
+    anything commits (a commit that takes nothing is an exact identity
+    select, so the engine makes no host read to skip it), so rounds x
+    (C + 1).  The check then shows only that each event launched C + 1
+    aggregations; the cell-tier and global commits of the traces are
+    printed beside it, and each is one of those launches."""
+    trained = out["tx"].any(axis=2)                     # (rounds, C)
+    if engine == "loop":
+        any_t = int(trained.any(axis=1).sum())
+        return int(trained.sum()) + any_t, f"{int(trained.sum())} cell + {any_t} global"
+    if engine == "scan":
+        return (int(trained.sum()) + cfg.rounds,
+                f"{int(trained.sum())} cell + {cfg.rounds} global")
+    return (cfg.rounds * (cfg.n_cells + 1),
+            f"{cfg.rounds} events x ({cfg.n_cells} cells + 1 global); cell-tier commits "
+            f"{int(out['committed'].any(axis=2).sum())}, global commits "
+            f"{int(out['cell_committed'].sum())}")
+
+
+def hier_k2_expected(cfg: HierSimConfig) -> int:
+    """K2 launches of a `ra_solver="step"` run: the step driver projects
+    (1, 1) once, then the children once per iteration of its slowest pair
+    (the iteration counts of the same solve on the CPU)."""
+    prep = hier._prepare_hier(cfg, torch.device("cpu"))
+    (ras,), _ = hier._solve_hier_horizons([prep], "step", torch.device("cpu"))
+    return 1 + max(int(ra.iterations.max()) for ra in ras)
+
+
+def drive_hier(cfg: HierSimConfig, engine: str, need: tuple[str, ...],
+               ra_solver: str = "fused") -> tuple[dict, dict]:
+    """Drive one hierarchy path on the card twice and once on the CPU:
+    traces equal to the CPU run's, latency within 1e-6 and losses within
+    1e-4 of it, each kernel in `need` launched, K1 exactly once on a fused
+    run, K2 as often as the step driver iterates on a step run, and K3
+    exactly as often as the traces imply (`hier_k3_expected`)."""
+    out, wall, launches, syncs = run_on_card(cfg, hier_sim, engine=engine, ra_solver=ra_solver)
+    again, warm_wall, _, _ = run_on_card(cfg, hier_sim, engine=engine, ra_solver=ra_solver)
+    t0 = time.perf_counter()
+    ref = hier_sim(cfg, "cpu", engine, ra_solver)
+    cpu_wall = time.perf_counter() - t0
+    name = f"engine={engine}" + (f" ra_solver={ra_solver}" if ra_solver != "fused" else "")
+    line(f"main path hier {name} cells={cfg.n_cells}x{cfg.devices_per_cell} devices, "
+         f"{cfg.subchannels_per_cell} sub-channels each, scenario={cfg.scenario} "
+         f"coupling={cfg.cell_coupling} aggregation={cfg.aggregation}/"
+         f"{cfg.global_aggregation} rounds={cfg.rounds}: launches "
+         + " ".join(f"{k}={v}" for k, v in launches.items())
+         + f"; host reads={syncs} ({syncs / cfg.rounds:.2f} per round); gpu wall_s first "
+         f"run={wall:.3f}, second run={warm_wall:.3f}; cpu wall_s={cpu_wall:.3f}"
+         + (f"; plan_wall_s gpu={out['hist'].plan_wall_s:.4f} cpu={ref['hist'].plan_wall_s:.4f}"
+            if out["hist"] is not None else ""))
+    line("  loss: " + " ".join(f"{x:.4f}" for x in out["loss"]))
+    line("  acc:  " + " ".join(f"{x:.3f}" for x in out["acc"]))
+    same = {f: np.array_equal(out[f], ref[f])
+            for f in ("tx", "age", "committed", "cell_committed") if f in ref}
+    lat_rel = max_rel(out["latency"], ref["latency"])
+    loss_rel = max_rel(out["loss"], ref["loss"])
+    k3_want, k3_how = hier_k3_expected(cfg, engine, out)
+    k1_want = 1 if ra_solver == "fused" else 0
+    k2_want = hier_k2_expected(cfg) if ra_solver == "step" else 0
+    line("  " + "; ".join(f"{f} == cpu: {v}" for f, v in same.items())
+         + f"; latency max_rel vs cpu: {lat_rel:.3e} (limit 1e-6); loss max_rel vs cpu: "
+         f"{loss_rel:.3e} (limit 1e-4); transmissions: {int(out['tx'].sum())}")
+    line(f"  K1 launches={launches['polyblock_fused']} (expected {k1_want}); K2 launches="
+         f"{launches['polyblock_project']} (expected {k2_want}); K3 launches="
+         f"{launches['fedavg_agg']} (the traces imply {k3_want}: {k3_how})")
+    for kernel in need:
+        if launches[kernel] < 1:
+            raise AssertionError(f"{kernel} was not launched on the hierarchy path {name}")
+    if (launches["polyblock_fused"], launches["polyblock_project"],
+            launches["fedavg_agg"]) != (k1_want, k2_want, k3_want):
+        raise AssertionError(f"hier {name}: K1/K2/K3 launches differ from the expected counts")
+    if not (np.all(np.isfinite(out["loss"])) and out["loss"].shape == (cfg.rounds,)):
+        raise AssertionError("hier: losses are not finite / not one per round")
+    if not out["loss"][-1] < out["loss"][0]:
+        raise AssertionError("hier: training did not lower the loss")
+    if not np.array_equal(again["tx"], out["tx"]):
+        raise AssertionError("hier: two runs of the same seed on the card differ in tx")
+    if not all(same.values()):
+        raise AssertionError(f"hier {name}: traces differ from the CPU run")
+    if not (lat_rel <= 1e-6 and loss_rel <= 1e-4):
+        raise AssertionError(f"hier {name}: latency or loss too far from the CPU run")
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1035,7 +1177,7 @@ def main() -> None:
                                 engine="async")
     assert_bitwise(full, scan, "async_full vs scan on the card")
     profile_run(main_cfg)
-    profile_run(step_cfg, focus="project_", ra_solver="step")
+    profile_run(step_cfg, focus=("project_",), ra_solver="step")
     profile_run(main_cfg, engine="scan")
     count_syncs(main_cfg)
     count_syncs(main_cfg, engine="scan")
@@ -1057,15 +1199,44 @@ def main() -> None:
         raise AssertionError(f"K2 launched {step_launches['polyblock_project']} times on the "
                              f"step run, expected {K2_STEP_LAUNCHES}")
 
-    # ---- 8. the serving paths ------------------------------------------------
+    # ---- 8. the hierarchy's main paths ----------------------------------------
+    hier_cfg = HierSimConfig(rounds=30, seed=0)
+    fused = ("polyblock_fused", "fedavg_agg")
+    h_loop, hl_launches = drive_hier(hier_cfg, "loop", fused)
+    h_scan, hs_launches = drive_hier(hier_cfg, "scan", fused)
+    h_async, ha_launches = drive_hier(
+        dataclasses.replace(hier_cfg, aggregation="async", global_aggregation="async"),
+        "async", fused)
+    h_full = run_on_card(dataclasses.replace(hier_cfg, aggregation="async_full",
+                                             global_aggregation="async_full"),
+                         hier_sim, engine="async")[0]
+    assert_bitwise(h_full["hist"], h_scan["hist"],
+                   "hier async_full at both tiers vs scan on the card")
+    _, hstep_launches = drive_hier(dataclasses.replace(hier_cfg, rounds=10), "scan",
+                                   ("polyblock_project", "fedavg_agg"), ra_solver="step")
+    _, h3_launches = drive_hier(dataclasses.replace(hier_cfg, n_cells=3,
+                                                    scenario="corr_fading",
+                                                    cell_coupling=0.5), "scan", fused)
+    profile_run(hier_cfg, focus=("solve_", "agg_leaves"), run=hier_sim, engine="scan")
+    count_syncs(hier_cfg, run=hier_sim, engine="scan")
+    line("K3 launches per hierarchy run: " + " ".join(
+        f"{k}={v['fedavg_agg']}" for k, v in (("loop", hl_launches), ("scan", hs_launches),
+                                              ("async", ha_launches),
+                                              ("scan_step", hstep_launches),
+                                              ("scan_3_cells", h3_launches))))
+
+    # ---- 9. the serving paths ------------------------------------------------
     n_new = SERVE["new_tokens"]
     qwen_serve = serve_phase("qwen2-7b", "flash_attention", qwen.n_layers)
     rwkv_serve = serve_phase("rwkv6-7b", "rwkv6_wkv", rwkv.n_layers * (1 + n_new + 1))
     line(f"K5 per launch on the card: prefill {k5_main['ms']:.4f} ms, decode "
          f"{k5_decode['ms']:.4f} ms")
 
-    # ---- 9. kernel list -----------------------------------------------------
+    # ---- 10. kernel list ----------------------------------------------------
     kernels = []
+    hier_launches = {"polyblock_fused": hs_launches["polyblock_fused"],
+                     "polyblock_project": hstep_launches["polyblock_project"],
+                     "fedavg_agg": hs_launches["fedavg_agg"]}
     for name, src, replaces, launches, res in (
             ("polyblock_fused", "src/repro_torch/csrc/polyblock.cu",
              "src/repro/kernels/polyblock_fused/kernel.py:61",
@@ -1089,6 +1260,8 @@ def main() -> None:
                             library_ms=res["library_ms"]))
         if "lanes" in res:
             kernels[-1]["lanes"] = res["lanes"]
+        if name in hier_launches:
+            kernels[-1]["hier_launches"] = hier_launches[name]
     line(f"total wall_s={time.perf_counter() - t_all:.1f}")
     line(json.dumps({"kernels": kernels}))
     line(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -55,7 +55,7 @@ from .engine_common import (make_eval_fn, make_leader_branches, make_xs,
                             run_leader, train_clients)
 from .server import aggregate_buffered, staleness_weight
 
-__all__ = ["commit_event", "init_async_carry", "build_async_runner"]
+__all__ = ["commit_event", "cell_event", "init_async_carry", "build_async_runner"]
 
 
 def init_async_carry(params0: dict, draws: Callable[[], torch.Tensor], n: int):
@@ -105,11 +105,84 @@ def commit_event(rem: torch.Tensor, active: torch.Tensor, buffer: int,
     return delta, arrived & (rank < k)
 
 
+def cell_event(branches, trainer, data, x, t: int, params: dict, draws,
+               age, buf: dict, base: dict, disp_e, rem, active, busy=None, *,
+               k: int, n: int) -> dict:
+    """One cell's event of the buffered loop: the leader step over the FREE
+    devices, the dispatch, and the buffered commit (K3) into `params`.
+
+    Dispatched devices train from `params` when some device transmits
+    (one host read) and their flights are scattered into `buf` / `base` IN
+    PLACE; every other state tensor is returned anew.  `busy` (a bool
+    scalar tensor) gates the commit: a busy cell commits nothing and its
+    clocks do not advance — the two-tier engine's cell-commit gating
+    (`fl.hier_async`).  The flat engine passes None.
+
+    Returns dict(params, age, disp_e, rem, active) — the cell's new state —
+    and the event's lead, tx, commit, delta (the event latency), cw (the
+    committed slots' weights), energy, overflow (a dispatch onto a busy
+    device: structurally False) and rem_dispatch.
+    """
+    device = age.device
+    ndev = torch.arange(n, device=device)
+    kslot = torch.arange(k, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+
+    # ---- leader plane: busy devices lose Prop-1 feasibility, so AoU
+    # selection re-prioritises over the FREE population ------------------
+    feas_free = x["feas"] & ~active[None, :]
+    lead = run_leader(branches, data["policy_idx"], age, feas_free, x)
+    tx = lead["transmitted"]
+    ch_g = torch.where(tx, lead["channel_of"], 0)
+    t_dev = x["gamma"][ch_g, ndev]
+    energy = torch.where(tx, x["energy"][ch_g, ndev], zero).sum()
+    overflow = (tx & active).any()      # must be structurally False
+
+    # ---- learning plane: dispatched devices train from the CURRENT
+    # model, then fly.  Their device-indexed scatter sends empty slots to
+    # the sacrificial row n, whose duplicate writes are unordered on CUDA:
+    # harmless only because row n is never read. ---------------------------
+    tx_ids = first_true(tx, k)
+    cnt = tx.sum()
+    if host_int(cnt) > 0:
+        cp = train_clients(trainer, data, params, draws, tx_ids)
+        ids_s = torch.where(kslot < cnt, tx_ids, n)
+        for name, b in buf.items():
+            b[ids_s] = cp[name]
+            base[name][ids_s] = params[name]
+    active = active | tx
+    rem = torch.where(tx, t_dev, rem)
+    disp_e = torch.where(tx, t, disp_e).to(torch.int32)
+
+    # ---- commit: wait for the buffer-many earliest arrivals --------------
+    delta, commit = commit_event(rem, active, data["buffer"], k)
+    if busy is not None:
+        delta = torch.where(busy, zero, delta)
+        commit = commit & ~busy
+    w_st = staleness_weight(t - disp_e, data["stale_exp"])
+    cids = first_true(commit, k)
+    cw = torch.where(kslot < commit.sum(), data["beta"][cids] * w_st[cids], zero)
+    # Graft each committed flight's local progress onto the CURRENT model:
+    # w_i + (w - b_i).  Fresh commits have b_i == w bitwise, so the
+    # translation is an exact no-op in the sync limit.
+    translated = {name: buf[name][cids] + (g - base[name][cids])
+                  for name, g in params.items()}
+    params = aggregate_buffered(params, translated, cw, data["server_lr"])
+
+    # ---- post-commit state: AoU resets when the SERVER ingests the update;
+    # surviving flights advance by the event's duration -------------------
+    active = active & ~commit
+    return dict(params=params, age=torch.where(commit, 1, age + 1).to(age.dtype),
+                disp_e=disp_e, rem=torch.where(active, rem - delta, zero),
+                active=active, lead=lead, tx=tx, commit=commit, delta=delta,
+                cw=cw, energy=energy, overflow=overflow,
+                rem_dispatch=torch.where(tx, t_dev, zero))
+
+
 def build_async_runner(model, trainer, policies: Sequence[tuple[str, str]],
                        *, k: int, n: int, rounds: int, eval_mask: np.ndarray,
-                       track_gradnorm: bool = False, max_rounds: int = 200,
-                       segmented: bool = False):
-    """One loop over server events: leader + training + commits.
+                       track_gradnorm: bool = False, segmented: bool = False):
+    """One loop over server events, each one `cell_event`, then the eval.
 
     Mirrors `fl.sim._build_scan_runner` (same `data` dict, plus the async
     operands `buffer` (int), `stale_exp` and `server_lr` (float32 scalar
@@ -125,11 +198,8 @@ def build_async_runner(model, trainer, policies: Sequence[tuple[str, str]],
 
     def scan_events(data, carry):
         device = data["beta"].device
-        ndev = torch.arange(n, device=device)
-        kslot = torch.arange(k, device=device)
         branches = make_leader_branches(policies, data, k=k, n=n,
-                                        n_clusters=n_clusters,
-                                        max_rounds=max_rounds)
+                                        n_clusters=n_clusters)
         ev = make_eval_fn(model, data, track_gradnorm)
         zero = torch.zeros((), dtype=torch.float32, device=device)
         xs = make_xs(data, rounds, eval_mask)
@@ -140,60 +210,17 @@ def build_async_runner(model, trainer, policies: Sequence[tuple[str, str]],
             x = {name: v[r] for name, v in xs.items()}
             t = t0 + x["t"]
             x["t"] = t
-
-            # ---- leader plane: busy devices lose Prop-1 feasibility, so
-            # AoU selection re-prioritises over the FREE population -------
-            feas_free = x["feas"] & ~active[None, :]
-            lead = run_leader(branches, data["policy_idx"], age, feas_free, x)
-            tx = lead["transmitted"]
-            ch_g = torch.where(tx, lead["channel_of"], 0)
-            t_dev = x["gamma"][ch_g, ndev]
-            energy = torch.where(tx, x["energy"][ch_g, ndev], zero).sum()
-            overflow = (tx & active).any()      # must be structurally False
-
-            # ---- learning plane: dispatched devices train from the
-            # CURRENT global model, then fly.  Their device-indexed scatter
-            # sends empty slots to the sacrificial row n, whose duplicate
-            # writes are unordered on CUDA: harmless only because row n is
-            # never read. ---------------------------------------------------
-            tx_ids = first_true(tx, k)
-            cnt = tx.sum()
-            if host_int(cnt) > 0:
-                cp = train_clients(trainer, data, params, draws, tx_ids)
-                ids_s = torch.where(kslot < cnt, tx_ids, n)
-                for name, b in buf.items():
-                    b[ids_s] = cp[name]
-                    base[name][ids_s] = params[name]
-            active = active | tx
-            rem = torch.where(tx, t_dev, rem)
-            disp_e = torch.where(tx, t, disp_e).to(torch.int32)
-
-            # ---- commit: wait for the buffer-many earliest arrivals ------
-            delta, commit = commit_event(rem, active, data["buffer"], k)
-            w_st = staleness_weight(t - disp_e, data["stale_exp"])
-            cids = first_true(commit, k)
-            cw = torch.where(kslot < commit.sum(),
-                             data["beta"][cids] * w_st[cids], zero)
-            # Graft each committed flight's local progress onto the CURRENT
-            # model: w_i + (w - b_i).  Fresh commits have b_i == w bitwise,
-            # so the translation is an exact no-op in the sync limit.
-            translated = {name: buf[name][cids] + (g - base[name][cids])
-                          for name, g in params.items()}
-            params = aggregate_buffered(params, translated, cw, data["server_lr"])
-
-            # ---- post-commit state: AoU resets when the SERVER ingests the
-            # update; surviving flights advance by the event's duration ----
-            active = active & ~commit
-            rem = torch.where(active, rem - delta, zero)
-            age = torch.where(commit, 1, age + 1).to(age.dtype)
-
+            out = cell_event(branches, trainer, data, x, t, params, draws, age,
+                             buf, base, disp_e, rem, active, k=k, n=n)
+            params, age, disp_e, rem, active = (
+                out[name] for name in ("params", "age", "disp_e", "rem", "active"))
             loss, acc, gnorm = ev(params) if x["eval_mask"] else (zero, zero, zero)
-            ys.append(dict(loss=loss, acc=acc, gnorm=gnorm, latency=delta,
-                           energy=energy, selected=lead["selected"],
-                           transmitted=tx, age=age, committed=commit,
+            ys.append(dict(loss=loss, acc=acc, gnorm=gnorm, latency=out["delta"],
+                           energy=out["energy"], selected=out["lead"]["selected"],
+                           transmitted=out["tx"], age=age, committed=out["commit"],
                            n_pending=active.sum().to(torch.int32),
-                           overflow=overflow,
-                           rem_dispatch=torch.where(tx, t_dev, zero)))
+                           overflow=out["overflow"],
+                           rem_dispatch=out["rem_dispatch"]))
         carry = (params, draws, age, buf, base, disp_e, rem, active)
         return carry, {name: torch.stack([y[name] for y in ys]) for name in ys[0]}
 

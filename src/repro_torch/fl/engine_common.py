@@ -4,8 +4,12 @@ The async engine's bit-exact sync-limit contract holds only while both
 engines run the SAME float ops for the leader step, the client-training
 draw discipline and the eval path — so those pieces live here once,
 imported by `fl.sim._build_scan_runner` and
-`fl.async_loop.build_async_runner`.  Everything here works over the `data`
-dict of `fl.sim._scan_inputs`; no dispatch or history logic.
+`fl.async_loop.build_async_runner` (and by the hierarchy's two engines,
+`fl.hierarchical` and `fl.hier_async`).  `sync_cell_round` is one cell's
+whole sync round, run by the flat scan engine and, once per cell, by the
+hierarchy's; the async event's counterpart is `fl.async_loop.cell_event`.
+Everything here works over the `data` dict of `fl.sim._scan_inputs`; no
+dispatch or history logic.
 """
 from __future__ import annotations
 
@@ -15,15 +19,15 @@ import numpy as np
 import torch
 from torch.func import functional_call, grad
 
-from ..core.leader_torch import leader_round
+from ..core.leader_torch import first_true, host_int, leader_round
+from .server import aggregate
 
 __all__ = ["make_leader_branches", "run_leader", "train_clients",
-           "make_eval_fn", "make_xs"]
+           "make_eval_fn", "make_xs", "cell_data", "cell_x", "sync_cell_round"]
 
 
 def make_leader_branches(policies: Sequence[tuple[str, str]], data, *,
-                         k: int, n: int, n_clusters: int,
-                         max_rounds: int = 200) -> list[Callable]:
+                         k: int, n: int, n_clusters: int) -> list[Callable]:
     """One `leader_round` closure per distinct (ds, sa) policy variant.
 
     Each branch takes ``(age, feasible, x)`` — the feasibility mask is an
@@ -36,8 +40,7 @@ def make_leader_branches(policies: Sequence[tuple[str, str]], data, *,
                 age, data["beta"], x["gamma"], feas,
                 x["sel_perm"], x["assign_perm"], x["t"],
                 data["clusters"], data["fixed_ids"],
-                ds=ds, sa=sa, k=k, n=n, n_clusters=n_clusters,
-                max_rounds=max_rounds)
+                ds=ds, sa=sa, k=k, n=n, n_clusters=n_clusters)
         return branch
 
     return [leader_branch(ds, sa) for ds, sa in policies]
@@ -93,3 +96,46 @@ def make_xs(data, rounds: int, eval_mask: np.ndarray) -> dict:
                 assign_perm=data["assign_perms"],
                 eval_mask=np.asarray(eval_mask, bool),
                 t=list(range(rounds)))
+
+
+def cell_data(data: dict, c: int) -> dict:
+    """Cell c's view of the hierarchy's `data` dict: the flat engines'
+    per-cell tensors (beta, clusters, fixed_ids, client data)."""
+    return dict(data, **{name: data[name][c] for name in (
+        "beta", "clusters", "fixed_ids", "x_all", "y_all", "m_all")})
+
+
+def cell_x(x: dict, c: int) -> dict:
+    """Cell c's slice of one round's inputs (Γ, energy, permutations)."""
+    return dict(x, **{name: x[name][c] for name in (
+        "gamma", "feas", "energy", "sel_perm", "assign_perm")})
+
+
+def sync_cell_round(branches, trainer, data, x, params, draws, age, *,
+                    k: int, n: int) -> dict:
+    """One cell's synchronous round on the device: the leader step, the
+    eq.-9 barrier latency and energy of its transmitters, and — when some
+    device transmits, which the host reads once — their local training
+    from `params` and the cell's eq.-34 aggregate (K3).
+
+    Returns dict(lead, latency, energy, params, slot_w): `params` is the
+    aggregate, or the input model itself when nobody transmits; `slot_w`
+    the (K,) slot weights (beta of each transmitter, 0 in empty slots).
+    """
+    device = age.device
+    ndev = torch.arange(n, device=device)
+    kslot = torch.arange(k, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    lead = run_leader(branches, data["policy_idx"], age, x["feas"], x)
+    tx = lead["transmitted"]
+    ch_g = torch.where(tx, lead["channel_of"], 0)
+    t_dev = x["gamma"][ch_g, ndev]
+    latency = torch.where(tx.any(), torch.where(tx, t_dev, -torch.inf).max(), zero)
+    energy = torch.where(tx, x["energy"][ch_g, ndev], zero).sum()
+    tx_ids = first_true(tx, k)
+    cnt = tx.sum()
+    slot_w = torch.where(kslot < cnt, data["beta"][tx_ids], zero)
+    if host_int(cnt) > 0:
+        cp = train_clients(trainer, data, params, draws, tx_ids)
+        params = aggregate(params, cp, slot_w)
+    return dict(lead=lead, latency=latency, energy=energy, params=params, slot_w=slot_w)

@@ -53,7 +53,6 @@ from torch.func import functional_call, grad
 
 from ..core import (RAResult, RoundPolicy, RoundRandomness, WirelessConfig,
                     init_aou, make_clusters, plan_round)
-from ..core.leader_torch import first_true, host_int
 from ..core.monotonic import fixed_ra
 from ..core.monotonic_torch import solve_pairs_fused, solve_pairs_step
 from ..data.fl_datasets import (Dataset, FLPartition, make_dataset,
@@ -67,7 +66,7 @@ from ..train.optimizer import make_optimizer
 from .async_loop import build_async_runner
 from .client import make_local_trainer
 from .engine_common import (make_eval_fn, make_leader_branches, make_xs,
-                            run_leader, train_clients)
+                            sync_cell_round)
 from .server import AsyncAggregation, aggregate, get_aggregation
 
 __all__ = ["SimConfig", "SimHistory", "run_simulation", "run_many", "TABLE1",
@@ -336,7 +335,8 @@ def _slice_ra(ra: RAResult, t: int) -> RAResult:
                     iterations=ra.iterations[t])
 
 
-def training_draws(cfg: SimConfig, batch: int, device: torch.device
+def training_draws(cfg: SimConfig, batch: int, device: torch.device,
+                   k: int | None = None
                    ) -> tuple[dict[str, torch.Tensor], Callable[[], torch.Tensor]]:
     """The learning plane's only random draws: the initial parameters, and
     a function giving one (K, local_steps, batch) float32 block of minibatch
@@ -345,12 +345,13 @@ def training_draws(cfg: SimConfig, batch: int, device: torch.device
     Both come from a CPU generator seeded with `cfg.seed` whatever the
     device, so the card and the CPU train on the same numbers; a block
     reaches the card by an asynchronous copy from pinned memory (no host
-    sync)."""
+    sync).  `k` overrides K = `cfg.n_subchannels`: a hierarchy's block is
+    one cell's (`fl.hierarchical`)."""
     gen = torch.Generator()
     gen.manual_seed(cfg.seed)
-    params0 = {k: v.to(device)
-               for k, v in get_small_model(cfg.dataset).init_params(gen).items()}
-    shape = (cfg.n_subchannels, cfg.local_steps, batch)
+    params0 = {name: v.to(device)
+               for name, v in get_small_model(cfg.dataset).init_params(gen).items()}
+    shape = (cfg.n_subchannels if k is None else k, cfg.local_steps, batch)
 
     def next_uniforms() -> torch.Tensor:
         u = torch.rand(shape, generator=gen, dtype=torch.float32)
@@ -529,8 +530,6 @@ def _build_scan_runner(cfg: SimConfig, model: SmallModel, trainer,
 
     def run(data):
         device = data["beta"].device
-        ndev = torch.arange(n, device=device)
-        kslot = torch.arange(k, device=device)
         zero = torch.zeros((), dtype=torch.float32, device=device)
         branches = make_leader_branches(policies, data, k=k, n=n,
                                         n_clusters=n_clusters)
@@ -541,30 +540,16 @@ def _build_scan_runner(cfg: SimConfig, model: SmallModel, trainer,
         ys = []
         for r in range(cfg.rounds):
             x = {name: v[r] for name, v in xs.items()}
-
-            # ---- leader plane (Algorithms 2-3 + AoU) on tensors ----------
-            lead = run_leader(branches, data["policy_idx"], age, x["feas"], x)
-            tx = lead["transmitted"]
-            ch_g = torch.where(tx, lead["channel_of"], 0)
-            t_dev = x["gamma"][ch_g, ndev]
-            latency = torch.where(
-                tx.any(), torch.where(tx, t_dev, -torch.inf).max(), zero)
-            energy = torch.where(tx, x["energy"][ch_g, ndev], zero).sum()
-
-            # ---- learning plane: train the transmitting devices ----------
-            tx_ids = first_true(tx, k)
-            cnt = tx.sum()
-            if host_int(cnt) > 0:
-                slot_w = torch.where(kslot < cnt, data["beta"][tx_ids], zero)
-                cp = train_clients(trainer, data, params, draws, tx_ids)
-                params = aggregate(params, cp, slot_w)
-
+            # Leader plane (Algorithms 2-3 + AoU), training and eq. 34.
+            out = sync_cell_round(branches, trainer, data, x, params, draws, age,
+                                  k=k, n=n)
+            params, lead = out["params"], out["lead"]
             # ---- bookkeeping: evaluate only at eval rounds ---------------
             loss, acc, gnorm = ev(params) if x["eval_mask"] else (zero, zero, zero)
             age = lead["age_next"]
-            ys.append(dict(loss=loss, acc=acc, gnorm=gnorm, latency=latency,
-                           energy=energy, selected=lead["selected"],
-                           transmitted=tx, age=age))
+            ys.append(dict(loss=loss, acc=acc, gnorm=gnorm, latency=out["latency"],
+                           energy=out["energy"], selected=lead["selected"],
+                           transmitted=lead["transmitted"], age=age))
         return {name: torch.stack([y[name] for y in ys]) for name in ys[0]}
 
     return run

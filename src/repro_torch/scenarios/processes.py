@@ -57,6 +57,7 @@ __all__ = [
     "ChurnProcess",
     "EnergyProcess",
     "sample_fading",
+    "sample_coupled_fading",
     "sample_distances",
     "sample_churn",
     "sample_energy",
@@ -161,6 +162,59 @@ def sample_fading(rng: np.random.Generator, cfg: WirelessConfig,
     scale = np.sqrt(1.0 - rho * rho)
     for t in range(1, rounds):
         g[t] = rho * g[t - 1] + scale * cn((k, n))
+    return np.abs(g) ** 2
+
+
+def sample_coupled_fading(rng: np.random.Generator, cfg: WirelessConfig,
+                          proc: FadingProcess, rounds: int, n_cells: int,
+                          coupling: float) -> np.ndarray:
+    """Cross-cell coupled small-scale fading, shape (C, rounds, K, N).
+
+    Models inter-cell interference correlation: every cell's complex gain
+    is the mixture ``sqrt(c) * g_shared + sqrt(1 - c) * g_local`` of one
+    field shared by ALL cells and a per-cell independent field, each
+    CN(0, 1) under the cell's `FadingProcess` (iid or AR(1)).  Because the
+    mixing coefficients satisfy c + (1 - c) = 1 and the two fields are
+    independent, the per-cell marginal stays CN(0, 1) — so |g|^2 keeps the
+    Exp(1) Rayleigh-power law (and, under ``ar1``, the rho^(2*lag) power
+    autocorrelation) at EVERY coupling, while the cross-cell power
+    correlation grows with `coupling` (tests/test_torch_hier.py holds
+    the draws bit-identical to the JAX package's).
+
+    ``coupling == 0`` must not change the world stream of uncoupled
+    preparation: it delegates to per-cell `sample_fading` calls in cell
+    order, bit-identical to the uncoupled path (and to the flat
+    single-cell stream when C == 1).
+    """
+    if not 0.0 <= coupling <= 1.0:
+        raise ValueError(f"cell coupling must be in [0, 1], got {coupling}")
+    if coupling == 0.0:
+        return np.stack([sample_fading(rng, cfg, proc, rounds)
+                         for _ in range(n_cells)])
+    k, n = cfg.n_subchannels, cfg.n_devices
+
+    def cn(size):
+        return (rng.standard_normal(size) + 1j * rng.standard_normal(size)) \
+            / np.sqrt(2.0)
+
+    a, b = np.sqrt(coupling), np.sqrt(1.0 - coupling)
+    if proc.kind == "iid":
+        shared = cn((rounds, k, n))
+        local = cn((n_cells, rounds, k, n))
+        return np.abs(a * shared[None] + b * local) ** 2
+    # AR(1): run the shared and local recursions side by side — a fixed
+    # mixture of two independent AR(1) CN(0, 1) processes with the same
+    # rho is itself AR(1) CN(0, 1) with that rho.
+    rho = proc.rho
+    scale = np.sqrt(1.0 - rho * rho)
+    g = np.empty((n_cells, rounds, k, n), dtype=np.complex128)
+    gs = cn((k, n))
+    gl = cn((n_cells, k, n))
+    g[:, 0] = a * gs[None] + b * gl
+    for t in range(1, rounds):
+        gs = rho * gs + scale * cn((k, n))
+        gl = rho * gl + scale * cn((n_cells, k, n))
+        g[:, t] = a * gs[None] + b * gl
     return np.abs(g) ** 2
 
 

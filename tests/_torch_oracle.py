@@ -28,6 +28,9 @@ enable_x64 = jax.experimental.enable_x64
 # The small simulation size the port's differential tests run at.
 SMALL = dict(rounds=6, n_devices=8, n_subchannels=3, n_samples=96, batch=16,
              local_steps=2, eval_every=2)
+# The same for the hierarchy (the JAX package's tests/test_hier_async_*.py).
+HIER_SMALL = dict(rounds=6, n_cells=2, devices_per_cell=8, subchannels_per_cell=3,
+                  n_samples=96, batch=16, local_steps=2, eval_every=2)
 
 
 def rel_err(got, want) -> float:
@@ -50,17 +53,19 @@ def feasible_pairs(n: int, seed: int):
     return beta[keep], h2[keep], cfg
 
 
-def jax_training_draws(cfg):
+def jax_training_draws(cfg, k_slots=None):
     """The JAX package's exact learning-plane draws for `cfg`: its initial
     parameters (numpy pytree) and a function giving each training event's
     (K, local_steps, batch) minibatch uniforms, in the order
     `fl/sim.py::_run_prepared`, `fl/engine_common.py::train_clients` and
     `fl/client.py` consume the PRNG stream (the same on all three
-    engines)."""
+    engines).  `k_slots` overrides K = `cfg.n_subchannels` (a hierarchy
+    trains one cell's K slots per split)."""
     from repro.fl.sim import TABLE1
     from repro.models.small import get_small_model
 
     batch = cfg.batch or TABLE1[cfg.dataset]["batch"]
+    n_slots = cfg.n_subchannels if k_slots is None else k_slots
     key = jax.random.PRNGKey(cfg.seed)
     key, k_init = jax.random.split(key)
     params = jax.tree_util.tree_map(
@@ -69,7 +74,7 @@ def jax_training_draws(cfg):
 
     def next_uniforms() -> np.ndarray:
         state["key"], k_round = jax.random.split(state["key"])
-        slots = jax.random.split(k_round, cfg.n_subchannels)
+        slots = jax.random.split(k_round, n_slots)
         return np.asarray(
             [[np.asarray(jax.random.uniform(k, (batch,)))
               for k in jax.random.split(ks, cfg.local_steps)] for ks in slots],
@@ -78,19 +83,32 @@ def jax_training_draws(cfg):
     return params, next_uniforms
 
 
-def inject_jax_draws(monkeypatch):
-    """Make the port's simulations draw exactly what the JAX package draws."""
+def _port_jax_draws(cfg, batch, device, k=None):
+    """`jax_training_draws` in the shape of the port's `training_draws`."""
     import torch
 
-    import repro_torch.fl.sim as port_sim
     from repro_torch.models.small import params_from_jax
 
-    def draws(cfg, batch, device):
-        params, next_u = jax_training_draws(cfg)
-        return (params_from_jax(params, device=device),
-                lambda: torch.from_numpy(next_u()).to(device))
+    params, next_u = jax_training_draws(cfg, k)
+    return (params_from_jax(params, device=device),
+            lambda: torch.from_numpy(next_u()).to(device))
 
-    monkeypatch.setattr(port_sim, "training_draws", draws)
+
+def inject_jax_draws(monkeypatch):
+    """Make the port's simulations draw exactly what the JAX package draws."""
+    import repro_torch.fl.sim as port_sim
+
+    monkeypatch.setattr(port_sim, "training_draws", _port_jax_draws)
+
+
+def inject_jax_hier_draws(monkeypatch):
+    """The same for the port's hierarchy: one (subchannels_per_cell,
+    local_steps, batch) block per (round, cell) in which that cell trains,
+    in cell order, from the one key all cells share
+    (`fl/hierarchical.py:681-684`, `fl/engine_common.py:55-64`)."""
+    import repro_torch.fl.hierarchical as port_hier
+
+    monkeypatch.setattr(port_hier, "training_draws", _port_jax_draws)
 
 
 # --------------------------------------------------------------------------

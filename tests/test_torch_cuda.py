@@ -15,7 +15,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import WirelessConfig, is_infeasible
 from repro_torch.core.monotonic_torch import solve_pairs_fused, solve_pairs_step
-from repro_torch.fl import SimConfig, run_simulation
+from repro_torch.fl import (HierSimConfig, SimConfig, run_hier_many, run_hierarchical,
+                            run_simulation)
 from repro_torch.kernels import _build, flash_attention, flash_attention_plain, wkv6, wkv6_plain
 from repro_torch.fl.server import aggregate, aggregate_buffered
 from repro_torch.kernels.fedavg_agg import (fedavg_agg_plain, fedavg_aggregate,
@@ -245,6 +246,46 @@ def test_full_buffer_is_bitwise_scan_on_the_card(dev):
     scan = run_simulation(SimConfig(**SMALL, scenario="churn"), engine="scan", device=dev)
     asy = run_simulation(SimConfig(**SMALL, scenario="churn", aggregation="async_full"),
                          device=dev)
+    for name in ("tx_trace", "age_trace", "latency_all", "energy_all", "global_loss",
+                 "accuracy", "n_selected", "n_transmitted"):
+        np.testing.assert_array_equal(getattr(asy, name), getattr(scan, name),
+                                      err_msg=name)
+    np.testing.assert_array_equal(asy.commit_trace, scan.tx_trace)
+
+
+HIER_SMALL = dict(rounds=6, n_cells=2, devices_per_cell=8, subchannels_per_cell=3,
+                  n_samples=96, batch=16, local_steps=2, scenario="churn")
+
+
+@pytest.mark.parametrize("engine", ["loop", "scan", "async"])
+def test_hierarchy_traces_match_the_cpu(dev, engine):
+    """The hierarchy on the card against the same run on the CPU: one K1
+    launch for all cells' pairs; K3 once per aggregation — per cell that
+    trained plus the global one (loop: rounds in which any cell trained;
+    scan: every round), and on the async engine one per cell and one global
+    per event."""
+    cfg = HierSimConfig(**HIER_SMALL, aggregation="async" if engine == "async" else "sync",
+                        global_aggregation="async" if engine == "async" else "sync")
+    k1, k3 = polyblock_solve_fused.launches, fedavg_aggregate_leaves.launches
+    got = run_hierarchical(cfg, engine=engine, device=dev)
+    assert polyblock_solve_fused.launches - k1 == 1
+    trained = got["tx"].any(axis=2)
+    want_k3 = {"loop": trained.sum() + trained.any(axis=1).sum(),
+               "scan": trained.sum() + cfg.rounds,
+               "async": cfg.rounds * (cfg.n_cells + 1)}[engine]
+    assert fedavg_aggregate_leaves.launches - k3 == want_k3
+    want = run_hierarchical(cfg, engine=engine, device="cpu")
+    for name in ("tx", "age", "committed", "cell_committed"):
+        if name in want:
+            np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    np.testing.assert_allclose(got["latency"], want["latency"], rtol=1e-6)
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+
+
+def test_hier_full_buffers_are_bitwise_scan_on_the_card(dev):
+    scan = run_hier_many([HierSimConfig(**HIER_SMALL)], engine="scan", device=dev)[0]
+    asy = run_hier_many([HierSimConfig(**HIER_SMALL, aggregation="async_full",
+                                       global_aggregation="async_full")], device=dev)[0]
     for name in ("tx_trace", "age_trace", "latency_all", "energy_all", "global_loss",
                  "accuracy", "n_selected", "n_transmitted"):
         np.testing.assert_array_equal(getattr(asy, name), getattr(scan, name),
