@@ -6,7 +6,8 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the paper simulation
 (`run_simulation`) and its multi-cell hierarchy (`run_hierarchical`,
 `run_hier_many`) through K1-K3 on all three engines and checks their traces
-against the same runs on the CPU, and serves two 7B models of the model zoo
+against the same runs on the CPU, runs the sweep harness (`run_sweep`) and
+the sustained service (`SustainedService`) on them, and serves two 7B models of the model zoo
 (`serve_loop`) at full width and depth through K4 and K5.  Phases, in order:
 
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
@@ -63,7 +64,30 @@ against the same runs on the CPU, and serves two 7B models of the model zoo
      as the step driver iterates, K3 exactly as often as the traces imply
      (`hier_k3_expected`); then one warm scan run under torch.profiler and
      one under torch's sync debug mode;
-  9. the serving paths: serve_loop at full width and depth (random weights
+  9. the sweep harness and the sustained service, each driven with every
+     launch counter set to 0 just before it and read just after:
+     run_sweep at `examples/torch_reproduce_figures.py`'s default widths
+     and 30 rounds (mnist MLP at full width, N 20, K 4, 500 samples, the
+     four paper DS policies x seeds 0 / 1 as that example's default,
+     crossed with aggregation sync / async x cell counts 1 / 2: 32 cells,
+     record and gallery into a temporary directory), K1 and K3 launched
+     as often as the spec and the traces imply, one
+     cell per (aggregation, cell count) bitwise equal to its solo run on
+     the card and its traces equal to the CPU's; then SustainedService at
+     `python -m repro_torch.service.run --ra mo`'s defaults (N 64, K 16,
+     128 samples, batch 16, churn; one warm-up and 4 measured segments of
+     100 events, closed loop): events/s, p50/p95/p99 commit latency, SLO
+     attainment, K1 once per segment, K3 once per event, host reads per
+     event, and one more segment under torch.profiler (K1's device ms and
+     the idle share); on fresh services 2 chained segments of 50 events
+     bitwise equal to one of 100 and that segment equal to the CPU's
+     (traces exact, latency within 1e-6, loss within 1e-4), one segment
+     with ra_solver="step" (K2) dispatching as the fused one, and one
+     open-loop segment at half the closed loop's events/s; K1 against its
+     plain version, its bound and critical path at the hierarchy's and
+     the service's pairs;
+     every number beside the card's name and power limit;
+ 10. the serving paths: serve_loop at full width and depth (random weights
      from a seed) for qwen2-7b with attn_impl="pallas" and for rwkv6-7b
      with rwkv_wkv_impl="pallas", batch 4, prompt 512, 32 new tokens, the
      launch counters set to 0 just before each and read just after (K4
@@ -71,8 +95,10 @@ against the same runs on the CPU, and serves two 7B models of the model zoo
      "ref" path on the same weights on the card, tokens in range, logits
      finite; a second, warm run under torch's sync debug mode (no host
      sync inside the decode loop) and a third under torch.profiler;
- 10. the kernel list as one JSON line (with K1-K3's launches on the
-     hierarchy's paths, `hier_launches`).
+ 11. the kernel list as one JSON line (with K1-K3's launches on the
+     hierarchy's, the sweep's and the service's paths: `hier_launches`,
+     `sweep_launches`, `service_launches`; K1's bound at the hierarchy's
+     and a service segment's pairs, `at`).
 
 Any failure raises; the last line is the device JSON only when every phase
 passed.  Exits non-zero without a CUDA device or without the repository's
@@ -82,9 +108,11 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -99,11 +127,14 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import WirelessConfig, is_infeasible, total_energy  # noqa: E402
+from repro_torch.core import (PAPER_BASELINE_DS, RoundPolicy,  # noqa: E402
+                              WirelessConfig, is_infeasible, total_energy)
 from repro_torch.core.leader_torch import host_int  # noqa: E402
 from repro_torch.fl import (HierSimConfig, SimConfig, run_hier_many,  # noqa: E402
                             run_hierarchical, run_simulation)
+from repro_torch.experiments import SweepSpec, run_sweep  # noqa: E402
 from repro_torch.fl import hierarchical as hier  # noqa: E402
+from repro_torch.fl import sim as sim_mod  # noqa: E402
 from repro_torch.fl.sim import _prepare  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.data.pipeline import synthetic_token_batch  # noqa: E402
@@ -115,6 +146,8 @@ from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain  # noqa: E402
 from repro_torch.launch.serve import serve_loop  # noqa: E402
 from repro_torch.models.transformer import forward, init_params  # noqa: E402
 from repro_torch.models.small import get_small_model  # noqa: E402
+from repro_torch.scenarios import ScenarioStream  # noqa: E402
+from repro_torch.service import ServiceConfig, SustainedService  # noqa: E402
 from repro_torch.kernels.polyblock_fused.ops import (  # noqa: E402
     LANES, coop_lanes, polyblock_solve_fused, polyblock_solve_plain)
 from repro_torch.kernels.polyblock_project.ops import (  # noqa: E402
@@ -138,10 +171,17 @@ EPS = 0.01
 # K2 launches of the 10-round ra_solver="step" run: the first projection of
 # (1, 1) and one children call per iteration of its slowest pair.
 K2_STEP_LAUNCHES = 9
+# The card's name and power limit (nvidia-smi), set by main() and printed
+# beside the numbers of the sweep-and-service phase.
+CARD = ""
 
 
 def line(msg: str = "") -> None:
     print(msg, flush=True)
+
+
+def phase_mark(n: int, t_all: float) -> None:
+    line(f"phase {n} starts at {time.perf_counter() - t_all:.1f}s")
 
 
 def time_ms(fn, reps: int, *, prefill: bool = False) -> float:
@@ -152,7 +192,10 @@ def time_ms(fn, reps: int, *, prefill: bool = False) -> float:
     sleeps for longer than the host takes to enqueue all `reps` calls, so
     the events see the launches back to back: the device's own time.  It
     raises if the card reached the start event before the host had
-    finished enqueueing (the queue was not full)."""
+    finished enqueueing (the queue was not full).  The sleep lasts at least
+    ~20 ms, and garbage is collected first, so that a pause of the host
+    (a collection after a profiled run) cannot drain the queue."""
+    gc.collect()
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -164,7 +207,7 @@ def time_ms(fn, reps: int, *, prefill: bool = False) -> float:
         host_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         # Clock cycles at no more than 2 GHz: the sleep lasts >= 3x host_s.
-        torch.cuda._sleep(int(host_s * 3 * 2e9) + 1_000_000)
+        torch.cuda._sleep(int(host_s * 3 * 2e9) + 40_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -199,16 +242,22 @@ def feasible_draw(n: int, seed: int, cfg: WirelessConfig):
     return beta[keep][:n], h2[keep][:n]
 
 
+def feasible_pairs(beta, h2, e_max, cfg: WirelessConfig):
+    """The Prop-1 feasible (beta, h2, e_max) of a (..., K, N) block of
+    pairs, flattened; beta and e_max broadcast against h2."""
+    beta = np.broadcast_to(beta, h2.shape).reshape(-1)
+    e_max = np.broadcast_to(e_max, h2.shape).reshape(-1)
+    h2 = h2.reshape(-1)
+    keep = ~is_infeasible(h2, cfg, e_max)
+    return beta[keep], h2[keep], e_max[keep]
+
+
 def main_path_pairs(cfg: SimConfig):
     """The feasible (beta, h2, e_max) pairs the simulation's Γ solve hands
     the kernels: its (rounds, K, N) horizon, Prop-1 filtered, flattened."""
     prep = _prepare(cfg, torch.device("cpu"))
-    shape = prep.h2_all.shape
-    beta = np.broadcast_to(prep.beta[None, None, :], shape).reshape(-1)
-    e_max = np.broadcast_to(prep.emax_all[:, None, :], shape).reshape(-1)
-    h2 = prep.h2_all.reshape(-1)
-    keep = ~is_infeasible(h2, prep.wcfg, e_max)
-    return beta[keep], h2[keep], e_max[keep], prep.wcfg
+    return (*feasible_pairs(prep.beta[None, None, :], prep.h2_all,
+                            prep.emax_all[:, None, :], prep.wcfg), prep.wcfg)
 
 
 # ---------------------------------------------------------------------------
@@ -719,6 +768,7 @@ def run_name(run, kw: dict) -> str:
 
 
 def max_rel(a: np.ndarray, b: np.ndarray) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300), initial=0.0))
 
 
@@ -763,38 +813,49 @@ def drive(cfg: SimConfig, need: tuple[str, ...], **kw) -> tuple:
     return hist, launches
 
 
-def profile_run(cfg, focus: tuple[str, ...] = (), run=run_simulation, **kw) -> None:
-    """Where a warm run's time goes: one run of `run(cfg, device=DEV, **kw)`
-    under torch.profiler (after an unprofiled warm-up run): wall time, the
-    card's busy time (the sum of its kernels' self time; one stream, so
-    kernels do not overlap), its idle share, the kernel count, and the
-    kernels that take most of it; for each name part in `focus`, the
-    launches and summed device time of the kernels whose name holds it."""
+def profile_call(name: str, fn, focus: tuple[str, ...] = ()) -> dict:
+    """Where one warm call's time goes: `fn()` under torch.profiler: wall
+    time, the card's busy time (the sum of its kernels' self time; one
+    stream, so kernels do not overlap), its idle share, the kernel count,
+    and the kernels that take most of it; for each name part in `focus`,
+    the launches and summed device time of the kernels whose name holds
+    it.  Returns the idle share and each focus part's device ms (None where
+    the profiler saw no such kernel)."""
     from torch.profiler import ProfilerActivity, profile
-    run(cfg, device=DEV, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(cfg, device=DEV, **kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    name = run_name(run, kw)
     if busy_ms == 0:
         line(f"profile {name}: wall_s={wall:.3f}; device time not measured (no device events)")
-        return
-    line(f"profile {name} rounds={cfg.rounds}: wall_s={wall:.3f} (profiled) device_busy_ms="
-         f"{busy_ms:.2f} device_idle_share={1 - busy_ms / 1e3 / wall:.4f} "
+        return dict(idle=None, **{part: None for part in focus})
+    idle = 1 - busy_ms / 1e3 / wall
+    line(f"profile {name}: wall_s={wall:.3f} (profiled) device_busy_ms="
+         f"{busy_ms:.2f} device_idle_share={idle:.4f} "
          f"kernel_launches={sum(e.count for e in kernels)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         line(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    out = dict(idle=idle)
     for part in focus:
         mine = [e for e in kernels if part in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        out[part] = ms if mine else None
         line(f"  kernels named *{part}*: launches={sum(e.count for e in mine)} device_ms="
-             f"{sum(e.self_device_time_total for e in mine) / 1e3:.4f} ("
-             + ", ".join(f"{e.key[:60]} x{e.count}" for e in mine) + ")")
+             f"{ms:.4f} (" + ", ".join(f"{e.key[:60]} x{e.count}" for e in mine) + ")")
+    return out
+
+
+def profile_run(cfg, focus: tuple[str, ...] = (), run=run_simulation, **kw) -> None:
+    """`profile_call` of one run of `run(cfg, device=DEV, **kw)`, after an
+    unprofiled warm-up run."""
+    run(cfg, device=DEV, **kw)
+    profile_call(f"{run_name(run, kw)} rounds={cfg.rounds}",
+                 lambda: run(cfg, device=DEV, **kw), focus)
 
 
 def count_syncs(cfg, run=run_simulation, **kw) -> None:
@@ -936,6 +997,308 @@ def drive_hier(cfg: HierSimConfig, engine: str, need: tuple[str, ...],
 
 
 # ---------------------------------------------------------------------------
+# the sweep harness and the sustained service
+# ---------------------------------------------------------------------------
+
+# The paper's four DS baselines at `examples/torch_reproduce_figures.py`'s
+# default widths (mnist, N 20, K 4, 500 samples, eval every 5 rounds), crossed
+# with aggregation sync / async and cell counts 1 / 2, at 30 rounds.
+SWEEP_SPEC = dict(name="fig3_convergence", datasets="mnist", ds=PAPER_BASELINE_DS,
+                  aggregation=("sync", "async"), cell_counts=(1, 2), seeds=(0, 1),
+                  rounds=30, n_devices=20, n_subchannels=4, target_loss=1.0,
+                  overrides={"n_samples": 500, "eval_every": 5})
+# `python -m repro_torch.service.run --ra mo` at its defaults.
+SERVICE_SIM = dict(dataset="mnist", n_devices=64, n_subchannels=16, n_samples=128,
+                   batch=16, local_steps=1, scenario="churn", aggregation="async",
+                   policy=RoundPolicy(ra="mo"))
+SERVICE_SEGMENTS = 4
+
+
+def k1_bound(label: str, beta64, h264, e64, cfg) -> dict:
+    """K1 at one path's pairs (float64): its output against the plain
+    float64 version on the same pairs, under phase 4's contract (`check_k1`:
+    > 97% of pairs on the plain version's trajectory, within 1e-9 relative
+    there, |dT| <= eps on the rest); its bound: the operations this data
+    needs (`k1_ops`, from the solve's own iteration counts) at the card's
+    peak rate, against the bytes at its memory rate; the longest pair's
+    chain (`chain_calls`) at the latency per evaluation the one-lane
+    schedule's time implies; and the time of the schedule the lanes rule
+    picks."""
+    args = (beta64, h264, e64)
+    lanes = coop_lanes(beta64.shape[0])
+    got = polyblock_solve_fused(*args, cfg)
+    want = polyblock_solve_plain(*args, cfg)
+    torch.cuda.synchronize()
+    share, errs, dt, n_rest = trajectory(got, want)
+    max_abs = max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3]))
+    iters = got[3]
+    ms = time_ms(lambda: polyblock_solve_fused(*args, cfg), 10, prefill=True)
+    ms1 = time_ms(lambda: polyblock_solve_fused(*args, cfg, lanes=1), 10, prefill=True)
+    per_call_ns = ms1 / chain_calls(*args, iters, cfg, 1) * 1e6
+    crit_ms = chain_calls(*args, iters, cfg, lanes) * per_call_ns * 1e-6
+    b_ms, b_by = bound_ms(k1_ops(*args, iters, cfg), beta64.shape[0] * (6 * 8 + 4),
+                          torch.float64)
+    line(f"K1 bound at {label}: pairs={beta64.shape[0]} max_iters={int(iters.max())} "
+         f"lanes={lanes} kernel_ms={ms:.4f} (lanes=1 {ms1:.4f}) bound_ms={b_ms:.5f} "
+         f"({b_by}) critical_path_ms={crit_ms:.4f} [{CARD}]")
+    line(f"  vs plain float64: {fmt(share, errs, dt, n_rest)} (limits: > 0.97, 1e-9, eps); "
+         f"max_abs_err(tau,p,T)={max_abs:.3e}")
+    if not (share > 0.97 and max(errs) < 1e-9 and dt <= EPS + 1e-6):
+        raise AssertionError(f"K1 at {label}: kernel disagrees with plain")
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, critical_path_ms=crit_ms, lanes=lanes,
+                max_abs_err=max_abs)
+
+
+def hier_pairs(cfg: HierSimConfig):
+    """The pairs the hierarchy's one Γ solve hands K1: every cell's
+    (rounds, K, N) horizon, Prop-1 filtered."""
+    prep = hier._prepare_hier(cfg, torch.device("cpu"))
+    return (*feasible_pairs(prep.beta[:, None, None, :], prep.h2_all,
+                            prep.emax_all[:, :, None, :], prep.wcfg), prep.wcfg)
+
+
+def sweep_k1_expected(spec: SweepSpec) -> int:
+    """K1 launches of one `run_sweep` of `spec`, from its axes: the sweep
+    hands all flat cells to one `run_many` call and all multi-cell ones to
+    one `run_hier_many` call.  `run_many` concatenates every MO world that
+    shares one wireless setting into one solver call, and the spec has one
+    (a single dataset, N, K and scenario); `run_hier_many` solves each
+    multi-cell world once, one per (seed, cell count) here.  Each call
+    launches K1 once, since every world of this size has a feasible pair."""
+    axes = (spec.datasets, spec.n_devices, spec.n_subchannels, spec.scenarios,
+            spec.global_aggregation)
+    if (any(len(a) != 1 for a in axes)
+            or {k for k, _ in spec.overrides} - {"n_samples", "eval_every"}):
+        raise AssertionError("sweep_k1_expected counts a spec of one wireless setting")
+    if "mo" not in spec.ra:
+        return 0
+    flat = 1 in spec.cell_counts
+    worlds = len(spec.seeds) * len([c for c in spec.cell_counts if c > 1])
+    return int(flat) + worlds
+
+
+def sweep_k3_expected(cfg, hist) -> int:
+    """K3 launches of one sweep cell, from its traces: one per aggregation
+    — flat scan: each round with a transmission; flat async: each event;
+    a hierarchy: `hier_k3_expected`'s rules."""
+    if isinstance(cfg, HierSimConfig):
+        shape = (cfg.rounds, cfg.n_cells, cfg.devices_per_cell)
+        out = dict(tx=hist.tx_trace.reshape(shape))
+        if hist.commit_trace is None:
+            return hier_k3_expected(cfg, "scan", out)[0]
+        out.update(committed=hist.commit_trace.reshape(shape),
+                   cell_committed=hist.async_trace["cell_committed"])
+        return hier_k3_expected(cfg, "async", out)[0]
+    return cfg.rounds if hist.commit_trace is not None else int(hist.tx_trace.any(axis=1).sum())
+
+
+def solo(cfg, device):
+    """One sweep cell's config through the solo entry point."""
+    if isinstance(cfg, HierSimConfig):
+        return run_hier_many([cfg], engine="scan", device=device)[0]
+    return run_simulation(cfg, engine="scan", device=device)
+
+
+def sweep_phase() -> dict:
+    """The sweep of `SWEEP_SPEC` through `run_sweep(engine="scan")` on the
+    card, writing its record and gallery into a temporary directory: K1
+    and K3 launched as often as the code implies (`sweep_k1_expected`,
+    `sweep_k3_expected`); one cell per (aggregation, cell count) bitwise
+    equal to its solo run on the card, and its tx and AoU traces equal to
+    the same solo run on the CPU."""
+    spec = SweepSpec(**SWEEP_SPEC)
+    with tempfile.TemporaryDirectory() as tmp:
+        res, wall, launches, syncs = run_on_card(spec, run_sweep, engine="scan",
+                                                 results_root=tmp, figures=True)
+        svgs = sorted(p.name for p in (res.out_dir / "figures").glob("*.svg"))
+    cells, hists = res.cells, res.histories
+    k1_want = sweep_k1_expected(spec)
+    k3_want = sum(sweep_k3_expected(c.config, h) for c, h in zip(cells, hists))
+    rounds = sum(c.config.rounds for c in cells)
+    line(f"main path sweep {spec.name}: {len(cells)} cells ({len(spec.policies)} policies x "
+         f"aggregation {spec.aggregation} x cell_counts {spec.cell_counts} x seeds "
+         f"{spec.seeds}), mnist N={spec.n_devices[0]} K={spec.n_subchannels[0]} "
+         f"rounds={spec.rounds}, engine=scan: wall_s={res.record['wall_s']:.3f} (call "
+         f"{wall:.3f}, incl. record and gallery); launches "
+         + " ".join(f"{k}={v}" for k, v in launches.items())
+         + f"; host reads={syncs} ({syncs / rounds:.2f} per cell round); env "
+         f"{res.record['env']} [{CARD}]")
+    line(f"  K1 launches={launches['polyblock_fused']} (expected {k1_want}: one per "
+         f"solver call); K3 launches={launches['fedavg_agg']} (the traces imply {k3_want}); "
+         f"gallery: {len(svgs)} SVG files ({', '.join(svgs[:4])}, ...)")
+    for c in res.record["cells"][:: len(spec.seeds) * len(spec.policies)]:
+        m = c["metrics"]
+        line(f"  {c['id']}: final_loss={m['final_loss']:.4f} rounds_to_target="
+             f"{m['rounds_to_target']} time_to_target_s={m['time_to_target_s']} "
+             f"utilization={m['mean_subchannel_utilization']:.4f} cumulative_latency_s="
+             f"{m['cumulative_latency_s']:.3f}")
+    if (launches["polyblock_fused"], launches["fedavg_agg"]) != (k1_want, k3_want):
+        raise AssertionError("sweep: K1/K3 launches differ from the expected counts")
+    if launches["polyblock_project"]:
+        raise AssertionError("sweep: K2 launched on the fused path")
+    if len(svgs) < 4 * 4:
+        raise AssertionError(f"sweep: the gallery holds {len(svgs)} figures")
+    for h in hists:
+        if not (np.all(np.isfinite(h.global_loss)) and h.tx_trace.any()):
+            raise AssertionError("sweep: a cell's losses are not finite or nothing trained")
+    by_group: dict = {}
+    for c, h in zip(cells, hists):
+        by_group.setdefault((c.config.aggregation, getattr(c.config, "n_cells", 1)),
+                            []).append((c, h))
+    for (agg, n_cells), members in by_group.items():
+        cell, hist = members[0]
+        mean0 = np.mean([h.global_loss[0] for _, h in members])
+        mean1 = np.mean([h.global_loss[-1] for _, h in members])
+        if not mean1 < mean0:
+            raise AssertionError(f"sweep {agg} C={n_cells}: training did not lower the loss")
+        assert_bitwise(hist, solo(cell.config, DEV),
+                       f"sweep cell {cell.cell_id} vs its solo run on the card")
+        ref = solo(cell.config, "cpu")
+        same = {f: np.array_equal(getattr(hist, f), getattr(ref, f))
+                for f in ("tx_trace", "age_trace", "commit_trace")
+                if getattr(ref, f) is not None}
+        line(f"  {cell.cell_id} vs the cpu: " + "; ".join(f"{f} == cpu: {v}"
+                                                         for f, v in same.items())
+             + f"; loss max_rel vs cpu: {max_rel(hist.global_loss, ref.global_loss):.3e}")
+        if not all(same.values()):
+            raise AssertionError(f"sweep cell {cell.cell_id}: traces differ from the CPU run")
+    return dict(launches=launches, wall_s=res.record["wall_s"])
+
+
+def service_config(**kw) -> ServiceConfig:
+    return ServiceConfig(sim=SimConfig(**SERVICE_SIM), **kw)
+
+
+def service_k1_expected(cfg: ServiceConfig, segments: int) -> int:
+    """K1 launches of `segments` segments: one per segment with a feasible
+    pair, replayed from a fresh stream of the same seed."""
+    sim = cfg.sim
+    stream = ScenarioStream(sim.seed, sim.wireless(), sim.scenario)
+    n = 0
+    for _ in range(segments):
+        tr = stream.next_segment(cfg.segment_events)
+        e_max = np.broadcast_to(tr.e_max_j[:, None, :], tr.h2_all.shape)
+        n += bool((~is_infeasible(tr.h2_all, sim.wireless(), e_max)).any())
+    return n
+
+
+def service_phase() -> dict:
+    """The sustained service at `service/run.py`'s defaults with `--ra mo`:
+    one warm-up and `SERVICE_SEGMENTS` measured segments of 100 events,
+    closed loop, with K1 once per segment and K3 once per event; one more
+    segment under the profiler; then, on fresh services, 2 chained segments
+    of 50 events bitwise equal to one of 100, that segment against the same
+    segment on the CPU (dispatches, commits, AoU and the buffer exact,
+    latency within 1e-6, loss within 1e-4), one segment with
+    ra_solver="step" (K2) whose dispatches equal the fused segment's, and
+    one open-loop segment at half the measured closed-loop rate."""
+    cfg = service_config()
+    sim = cfg.sim
+    svc = SustainedService(cfg, device=DEV)
+    rec, wall, launches, syncs = run_on_card(SERVICE_SEGMENTS,
+                                             lambda n, device: svc.serve(n))
+    events = svc.events_served
+    s = rec["summary"]
+    k1_want = service_k1_expected(cfg, cfg.warmup_segments + SERVICE_SEGMENTS)
+    line(f"main path service: mnist N={sim.n_devices} K={sim.n_subchannels} "
+         f"samples={sim.n_samples} batch={sim.batch} scenario={sim.scenario} ra=mo, "
+         f"{cfg.warmup_segments} warm-up + {SERVICE_SEGMENTS} segments of "
+         f"{cfg.segment_events} events, closed loop: events/s="
+         f"{s['throughput_events_per_s']:.3f} p50={s['latency_s']['p50']:.4f}s "
+         f"p95={s['latency_s']['p95']:.4f}s p99={s['latency_s']['p99']:.4f}s SLO "
+         f"attained={s['slo']['attained']:.3f} at {s['slo']['budget_s']:g}s; warm-up "
+         f"segment {rec['walls']['warmup_s'][0]:.3f}s, segments "
+         + " ".join(f"{w:.3f}" for w in rec["walls"]["segment_s"])
+         + f"s; call wall_s={wall:.3f} [{CARD}]")
+    line(f"  launches " + " ".join(f"{k}={v}" for k, v in launches.items())
+         + f"; K1 launches={launches['polyblock_fused']} (expected {k1_want}: one per "
+         f"segment with a feasible pair); K3 launches={launches['fedavg_agg']} (expected "
+         f"{events}: one per event); host reads={syncs} ({syncs / events:.2f} per event); "
+         f"mean pending {s['buffer']['mean_pending']:.3f}; steady-state loss "
+         + " ".join(f"{x:.4f}" for x in rec["steady_state"]["global_loss"]))
+    if (launches["polyblock_fused"], launches["fedavg_agg"]) != (k1_want, events):
+        raise AssertionError("service: K1/K3 launches differ from the expected counts")
+    losses = np.asarray(rec["steady_state"]["global_loss"])
+    if not (np.all(np.isfinite(losses)) and losses.shape == (SERVICE_SEGMENTS,)):
+        raise AssertionError("service: steady-state losses are not finite / one per segment")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("service: training did not lower the loss")
+    k1_before = polyblock_solve_fused.launches
+    prof = profile_call(f"service segment ({cfg.segment_events} events)", svc.run_segment,
+                        focus=("solve_", "agg_leaves"))
+    line(f"  K1 launches in the profiled segment: {polyblock_solve_fused.launches - k1_before}")
+    k1_ms = "not measured" if prof["solve_"] is None else f"{prof['solve_']:.4f}"
+    idle = "not measured" if prof["idle"] is None else f"{prof['idle']:.4f}"
+    line(f"  K1 device ms per segment (profiler)={k1_ms}; idle share of the segment={idle} "
+         f"[{CARD}]")
+
+    halves = SustainedService(service_config(segment_events=50, eval_every_events=50),
+                              device=DEV)
+    whole = SustainedService(service_config(eval_every_events=50), device=DEV)
+    parts = [halves.run_segment() for _ in range(2)]
+    one = whole.run_segment()
+    diff = [k for k in one if not np.array_equal(np.concatenate([p[k] for p in parts]),
+                                                 one[k])]
+    line(f"service on the card: 2 chained segments of 50 events vs one of 100, bitwise "
+         f"equal on every key ({len(one)}): {not diff}" + (f" (differ: {diff})" if diff else ""))
+    if diff:
+        raise AssertionError(f"service: chained segments differ on {diff}")
+
+    t0 = time.perf_counter()
+    ref = SustainedService(service_config(eval_every_events=50), device="cpu").run_segment()
+    cpu_wall = time.perf_counter() - t0
+    same = {k: bool(np.array_equal(one[k], ref[k]))
+            for k in ("transmitted", "committed", "age", "n_pending", "selected", "overflow")}
+    lat_rel = max_rel(one["latency"], ref["latency"])
+    loss_rel = max_rel(one["loss"], ref["loss"])
+    line(f"service segment of 100 events, card vs cpu: " + "; ".join(
+        f"{k} == cpu: {v}" for k, v in same.items())
+        + f"; latency max_rel vs cpu: {lat_rel:.3e} (limit 1e-6); loss max_rel vs cpu: "
+        f"{loss_rel:.3e} (limit 1e-4); transmissions: {int(one['transmitted'].sum())}; "
+        f"cpu wall_s={cpu_wall:.3f}")
+    if not all(same.values()):
+        raise AssertionError("service: the card's segment differs from the CPU's")
+    if not (lat_rel <= 1e-6 and loss_rel <= 1e-4 and one["transmitted"].any()):
+        raise AssertionError("service: latency or loss too far from the CPU's segment")
+
+    step = SustainedService(cfg, ra_solver="step", device=DEV)
+    ys, step_wall, step_launches, _ = run_on_card(None, lambda _, device: step.run_segment())
+    same_tx = bool(np.array_equal(ys["transmitted"], one["transmitted"]))
+    line(f"service segment ra_solver=step: launches "
+         + " ".join(f"{k}={v}" for k, v in step_launches.items())
+         + f"; wall_s={step_wall:.3f}; dispatches equal to the fused segment's: {same_tx} "
+         f"[{CARD}]")
+    if step_launches["polyblock_project"] < 1 or step_launches["polyblock_fused"]:
+        raise AssertionError("service: the step segment did not run on K2 alone")
+    if not same_tx:
+        raise AssertionError("service: the step segment's dispatches differ from the fused")
+
+    rate = 0.5 * s["throughput_events_per_s"]
+    open_loop = SustainedService(service_config(target_rate_events_per_s=rate,
+                                                warmup_segments=0), device=DEV)
+    o = open_loop.serve(1)["summary"]
+    line(f"service open loop at {rate:.3f} events/s (half the closed loop's), 1 segment: "
+         f"events/s={o['throughput_events_per_s']:.3f} p50={o['latency_s']['p50']:.4f}s "
+         f"p99={o['latency_s']['p99']:.4f}s SLO attained={o['slo']['attained']:.3f} "
+         f"[{CARD}]")
+    if not 0 < o["throughput_events_per_s"] <= rate:
+        raise AssertionError("service: the open loop served faster than its arrivals")
+    return dict(launches=launches, step_launches=step_launches, k1_ms=prof["solve_"],
+                idle=prof["idle"], pairs=service_pairs(cfg))
+
+
+def service_pairs(cfg: ServiceConfig):
+    """The pairs of the service's first segment that K1 is handed."""
+    sim = cfg.sim
+    beta = sim_mod._sample_dataset(sim, np.random.default_rng(sim.seed),
+                                   torch.device("cpu"))[2]
+    tr = ScenarioStream(sim.seed, sim.wireless(), sim.scenario).next_segment(
+        cfg.segment_events)
+    return (*feasible_pairs(beta[None, None, :], tr.h2_all, tr.e_max_j[:, None, :],
+                            sim.wireless()), sim.wireless())
+
+
+# ---------------------------------------------------------------------------
 # the serving paths (model zoo)
 # ---------------------------------------------------------------------------
 
@@ -1068,7 +1431,9 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    line(smi.splitlines()[0])            # the card's name and power limit
+    global CARD
+    CARD = smi.splitlines()[0]
+    line(CARD)                           # the card's name and power limit
     line(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
          f"python {sys.version.split()[0]}")
@@ -1095,6 +1460,7 @@ def main() -> None:
     to = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float64, device=DEV)
 
     # ---- 3. K2 --------------------------------------------------------------
+    phase_mark(3, t_all)
     n2 = 131072
     beta, h2 = feasible_draw(n2, seed=11, cfg=cfg_w)
     rng = np.random.default_rng(12)
@@ -1109,6 +1475,7 @@ def main() -> None:
     k2_sass_bound(k2_main[torch.float64]["evals"])
 
     # ---- 4. K1 --------------------------------------------------------------
+    phase_mark(4, t_all)
     n_dev, k_sub = 32768, 4
     rng = np.random.default_rng(21)
     h2_mat = rng.exponential(size=(k_sub, n_dev)) * 3
@@ -1130,6 +1497,7 @@ def main() -> None:
                        reps=50)
 
     # ---- 5. K3 ---------------------------------------------------------------
+    phase_mark(5, t_all)
     gen = torch.Generator(DEV).manual_seed(5)
     leaves = [torch.randn((4,) + p.shape, generator=gen, device=DEV).reshape(4, -1)
               for p in get_small_model(main_cfg.dataset).parameters()]
@@ -1140,6 +1508,7 @@ def main() -> None:
     del big
 
     # ---- 6. K4 and K5 -----------------------------------------------------------
+    phase_mark(6, t_all)
     qwen, rwkv = get_config("qwen2-7b"), get_config("rwkv6-7b")
     fa_lib, wkv_lib = _build.load("flash_attention"), _build.load("rwkv6_wkv")
     for fn, opcodes in _build.sass_opcodes("flash_attention", ("HGMMA", "HMMA")).items():
@@ -1168,6 +1537,7 @@ def main() -> None:
                          reps=200)
 
     # ---- 7. the simulation's main paths ---------------------------------------
+    phase_mark(7, t_all)
     loop, loop_launches = drive(main_cfg, ("polyblock_fused", "fedavg_agg"))
     step, step_launches = drive(step_cfg, ("polyblock_project", "fedavg_agg"), ra_solver="step")
     scan, scan_launches = drive(main_cfg, ("polyblock_fused", "fedavg_agg"), engine="scan")
@@ -1200,6 +1570,8 @@ def main() -> None:
                              f"step run, expected {K2_STEP_LAUNCHES}")
 
     # ---- 8. the hierarchy's main paths ----------------------------------------
+    phase_mark(8, t_all)
+    k1_at = {}                           # K1's bound at the later paths' pairs
     hier_cfg = HierSimConfig(rounds=30, seed=0)
     fused = ("polyblock_fused", "fedavg_agg")
     h_loop, hl_launches = drive_hier(hier_cfg, "loop", fused)
@@ -1219,20 +1591,34 @@ def main() -> None:
                                                     cell_coupling=0.5), "scan", fused)
     profile_run(hier_cfg, focus=("solve_", "agg_leaves"), run=hier_sim, engine="scan")
     count_syncs(hier_cfg, run=hier_sim, engine="scan")
+    hb, hh, he, hcfg = hier_pairs(hier_cfg)
+    k1_at["hierarchy"] = k1_bound("the hierarchy's pairs (HierSimConfig(rounds=30), both cells)",
+                                  to(hb), to(hh), to(he), hcfg)
     line("K3 launches per hierarchy run: " + " ".join(
         f"{k}={v['fedavg_agg']}" for k, v in (("loop", hl_launches), ("scan", hs_launches),
                                               ("async", ha_launches),
                                               ("scan_step", hstep_launches),
                                               ("scan_3_cells", h3_launches))))
 
-    # ---- 9. the serving paths ------------------------------------------------
+    # ---- 9. the sweep harness and the sustained service ----------------------
+    phase_mark(9, t_all)
+    line(f"sweep and service on {CARD}")
+    sweep = sweep_phase()
+    service = service_phase()
+    sb, sh, se, scfg = service["pairs"]
+    k1_at["service_segment"] = k1_bound("the service's first segment (100 events x 16 x 64)",
+                                        to(sb), to(sh), to(se), scfg)
+
+    # ---- 10. the serving paths -----------------------------------------------
+    phase_mark(10, t_all)
     n_new = SERVE["new_tokens"]
     qwen_serve = serve_phase("qwen2-7b", "flash_attention", qwen.n_layers)
     rwkv_serve = serve_phase("rwkv6-7b", "rwkv6_wkv", rwkv.n_layers * (1 + n_new + 1))
     line(f"K5 per launch on the card: prefill {k5_main['ms']:.4f} ms, decode "
          f"{k5_decode['ms']:.4f} ms")
 
-    # ---- 10. kernel list ----------------------------------------------------
+    # ---- 11. kernel list ----------------------------------------------------
+    phase_mark(11, t_all)
     kernels = []
     hier_launches = {"polyblock_fused": hs_launches["polyblock_fused"],
                      "polyblock_project": hstep_launches["polyblock_project"],
@@ -1260,8 +1646,14 @@ def main() -> None:
                             library_ms=res["library_ms"]))
         if "lanes" in res:
             kernels[-1]["lanes"] = res["lanes"]
+        if name == "polyblock_fused":
+            kernels[-1]["at"] = k1_at
         if name in hier_launches:
             kernels[-1]["hier_launches"] = hier_launches[name]
+            kernels[-1]["sweep_launches"] = sweep["launches"][name]
+            kernels[-1]["service_launches"] = (service["step_launches"][name]
+                                               if name == "polyblock_project"
+                                               else service["launches"][name])
     line(f"total wall_s={time.perf_counter() - t_all:.1f}")
     line(json.dumps({"kernels": kernels}))
     line(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -52,7 +52,7 @@ import torch
 from torch.func import functional_call, grad
 
 from ..core import (RAResult, RoundPolicy, RoundRandomness, WirelessConfig,
-                    init_aou, make_clusters, plan_round)
+                    init_aou, make_clusters, participation_deficit, plan_round)
 from ..core.monotonic import fixed_ra
 from ..core.monotonic_torch import solve_pairs_fused, solve_pairs_step
 from ..data.fl_datasets import (Dataset, FLPartition, make_dataset,
@@ -155,14 +155,6 @@ class SimHistory:
 def _eval_rounds(rounds: int, eval_every: int) -> list[int]:
     return [t for t in range(rounds)
             if t % eval_every == 0 or t == rounds - 1]
-
-
-def _participation_deficit(beta: np.ndarray, transmitted: np.ndarray) -> float:
-    """sum_n beta_n (1 - S_n sum_k psi_kn) -- the data left out this round
-    (Prop. 3; a copy of the JAX package's `participation_deficit`)."""
-    beta = np.asarray(beta, np.float64)
-    tx = np.asarray(transmitted).astype(np.float64)
-    return float((beta * (1.0 - tx)).sum())
 
 
 def _pad_partition(ds: Dataset, part: FLPartition, device: torch.device,
@@ -437,7 +429,7 @@ def _run_prepared(prep: _Prepared, ra_all: RAResult, plan_wall_s: float,
             hist["acc"].append(acc)
             hist["nsel"].append(int(plan.selected.sum()))
             hist["ntx"].append(int(plan.transmitted.sum()))
-            hist["deficit"].append(_participation_deficit(beta, plan.transmitted))
+            hist["deficit"].append(participation_deficit(beta, plan.transmitted))
             hist["gnorm"].append(grad_norm_sq(params) if cfg.track_gradnorm else 0.0)
 
     ev = np.asarray(hist["round"])
@@ -578,7 +570,7 @@ def _history_from_scan(cfg: SimConfig, beta: np.ndarray, ys: dict,
         n_selected=sel[ev].sum(axis=1),
         n_transmitted=tx[ev].sum(axis=1),
         energy_j=energy_all[ev],
-        deficits=np.asarray([_participation_deficit(beta, tx[t]) for t in ev]),
+        deficits=np.asarray([participation_deficit(beta, tx[t]) for t in ev]),
         grad_sq_norms=np.asarray(ys["gnorm"], np.float64)[ev],
         beta=beta,
         wall_s=wall_s,

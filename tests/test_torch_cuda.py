@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import RoundPolicy
+from repro_torch.experiments import SweepSpec, run_sweep
+from repro_torch.service import ServiceConfig, SustainedService
 from repro_torch.core import WirelessConfig, is_infeasible
 from repro_torch.core.monotonic_torch import solve_pairs_fused, solve_pairs_step
 from repro_torch.fl import (HierSimConfig, SimConfig, run_hier_many, run_hierarchical,
@@ -291,6 +294,51 @@ def test_hier_full_buffers_are_bitwise_scan_on_the_card(dev):
         np.testing.assert_array_equal(getattr(asy, name), getattr(scan, name),
                                       err_msg=name)
     np.testing.assert_array_equal(asy.commit_trace, scan.tx_trace)
+
+
+def test_sweep_on_the_card_matches_the_cpu(dev):
+    """run_sweep over sync / async x 1 / 2 cells: Γ on K1 (one solve for
+    the flat worlds, one per hierarchical world), every aggregation on K3,
+    and each cell's traces equal to the same sweep on the CPU."""
+    spec = SweepSpec(name="t", ds="alg3", aggregation=("sync", "async"), cell_counts=(1, 2),
+                     rounds=6, n_devices=8, n_subchannels=4,
+                     overrides={"n_samples": 96, "batch": 16, "local_steps": 2})
+    k1, k3 = polyblock_solve_fused.launches, fedavg_aggregate_leaves.launches
+    got = run_sweep(spec, device=dev, write=False)
+    assert polyblock_solve_fused.launches - k1 == 2
+    assert fedavg_aggregate_leaves.launches - k3 > 0
+    assert got.record["env"]["torch_device"].startswith("cuda")
+    want = run_sweep(spec, device="cpu", write=False)
+    for g, w in zip(got.histories, want.histories):
+        np.testing.assert_array_equal(g.tx_trace, w.tx_trace)
+        np.testing.assert_array_equal(g.age_trace, w.age_trace)
+        np.testing.assert_allclose(g.global_loss, w.global_loss, rtol=1e-4)
+
+
+def test_service_on_the_card_chains_and_matches_the_cpu(dev):
+    """SustainedService with ra="mo": K1 once per segment, K3 once per
+    event, 3 chained segments of 4 events bitwise one of 12 on the card,
+    and the card's segment equal to the CPU's in every trace."""
+    sim = SimConfig(dataset="mnist", n_devices=8, n_subchannels=3, n_samples=96, batch=16,
+                    local_steps=1, scenario="churn", aggregation="async",
+                    policy=RoundPolicy(ra="mo"))
+
+    def service(events, device):
+        return SustainedService(ServiceConfig(sim=sim, segment_events=events,
+                                              eval_every_events=2), device=device)
+
+    k1, k3 = polyblock_solve_fused.launches, fedavg_aggregate_leaves.launches
+    one = service(12, dev).run_segment()
+    assert (polyblock_solve_fused.launches - k1, fedavg_aggregate_leaves.launches - k3) == (1, 12)
+    chained = service(4, dev)
+    parts = [chained.run_segment() for _ in range(3)]
+    for name, v in one.items():
+        np.testing.assert_array_equal(np.concatenate([p[name] for p in parts]), v,
+                                      err_msg=name)
+    cpu = service(12, "cpu").run_segment()
+    for name in ("transmitted", "committed", "age", "n_pending"):
+        np.testing.assert_array_equal(one[name], cpu[name], err_msg=name)
+    np.testing.assert_allclose(one["loss"], cpu["loss"], rtol=1e-4)
 
 
 @pytest.mark.parametrize("k,n", [(4, 100352), (16, 1 << 20), (3, 7)])
