@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the paper simulation
 (`run_simulation`) and its multi-cell hierarchy (`run_hierarchical`,
 `run_hier_many`) through K1-K3 on all three engines and checks their traces
-against the same runs on the CPU, runs the sweep harness (`run_sweep`) and
+against the same runs on the CPU, runs a `run_many` group of 16 cells as one
+batch on each device engine (every cell bitwise its solo run), runs the
+sweep harness (`run_sweep`) and
 the sustained service (`SustainedService`) on them, and serves two 7B models of the model zoo
 (`serve_loop`) at full width and depth through K4 and K5.  Phases, in order:
 
@@ -30,7 +32,9 @@ the sustained service (`SustainedService`) on them, and serves two 7B models of 
      all-zero and single-slot weights, bitwise) at the main path's shapes
      (the six mnist-MLP leaves, K = 4, one grouped launch, timed on the card
      and as called beside the same leaves one launch each) and at K = 16,
-     N = 2^25;
+     N = 2^25; its cell axis at 1, 16 and 32 cells of those leaves, one
+     launch, each cell bitwise its plain version and its own one-cell
+     launch, timed beside one one-cell launch per cell;
   6. K4, flash attention, against its plain version at qwen2-7b's prefill
      shape (B 4, S 512, Hq 28, Hkv 4, D 128, causal) in bf16 and f32 and at
      a right-aligned, windowed shape (Sq < Sk); K5, the WKV6 recurrence, at
@@ -64,7 +68,18 @@ the sustained service (`SustainedService`) on them, and serves two 7B models of 
      as the step driver iterates, K3 exactly as often as the traces imply
      (`hier_k3_expected`); then one warm scan run under torch.profiler and
      one under torch's sync debug mode;
-  9. the sweep harness and the sustained service, each driven with every
+  9. a run_many group as one batch on a leading cell axis, driven with
+     every launch counter set to 0 just before it and read just after: the
+     four paper DS policies x seeds 0-3 at `examples/torch_reproduce_figures.py`'s
+     default widths (mnist MLP at full width, N 20, K 4, 500 samples) and
+     30 rounds, one 16-cell group on the scan engine and one with
+     aggregation="async"; every cell bitwise its solo run on the card (all
+     32), one cell per policy against the CPU, K1 once and K3 once per
+     aggregation of the group, the group's host reads per round within the
+     bound Σ over its policies of the most any of that policy's cells reads
+     alone, plus one; the group's wall time beside the sum of the solo
+     runs';
+ 10. the sweep harness and the sustained service, each driven with every
      launch counter set to 0 just before it and read just after:
      run_sweep at `examples/torch_reproduce_figures.py`'s default widths
      and 30 rounds (mnist MLP at full width, N 20, K 4, 500 samples, the
@@ -80,14 +95,15 @@ the sustained service (`SustainedService`) on them, and serves two 7B models of 
      attainment, K1 once per segment, K3 once per event, host reads per
      event, and one more segment under torch.profiler (K1's device ms and
      the idle share); on fresh services 2 chained segments of 50 events
-     bitwise equal to one of 100 and that segment equal to the CPU's
+     bitwise equal to one of 100 and that one equal to the CPU's
      (traces exact, latency within 1e-6, loss within 1e-4), one segment
      with ra_solver="step" (K2) dispatching as the fused one, and one
-     open-loop segment at half the closed loop's events/s; K1 against its
+     open-loop segment of 50 events at half the closed loop's events/s;
+     K1 against its
      plain version, its bound and critical path at the hierarchy's and
      the service's pairs;
      every number beside the card's name and power limit;
- 10. the serving paths: serve_loop at full width and depth (random weights
+ 11. the serving paths: serve_loop at full width and depth (random weights
      from a seed) for qwen2-7b with attn_impl="pallas" and for rwkv6-7b
      with rwkv_wkv_impl="pallas", batch 4, prompt 512, 32 new tokens, the
      launch counters set to 0 just before each and read just after (K4
@@ -95,10 +111,11 @@ the sustained service (`SustainedService`) on them, and serves two 7B models of 
      "ref" path on the same weights on the card, tokens in range, logits
      finite; a second, warm run under torch's sync debug mode (no host
      sync inside the decode loop) and a third under torch.profiler;
- 11. the kernel list as one JSON line (with K1-K3's launches on the
-     hierarchy's, the sweep's and the service's paths: `hier_launches`,
-     `sweep_launches`, `service_launches`; K1's bound at the hierarchy's
-     and a service segment's pairs, `at`).
+ 12. the kernel list as one JSON line (with K1-K3's launches on the
+     hierarchy's, the batched groups', the sweep's and the service's paths:
+     `hier_launches`, `batch_launches`, `sweep_launches`,
+     `service_launches`; K1's bound at the hierarchy's and a service
+     segment's pairs, `at`; K3's cell axis at 1, 16 and 32 cells, `cells`).
 
 Any failure raises; the last line is the device JSON only when every phase
 passed.  Exits non-zero without a CUDA device or without the repository's
@@ -133,13 +150,16 @@ from repro_torch.core.leader_torch import host_int  # noqa: E402
 from repro_torch.fl import (HierSimConfig, SimConfig, run_hier_many,  # noqa: E402
                             run_hierarchical, run_simulation)
 from repro_torch.experiments import SweepSpec, run_sweep  # noqa: E402
+from repro_torch.fl import async_loop  # noqa: E402
 from repro_torch.fl import hierarchical as hier  # noqa: E402
+from repro_torch.fl import run_many  # noqa: E402
 from repro_torch.fl import sim as sim_mod  # noqa: E402
 from repro_torch.fl.sim import _prepare  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.data.pipeline import synthetic_token_batch  # noqa: E402
 from repro_torch.kernels.fedavg_agg import (  # noqa: E402
-    fedavg_agg_plain, fedavg_aggregate, fedavg_aggregate_leaves)
+    fedavg_agg_plain, fedavg_agg_plain_cells, fedavg_aggregate, fedavg_aggregate_leaves,
+    fedavg_aggregate_leaves_batched)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain  # noqa: E402
@@ -626,6 +646,71 @@ def check_k3(xs: list[torch.Tensor], label: str, reps: int, plain_reps: int) -> 
                 bound_by=b_by, library_ms=library_ms)
 
 
+def k3_cell_weights(cells: int, k: int, gen) -> torch.Tensor:
+    """(cells, k) weights cycling through random, all-zero and single-slot
+    cells."""
+    w = torch.rand(cells, k, generator=gen, device=DEV) * 50 + 1
+    w[1::3] = 0.0
+    w[2::3] = 0.0
+    w[2::3, k // 2] = 7.0
+    return w
+
+
+def check_k3_cells(shapes: list[tuple], cells: int, reps: int) -> dict:
+    """K3's cell axis (`fedavg_aggregate_leaves_batched`) on the leaves of
+    `cells` cells' aggregations, K = 4, weights cycling through random,
+    all-zero and single-slot cells: one launch for every cell, each cell
+    bitwise its plain version and its own one-cell launch.  Times (CUDA
+    events): the batched launch on the card (`ms`, queue prefilled) and as
+    called (host enqueue included), the same aggregations one one-cell
+    launch per cell (prefilled), the plain version as called (its
+    launches outnumber the queue's depth), and `torch.bmm` per leaf as the
+    library call; the bound: every stacked byte read and every mean written
+    once, 2K operations per output."""
+    gen = torch.Generator(DEV).manual_seed(cells)
+    k = 4
+    xs = [torch.randn((cells, k) + s, generator=gen, device=DEV) for s in shapes]
+    w = k3_cell_weights(cells, k, gen)
+    before = fedavg_aggregate_leaves_batched.launches
+    got = fedavg_aggregate_leaves_batched(xs, w)
+    torch.cuda.synchronize()
+    launches = fedavg_aggregate_leaves_batched.launches - before
+    max_abs = 0.0
+    for c in range(cells):
+        one = fedavg_aggregate_leaves([x[c] for x in xs], w[c])
+        for g, x, o in zip(got, xs, one):
+            want = fedavg_agg_plain(x[c], w[c])
+            max_abs = max(max_abs, float((g[c] - want).abs().max()))
+            if not (torch.equal(g[c], want) and torch.equal(g[c], o)):
+                raise AssertionError(f"K3 cells={cells}: cell {c} differs from plain or "
+                                     "from its one-cell launch")
+    if launches != 1:
+        raise AssertionError(f"K3 cells={cells}: {launches} launches for one aggregation "
+                             "per cell")
+    w_hat = w / w.sum(-1, keepdim=True).clamp_min(1e-30)
+    ms = time_ms(lambda: fedavg_aggregate_leaves_batched(xs, w), reps, prefill=True)
+    host_ms = time_ms(lambda: fedavg_aggregate_leaves_batched(xs, w), reps)
+    per_cell_ms = time_ms(
+        lambda: [fedavg_aggregate_leaves([x[c] for x in xs], w[c]) for c in range(cells)],
+        max(1, 500 // cells), prefill=True)
+    plain_ms = time_ms(lambda: [fedavg_agg_plain_cells(x, w) for x in xs], 2)
+    library_ms = time_ms(lambda: [torch.bmm(w_hat[:, None, :], x.reshape(cells, k, -1))
+                                  for x in xs], reps, prefill=True)
+    n_total = sum(int(np.prod(s)) for s in shapes)
+    nbytes = cells * ((k + 1) * n_total + k) * 4
+    b_ms, b_by = bound_ms(2 * k * n_total * cells, nbytes, torch.float32)
+    line(f"K3 cells={cells} (mnist MLP leaves, K={k}, one aggregation per cell): "
+         f"launches={launches} max_abs_err={max_abs:.3e} bitwise_equal_plain=True "
+         f"bitwise_equal_one_cell_launches=True kernel_ms={ms:.4f} "
+         f"kernel_ms_with_host_enqueue={host_ms:.4f} one_cell_launches_ms={per_cell_ms:.4f} "
+         f"({cells} launches) plain_ms_as_called={plain_ms:.4f} library_ms(bmm)="
+         f"{library_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) achieved_GB/s="
+         f"{nbytes / ms / 1e6:.1f} [{CARD}]")
+    return dict(cells=cells, max_abs_err=max_abs, ms=ms, host_ms=host_ms,
+                one_cell_launches_ms=per_cell_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 # ---------------------------------------------------------------------------
 # K4: flash attention; K5: the WKV6 recurrence
 # ---------------------------------------------------------------------------
@@ -738,9 +823,25 @@ def check_k5(b, t, h, hs, label: str, reps: int) -> dict:
 # the main paths
 # ---------------------------------------------------------------------------
 
+class K3Launches:
+    """K3's launches through either entry: one aggregation
+    (`fedavg_aggregate_leaves`: the loop engine, the hierarchy's global
+    tier) or one per cell of a group (`fedavg_aggregate_leaves_batched`:
+    the scan and async engines).  Setting it sets both counts."""
+
+    @property
+    def launches(self) -> int:
+        return fedavg_aggregate_leaves.launches + fedavg_aggregate_leaves_batched.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        fedavg_aggregate_leaves.launches = value
+        fedavg_aggregate_leaves_batched.launches = 0
+
+
 COUNTERS = {"polyblock_fused": polyblock_solve_fused,
             "polyblock_project": polyblock_project,
-            "fedavg_agg": fedavg_aggregate_leaves,
+            "fedavg_agg": K3Launches(),
             "flash_attention": flash_attention,
             "rwkv6_wkv": wkv6}
 
@@ -851,9 +952,8 @@ def profile_call(name: str, fn, focus: tuple[str, ...] = ()) -> dict:
 
 
 def profile_run(cfg, focus: tuple[str, ...] = (), run=run_simulation, **kw) -> None:
-    """`profile_call` of one run of `run(cfg, device=DEV, **kw)`, after an
-    unprofiled warm-up run."""
-    run(cfg, device=DEV, **kw)
+    """`profile_call` of one run of `run(cfg, device=DEV, **kw)`: a warm
+    run, since every path profiled here has run on the card before."""
     profile_call(f"{run_name(run, kw)} rounds={cfg.rounds}",
                  lambda: run(cfg, device=DEV, **kw), focus)
 
@@ -997,6 +1097,124 @@ def drive_hier(cfg: HierSimConfig, engine: str, need: tuple[str, ...],
 
 
 # ---------------------------------------------------------------------------
+# a run_many group as one batch on a cell axis
+# ---------------------------------------------------------------------------
+
+# `examples/torch_reproduce_figures.py`'s default widths (mnist MLP at Table-I
+# width, N 20, K 4, 500 samples, eval every 5 rounds) at 30 rounds, the four
+# paper DS policies x seeds 0-3: one 16-cell group per engine.
+BATCH_SIM = dict(dataset="mnist", n_devices=20, n_subchannels=4, n_samples=500,
+                 eval_every=5, rounds=30)
+BATCH_SEEDS = (0, 1, 2, 3)
+
+
+class RoundReads:
+    """The host reads of every call of a round body (`owner.name`) while
+    the context is open, one count per call: per round of a group or of a
+    solo run."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self) -> list[int]:
+        body = self.orig = getattr(self.owner, self.name)
+
+        def counted(*args, **kw):
+            before = host_int.syncs
+            out = body(*args, **kw)
+            self.calls.append(host_int.syncs - before)
+            return out
+
+        setattr(self.owner, self.name, counted)
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.owner, self.name, self.orig)
+
+
+def batch_phase(aggregation: str) -> dict:
+    """One 16-cell `run_many` group (`BATCH_SIM`, PAPER_BASELINE_DS x
+    BATCH_SEEDS) on the scan engine (`aggregation="sync"`) or the async one,
+    run once as a group on the card, then every cell alone on the card:
+    every cell bitwise its solo run in every field (the async engine's
+    commit and pending traces too); one cell per policy (seed 0, one CPU
+    group) with its traces equal to the CPU's and its loss within 1e-4; K1
+    once and K3 once per aggregation of the group (the traces imply how
+    often); the group's host reads per round within Σ over its policies of
+    the most reads any of that policy's cells makes alone, plus one (the
+    who-trains read); the group's wall time beside the sum of the solo
+    runs' and the serial reads beside the group's."""
+    cfgs = [SimConfig(**BATCH_SIM, seed=s, policy=RoundPolicy(ds=d), aggregation=aggregation)
+            for d in PAPER_BASELINE_DS for s in BATCH_SEEDS]
+    owner, body = ((sim_mod, "sync_group_round") if aggregation == "sync"
+                   else (async_loop, "group_event"))
+    with RoundReads(owner, body) as group_reads:
+        hists, wall, launches, syncs = run_on_card(cfgs, run_many, engine="scan")
+    k3_cells = fedavg_aggregate_leaves_batched.launches
+    solo_walls, solo_reads, differ = [], [], []
+    for c, h in zip(cfgs, hists):
+        with RoundReads(owner, body) as reads:
+            alone, w, _, _ = run_on_card(c, engine="scan")
+        solo_walls.append(w)
+        solo_reads.append(list(reads))
+        if bitwise_diff(h, alone, skip=()):
+            differ.append(f"{c.policy.ds}/seed{c.seed}: {bitwise_diff(h, alone, skip=())}")
+    rounds = cfgs[0].rounds
+    bound = [1 + sum(max(solo_reads[i][r] - 1 for i, c in enumerate(cfgs)
+                         if c.policy.ds == ds) for ds in PAPER_BASELINE_DS)
+             for r in range(rounds)]
+    k3_want = rounds if aggregation != "sync" else group_k3_expected(hists)
+    name = "scan" if aggregation == "sync" else "async"
+    line(f"main path batch engine={name} aggregation={aggregation}: {len(cfgs)} cells "
+         f"({len(PAPER_BASELINE_DS)} policies x seeds {BATCH_SEEDS}) in one group, mnist "
+         f"N={cfgs[0].n_devices} K={cfgs[0].n_subchannels} rounds={rounds}: group "
+         f"wall_s={wall:.3f} against the sum of the {len(cfgs)} solo runs "
+         f"{sum(solo_walls):.3f} (x{sum(solo_walls) / wall:.2f}); launches "
+         + " ".join(f"{k}={v}" for k, v in launches.items()) + f" [{CARD}]")
+    line(f"  host reads: group {syncs} ({syncs / rounds:.2f} per group round; the bound "
+         f"Σ_policy max_cell + 1: {sum(bound)}, {sum(bound) / rounds:.2f} per round); the "
+         f"cells one after another {sum(map(sum, solo_reads))} "
+         f"({sum(map(sum, solo_reads)) / rounds:.2f} per round)")
+    line(f"  K1 launches={launches['polyblock_fused']} (expected 1: one Γ solve for the "
+         f"group); K3 launches={launches['fedavg_agg']} (the traces imply {k3_want}: "
+         + ("one per event" if aggregation != "sync" else
+            "one per round in which any cell trained")
+         + f"), of which through the cell axis {k3_cells}")
+    line(f"  {len(cfgs)} cells vs their solo runs on the card: bitwise equal in every field "
+         f"(commit and async traces included): {not differ}"
+         + (f" (differ: {differ})" if differ else ""))
+    firsts = [i for i, c in enumerate(cfgs) if c.seed == BATCH_SEEDS[0]]
+    t0 = time.perf_counter()
+    refs = run_many([cfgs[i] for i in firsts], engine="scan", device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    same = []
+    for i, ref in zip(firsts, refs):
+        h = hists[i]
+        eq = {f: np.array_equal(getattr(h, f), getattr(ref, f))
+              for f in ("tx_trace", "age_trace", "commit_trace") if getattr(ref, f) is not None}
+        loss_rel = max_rel(h.global_loss, ref.global_loss)
+        same.append(all(eq.values()) and loss_rel <= 1e-4)
+        line(f"  {cfgs[i].policy.ds}/seed{cfgs[i].seed} vs the cpu group: "
+             + "; ".join(f"{f} == cpu: {v}" for f, v in eq.items())
+             + f"; loss max_rel vs cpu: {loss_rel:.3e} (limit 1e-4)")
+    line(f"  cpu group of {len(firsts)} cells: wall_s={cpu_wall:.3f}")
+    if differ:
+        raise AssertionError(f"batch {name}: cells differ from their solo runs: {differ}")
+    if not all(same):
+        raise AssertionError(f"batch {name}: traces or losses differ from the CPU's")
+    if (launches["polyblock_fused"], launches["fedavg_agg"]) != (1, k3_want) or k3_cells != k3_want:
+        raise AssertionError(f"batch {name}: K1/K3 launches differ from the expected counts")
+    if any(g > b for g, b in zip(group_reads, bound)) or len(group_reads) != rounds:
+        raise AssertionError(f"batch {name}: host reads per round {group_reads} exceed the "
+                             f"bound {bound}")
+    for h in hists:
+        if not (np.all(np.isfinite(h.global_loss)) and h.global_loss[-1] < h.global_loss[0]):
+            raise AssertionError(f"batch {name}: a cell's loss is not finite or did not fall")
+    return dict(launches=launches, wall_s=wall, solo_wall_s=sum(solo_walls), reads=syncs,
+                bound=sum(bound), serial_reads=sum(map(sum, solo_reads)), cfgs=cfgs)
+
+
+# ---------------------------------------------------------------------------
 # the sweep harness and the sustained service
 # ---------------------------------------------------------------------------
 
@@ -1077,19 +1295,38 @@ def sweep_k1_expected(spec: SweepSpec) -> int:
     return int(flat) + worlds
 
 
-def sweep_k3_expected(cfg, hist) -> int:
-    """K3 launches of one sweep cell, from its traces: one per aggregation
-    — flat scan: each round with a transmission; flat async: each event;
-    a hierarchy: `hier_k3_expected`'s rules."""
-    if isinstance(cfg, HierSimConfig):
-        shape = (cfg.rounds, cfg.n_cells, cfg.devices_per_cell)
-        out = dict(tx=hist.tx_trace.reshape(shape))
-        if hist.commit_trace is None:
-            return hier_k3_expected(cfg, "scan", out)[0]
-        out.update(committed=hist.commit_trace.reshape(shape),
-                   cell_committed=hist.async_trace["cell_committed"])
-        return hier_k3_expected(cfg, "async", out)[0]
-    return cfg.rounds if hist.commit_trace is not None else int(hist.tx_trace.any(axis=1).sum())
+def sweep_k3_expected(cells, hists) -> int:
+    """K3 launches of one `run_sweep`, from its traces.  Every aggregation
+    is one launch.  The flat cells go to one `run_many` call, which runs
+    the cells that share a model (`sim._scan_group_key`) as one group on
+    each engine, and a group aggregates all its cells in one launch: once
+    per round in which any of its cells trained (scan), once per event
+    (async).  A hierarchy: `hier_k3_expected`'s rules, config by config."""
+    total, groups = 0, {}
+    for c, hist in zip(cells, hists):
+        cfg = c.config
+        if isinstance(cfg, HierSimConfig):
+            shape = (cfg.rounds, cfg.n_cells, cfg.devices_per_cell)
+            out = dict(tx=hist.tx_trace.reshape(shape))
+            if hist.commit_trace is None:
+                total += hier_k3_expected(cfg, "scan", out)[0]
+            else:
+                out.update(committed=hist.commit_trace.reshape(shape),
+                           cell_committed=hist.async_trace["cell_committed"])
+                total += hier_k3_expected(cfg, "async", out)[0]
+        else:
+            key = (hist.commit_trace is not None, sim_mod._scan_group_key(cfg))
+            groups.setdefault(key, []).append(hist)
+    for (is_async, _), hs in groups.items():
+        total += (hs[0].tx_trace.shape[0] if is_async
+                  else group_k3_expected(hs))
+    return total
+
+
+def group_k3_expected(hists) -> int:
+    """K3 launches of one scan group: one per round in which any of its
+    cells trained."""
+    return int(np.any([h.tx_trace.any(axis=1) for h in hists], axis=0).sum())
 
 
 def solo(cfg, device):
@@ -1113,7 +1350,7 @@ def sweep_phase() -> dict:
         svgs = sorted(p.name for p in (res.out_dir / "figures").glob("*.svg"))
     cells, hists = res.cells, res.histories
     k1_want = sweep_k1_expected(spec)
-    k3_want = sum(sweep_k3_expected(c.config, h) for c, h in zip(cells, hists))
+    k3_want = sweep_k3_expected(cells, hists)
     rounds = sum(c.config.rounds for c in cells)
     line(f"main path sweep {spec.name}: {len(cells)} cells ({len(spec.policies)} policies x "
          f"aggregation {spec.aggregation} x cell_counts {spec.cell_counts} x seeds "
@@ -1191,7 +1428,8 @@ def service_phase() -> dict:
     segment on the CPU (dispatches, commits, AoU and the buffer exact,
     latency within 1e-6, loss within 1e-4), one segment with
     ra_solver="step" (K2) whose dispatches equal the fused segment's, and
-    one open-loop segment at half the measured closed-loop rate."""
+    one open-loop segment of 50 events at half the measured closed-loop
+    rate."""
     cfg = service_config()
     sim = cfg.sim
     svc = SustainedService(cfg, device=DEV)
@@ -1275,9 +1513,11 @@ def service_phase() -> dict:
 
     rate = 0.5 * s["throughput_events_per_s"]
     open_loop = SustainedService(service_config(target_rate_events_per_s=rate,
-                                                warmup_segments=0), device=DEV)
+                                                warmup_segments=0, segment_events=50,
+                                                eval_every_events=50), device=DEV)
     o = open_loop.serve(1)["summary"]
-    line(f"service open loop at {rate:.3f} events/s (half the closed loop's), 1 segment: "
+    line(f"service open loop at {rate:.3f} events/s (half the closed loop's), 1 segment "
+         f"of 50 events: "
          f"events/s={o['throughput_events_per_s']:.3f} p50={o['latency_s']['p50']:.4f}s "
          f"p99={o['latency_s']['p99']:.4f}s SLO attained={o['slo']['attained']:.3f} "
          f"[{CARD}]")
@@ -1411,15 +1651,26 @@ def ptxas_lines(lib: str, kernel: str) -> list[str]:
     return out or [f"{kernel}: no ptxas report in the build log of {lib}"]
 
 
-def assert_bitwise(a, b, what: str) -> None:
-    """Every per-round field of two histories equal to the bit."""
+def bitwise_diff(a, b, skip=("commit_trace", "async_trace")) -> list[str]:
+    """The fields of two histories, but the wall times and `skip`, that
+    differ in any bit."""
     diff = []
     for f in dataclasses.fields(a):
-        if f.name in ("wall_s", "plan_wall_s", "commit_trace", "async_trace"):
+        if f.name in ("wall_s", "plan_wall_s") + tuple(skip):
             continue
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if not (np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y):
+        if isinstance(x, dict):
+            same = x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        else:
+            same = np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+        if not same:
             diff.append(f.name)
+    return diff
+
+
+def assert_bitwise(a, b, what: str) -> None:
+    """Every per-round field of two histories equal to the bit."""
+    diff = bitwise_diff(a, b)
     line(f"{what}: bitwise equal in every field: {not diff}" + (f" (differ: {diff})" if diff else ""))
     if diff:
         raise AssertionError(f"{what}: fields differ: {diff}")
@@ -1506,6 +1757,8 @@ def main() -> None:
     big = torch.randn(16, 1 << 25, generator=gen, device=DEV)
     check_k3([big], "K=16 N=2^25", reps=20, plain_reps=2)
     del big
+    mlp_shapes = [tuple(p.shape) for p in get_small_model(main_cfg.dataset).parameters()]
+    k3_cells = {b: check_k3_cells(mlp_shapes, b, reps=50) for b in (1, 16, 32)}
 
     # ---- 6. K4 and K5 -----------------------------------------------------------
     phase_mark(6, t_all)
@@ -1600,8 +1853,12 @@ def main() -> None:
                                               ("scan_step", hstep_launches),
                                               ("scan_3_cells", h3_launches))))
 
-    # ---- 9. the sweep harness and the sustained service ----------------------
+    # ---- 9. a run_many group as one batch on a cell axis ---------------------
     phase_mark(9, t_all)
+    batch = {agg: batch_phase(agg) for agg in ("sync", "async")}
+
+    # ---- 10. the sweep harness and the sustained service ----------------------
+    phase_mark(10, t_all)
     line(f"sweep and service on {CARD}")
     sweep = sweep_phase()
     service = service_phase()
@@ -1609,16 +1866,16 @@ def main() -> None:
     k1_at["service_segment"] = k1_bound("the service's first segment (100 events x 16 x 64)",
                                         to(sb), to(sh), to(se), scfg)
 
-    # ---- 10. the serving paths -----------------------------------------------
-    phase_mark(10, t_all)
+    # ---- 11. the serving paths -----------------------------------------------
+    phase_mark(11, t_all)
     n_new = SERVE["new_tokens"]
     qwen_serve = serve_phase("qwen2-7b", "flash_attention", qwen.n_layers)
     rwkv_serve = serve_phase("rwkv6-7b", "rwkv6_wkv", rwkv.n_layers * (1 + n_new + 1))
     line(f"K5 per launch on the card: prefill {k5_main['ms']:.4f} ms, decode "
          f"{k5_decode['ms']:.4f} ms")
 
-    # ---- 11. kernel list ----------------------------------------------------
-    phase_mark(11, t_all)
+    # ---- 12. kernel list ----------------------------------------------------
+    phase_mark(12, t_all)
     kernels = []
     hier_launches = {"polyblock_fused": hs_launches["polyblock_fused"],
                      "polyblock_project": hstep_launches["polyblock_project"],
@@ -1648,6 +1905,13 @@ def main() -> None:
             kernels[-1]["lanes"] = res["lanes"]
         if name == "polyblock_fused":
             kernels[-1]["at"] = k1_at
+        if name == "fedavg_agg":
+            kernels[-1]["cells"] = {str(b): {key: r[key] for key in ("ms", "bound_ms",
+                                                                     "one_cell_launches_ms")}
+                                    for b, r in k3_cells.items()}
+        if name in ("polyblock_fused", "fedavg_agg"):
+            kernels[-1]["batch_launches"] = {agg: r["launches"][name]
+                                             for agg, r in batch.items()}
         if name in hier_launches:
             kernels[-1]["hier_launches"] = hier_launches[name]
             kernels[-1]["sweep_launches"] = sweep["launches"][name]

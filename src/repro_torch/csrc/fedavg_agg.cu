@@ -32,6 +32,13 @@
 // A table holds kMaxLeaves leaves; the C entry launches once per full
 // table (the paper's models need one).
 //
+// A cell axis (fedavg_agg_cells_f32): a group of B simulation cells
+// aggregates in the same launch, the cell on blockIdx.y over the same leaf
+// table.  Each leaf row then carries its output's cell stride (x's is
+// K * n_i); each block normalises its own cell's K weights (w is (B, K)).
+// A one-cell launch is the B = 1 grid, so every cell's output is the bits
+// of its own one-cell launch.
+//
 // Replication contract: sum_j w_j is taken in slot order by one thread,
 // clamped at 1e-30, each weight normalised by a true (IEEE) division, and
 // each output accumulated over k = 0..K-1 in order from 0, one rounded
@@ -53,11 +60,12 @@ constexpr int64_t kMaxBlocksPerLeaf = 132 * 16;
 constexpr int kMaxLeaves = 64;
 
 struct Leaf {
-  const float* x;   // (K, n) stacked client rows
-  float* out;       // (n,)
+  const float* x;      // (B, K, n) stacked client rows, cell stride K * n
+  float* out;          // (B, n) outputs, cell stride out_stride
   int64_t n;
-  int first_block;  // the leaf's first block of the grid
-  int vec;          // 1: float4 loads and stores
+  int64_t out_stride;
+  int first_block;     // the leaf's first block of the grid
+  int vec;             // 1: float4 loads and stores
 };
 
 struct LeafTable {
@@ -78,13 +86,15 @@ __global__ void __launch_bounds__(kBlock)
                       int k) {
   extern __shared__ float w_hat[];
   __shared__ float wsum;
+  const int64_t cell = blockIdx.y;
+  const float* wc = w + cell * k;
   if (threadIdx.x == 0) {
     float s = 0.0f;
-    for (int j = 0; j < k; ++j) s = s + w[j];
+    for (int j = 0; j < k; ++j) s = s + wc[j];
     wsum = fmaxf(s, 1e-30f);
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < k; j += blockDim.x) w_hat[j] = w[j] / wsum;
+  for (int j = threadIdx.x; j < k; j += blockDim.x) w_hat[j] = wc[j] / wsum;
   __syncthreads();
 
   const int block = static_cast<int>(blockIdx.x);
@@ -94,10 +104,12 @@ __global__ void __launch_bounds__(kBlock)
   const int end = li + 1 < t.count ? t.leaf[li + 1].first_block : static_cast<int>(gridDim.x);
   const int64_t stride = static_cast<int64_t>(end - leaf.first_block) * blockDim.x;
   const int64_t start = static_cast<int64_t>(block - leaf.first_block) * blockDim.x + threadIdx.x;
+  const float* x = leaf.x + cell * k * leaf.n;
+  float* out = leaf.out + cell * leaf.out_stride;
   if (leaf.vec) {
     const int64_t n4 = leaf.n / 4;
-    const float4* x4 = reinterpret_cast<const float4*>(leaf.x);
-    float4* out4 = reinterpret_cast<float4*>(leaf.out);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* out4 = reinterpret_cast<float4*>(out);
     for (int64_t e = start; e < n4; e += stride) {
       float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll 4
@@ -108,47 +120,45 @@ __global__ void __launch_bounds__(kBlock)
     const int64_t n = leaf.n;
     for (int64_t e = start; e < n; e += stride) {
       float acc = 0.0f;
-      const float* col = leaf.x + e;
+      const float* col = x + e;
 #pragma unroll 4
       for (int j = 0; j < k; ++j) acc = acc + w_hat[j] * col[static_cast<int64_t>(j) * n];
-      leaf.out[e] = acc;
+      out[e] = acc;
     }
   }
 }
 
-}  // namespace
-
-// Plain C interface, loaded with ctypes.
-extern "C" {
-
-// `leaves` holds n_leaves rows of three int64: the (K, n) stacked pointer,
-// the (n,) output pointer and n.  Rows with n == 0 are skipped; the rest go
-// out in tables of fedavg_agg_table_leaves() leaves, one launch each.
-// Returns the cudaGetLastError() code after the last launch (0 = launched).
-int fedavg_agg_leaves_f32(const int64_t* leaves, int n_leaves, const void* w, int k,
-                          void* stream) {
-  if (k <= 0) return static_cast<int>(cudaGetLastError());
+// Fill tables from `leaves` (rows of `width` int64: the stacked pointer,
+// the output pointer, n and, when width is 4, the output's cell stride) and
+// launch each full table over a (blocks, cells) grid.  Rows with n == 0 are
+// skipped.  Returns the cudaGetLastError() code after the last launch.
+int agg_launch(const int64_t* leaves, int n_leaves, int width, const void* w, int k,
+               int cells, void* stream) {
+  if (k <= 0 || cells <= 0) return static_cast<int>(cudaGetLastError());
   LeafTable t;
   t.count = 0;
   int blocks = 0;
   const auto launch = [&]() {
-    agg_leaves_kernel<<<blocks, kBlock, k * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
-        t, static_cast<const float*>(w), k);
+    agg_leaves_kernel<<<dim3(blocks, cells), kBlock, k * sizeof(float),
+                        static_cast<cudaStream_t>(stream)>>>(t, static_cast<const float*>(w), k);
     t.count = 0;
     blocks = 0;
     return cudaGetLastError();
   };
   for (int j = 0; j < n_leaves; ++j) {
-    const int64_t n = leaves[3 * j + 2];
+    const int64_t* row = leaves + static_cast<int64_t>(width) * j;
+    const int64_t n = row[2];
     if (n <= 0) continue;
-    const auto x = reinterpret_cast<const float*>(leaves[3 * j]);
-    const auto out = reinterpret_cast<float*>(leaves[3 * j + 1]);
-    const int vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) % 16) == 0 &&
+    const auto x = reinterpret_cast<const float*>(row[0]);
+    const auto out = reinterpret_cast<float*>(row[1]);
+    const int64_t out_stride = width > 3 ? row[3] : n;
+    const int vec = n % 4 == 0 && out_stride % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(x) % 16) == 0 &&
                     (reinterpret_cast<uintptr_t>(out) % 16) == 0;
     const int64_t units = vec ? n / 4 : n;
     int64_t nb = (units + kBlock - 1) / kBlock;
     if (nb > kMaxBlocksPerLeaf) nb = kMaxBlocksPerLeaf;
-    t.leaf[t.count] = Leaf{x, out, n, blocks, vec};
+    t.leaf[t.count] = Leaf{x, out, n, out_stride, blocks, vec};
     t.count += 1;
     blocks += static_cast<int>(nb);
     if (t.count == kMaxLeaves) {
@@ -160,7 +170,31 @@ int fedavg_agg_leaves_f32(const int64_t* leaves, int n_leaves, const void* w, in
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// Plain C interface, loaded with ctypes.
+extern "C" {
+
+// One aggregation: `leaves` holds n_leaves rows of three int64, the (K, n)
+// stacked pointer, the (n,) output pointer and n; w is (K,).  The leaves go
+// out in tables of fedavg_agg_table_leaves() leaves, one launch each.
+int fedavg_agg_leaves_f32(const int64_t* leaves, int n_leaves, const void* w, int k,
+                          void* stream) {
+  return agg_launch(leaves, n_leaves, 3, w, k, 1, stream);
+}
+
+// One aggregation per cell of a group, all cells in the same launches:
+// rows of four int64, the (B, K, n) stacked pointer, the output pointer,
+// n and the output's cell stride (in floats); w is (B, K), B = cells.
+int fedavg_agg_cells_f32(const int64_t* leaves, int n_leaves, const void* w, int k,
+                         int cells, void* stream) {
+  return agg_launch(leaves, n_leaves, 4, w, k, cells, stream);
+}
+
 // Leaves per launch.
 int fedavg_agg_table_leaves(void) { return kMaxLeaves; }
+
+// Cells per launch: the grid's y limit.
+int fedavg_agg_max_cells(void) { return 65535; }
 
 }  // extern "C"

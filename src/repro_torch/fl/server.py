@@ -21,6 +21,13 @@ The engine feeds it TRANSLATED updates w_n + (w - b_n) (`fl.async_loop`).
 When every upload is fresh (f(0) = 1 exactly, translation an exact no-op)
 the commit IS eq. (34) bit for bit: the full-buffer limit reproduces the
 scan engine.
+
+Cell axis: given (B, K) weights, `aggregate` and `aggregate_buffered` take
+a group of B cells at once — global leaves (B, ...), client leaves
+(B, K, ...), per-cell `server_lr` (B,) — and aggregate every cell in one
+K3 launch (`fedavg_aggregate_leaves_batched`).  The selects around the
+mean are elementwise, so each cell gets the bits of its own one-cell call.
+The results are `kernels.fedavg_agg.cell_buffers` views.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ import dataclasses
 
 import torch
 
-from ..kernels.fedavg_agg import fedavg_aggregate_leaves
+from ..kernels.fedavg_agg import (fedavg_aggregate_leaves,
+                                  fedavg_aggregate_leaves_batched)
 
 __all__ = ["masked_weighted_mean", "aggregate", "AsyncAggregation",
            "AGGREGATION_PRESETS", "get_aggregation", "staleness_weight",
@@ -44,11 +52,23 @@ def masked_weighted_mean(stacked: torch.Tensor, weights: torch.Tensor) -> torch.
     return fedavg_aggregate_leaves([stacked], weights)[0]
 
 
+def _per_cell(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (B,) per-cell tensor shaped to broadcast against a (B, ...) leaf."""
+    return v.reshape(v.shape + (1,) * (like.dim() - 1))
+
+
 def aggregate(global_params: dict, client_params: dict,
               weights: torch.Tensor) -> dict:
     """Eq. (34).  client_params leaves have a leading slot axis (K, ...);
     weights (K,) = S_n * sum_k psi_kn * beta_n per slot (0 for empty slots).
-    Keeps the previous global model when sum(weights) == 0."""
+    Keeps the previous global model when sum(weights) == 0.  With (B, K)
+    weights every leaf has a leading cell axis (see the module docstring)."""
+    if weights.dim() == 2:
+        keep = weights.sum(-1) > 0
+        means = fedavg_aggregate_leaves_batched(
+            [client_params[k] for k in global_params], weights)
+        return {k: torch.where(_per_cell(keep, g), mean, g, out=mean)
+                for (k, g), mean in zip(global_params.items(), means)}
     keep = weights.sum() > 0
     means = fedavg_aggregate_leaves([client_params[k] for k in global_params], weights)
     return {k: torch.where(keep, mean, g).to(g.dtype)
@@ -160,8 +180,21 @@ def aggregate_buffered(global_params: dict, committed_params: dict,
     The committed updates' weighted mean is mixed into the global model
     with m = server_lr (0 when nothing committed).  Both endpoints are
     exact selects: m == 1 is bitwise `aggregate` (eq. 34) and m == 0 is
-    bitwise identity.
+    bitwise identity.  With (B, K) weights and a (B,) server_lr every leaf
+    has a leading cell axis (see the module docstring).
     """
+    if weights.dim() == 2:
+        wsum = weights.sum(-1)
+        m = torch.where(wsum > 0, server_lr, 0.0)
+        means = fedavg_aggregate_leaves_batched(
+            [committed_params[k] for k in global_params], weights)
+        out = {}
+        for (k, g), mean in zip(global_params.items(), means):
+            ok, mk = _per_cell(wsum > 0, g), _per_cell(m, g)
+            agg = torch.where(ok, mean, g)
+            mixed = (1.0 - mk) * g + mk * agg
+            out[k] = torch.where(mk >= 1.0, agg, torch.where(mk <= 0.0, g, mixed), out=mean)
+        return out
     wsum = weights.sum()
     m = torch.where(wsum > 0, server_lr, 0.0)
     means = fedavg_aggregate_leaves([committed_params[k] for k in global_params], weights)

@@ -30,8 +30,13 @@ Then one of three round loops:
     runs here, whatever `engine` says.
 
 Every aggregation is a weighted mean on kernel K3 (`kernels.fedavg_agg`)
-when the run is on the card.  Cells run one at a time; the JAX package
-batches a group's cells into one program (ROADMAP Queue 1).
+when the run is on the card.  The scan and async engines run a `run_many`
+group of cells — configs that share one model and trainer — as ONE loop on
+a leading cell axis (`fl.engine_common`), the port of the JAX package's
+`vmap` over the group: one leader step per distinct policy, one host read
+of who trains, one K3 launch for every cell's aggregation per round; each
+cell's local training and eval stay its own.  Every cell of a group gets
+the bits of its solo run; `run_simulation` is the group of one.
 
 The learning plane's random draws all go through `training_draws`: the
 initial parameters, then one (K, local_steps, batch) block of minibatch
@@ -63,10 +68,10 @@ from ..scenarios import (Scenario, apply_dynamics, compose_gains, get_scenario,
                          sample_churn, sample_distances, sample_energy,
                          sample_fading)
 from ..train.optimizer import make_optimizer
-from .async_loop import build_async_runner
+from .async_loop import build_async_group_runner
 from .client import make_local_trainer
-from .engine_common import (make_eval_fn, make_leader_branches, make_xs,
-                            sync_cell_round)
+from .engine_common import (eval_cells, group_data, make_eval_fn, make_group_leader,
+                            make_xs, stack_cells, sync_group_round)
 from .server import AsyncAggregation, aggregate, get_aggregation
 
 __all__ = ["SimConfig", "SimHistory", "run_simulation", "run_many", "TABLE1",
@@ -504,17 +509,18 @@ def _eval_mask(cfg: SimConfig) -> np.ndarray:
 
 def _build_scan_runner(cfg: SimConfig, model: SmallModel, trainer,
                        policies: Sequence[tuple[str, str]]):
-    """The round loop with all its state on the device: leader plane +
-    learning plane, per round.
+    """The round loop of a group of B cells with all its state on the
+    device: leader plane + learning plane, per round.
 
-    State = (params, draws, age); per-round inputs = Γ slices + injected
-    permutations (`make_xs`).  Returns fn(data) -> ys, a dict of per-round
-    tensors with a leading rounds axis, still on the device.  The host
-    reads one scalar per round — whether anyone trains — besides the
-    leader's own reads (`core.leader_torch.host_int`).
+    State = (params, draws, age) with a leading cell axis; per-round inputs
+    = Γ slices + injected permutations (`make_xs`).  Returns fn(data) ->
+    ys, `data` the group's (`engine_common.group_data` of the cells'
+    `_scan_inputs`), ys a dict of per-round tensors (rounds, B, ...), still
+    on the device.  The host reads one (B,) vector per round — which cells
+    train — besides the leader's own reads (`core.leader_torch.host_int`).
 
     `policies` lists the distinct (ds, sa) leader variants of the group;
-    `data["policy_idx"]` picks the cell's.
+    each cell's `policy_idx` picks its own.
     """
     k, n = cfg.n_subchannels, cfg.n_devices
     n_clusters = int(math.ceil(n / k))
@@ -522,22 +528,23 @@ def _build_scan_runner(cfg: SimConfig, model: SmallModel, trainer,
 
     def run(data):
         device = data["beta"].device
-        zero = torch.zeros((), dtype=torch.float32, device=device)
-        branches = make_leader_branches(policies, data, k=k, n=n,
-                                        n_clusters=n_clusters)
-        ev = make_eval_fn(model, data, cfg.track_gradnorm)
+        cells = data["cells"]
+        zeros = torch.zeros(len(cells), dtype=torch.float32, device=device)
+        leader = make_group_leader(policies, data, k=k, n=n, n_clusters=n_clusters)
+        evs = [make_eval_fn(model, c, cfg.track_gradnorm) for c in cells]
         xs = make_xs(data, cfg.rounds, eval_mask)
-        params, draws = data["params0"], data["next_uniforms"]
-        age = torch.ones(n, dtype=torch.int32, device=device)
+        params = stack_cells([c["params0"] for c in cells])
+        draws = [c["next_uniforms"] for c in cells]
+        age = torch.ones((len(cells), n), dtype=torch.int32, device=device)
         ys = []
         for r in range(cfg.rounds):
             x = {name: v[r] for name, v in xs.items()}
             # Leader plane (Algorithms 2-3 + AoU), training and eq. 34.
-            out = sync_cell_round(branches, trainer, data, x, params, draws, age,
-                                  k=k, n=n)
+            out = sync_group_round(leader, trainer, data, x, params, draws, age, k=k, n=n)
             params, lead = out["params"], out["lead"]
             # ---- bookkeeping: evaluate only at eval rounds ---------------
-            loss, acc, gnorm = ev(params) if x["eval_mask"] else (zero, zero, zero)
+            loss, acc, gnorm = (eval_cells(evs, params) if x["eval_mask"]
+                                else (zeros, zeros, zeros))
             age = lead["age_next"]
             ys.append(dict(loss=loss, acc=acc, gnorm=gnorm, latency=out["latency"],
                            energy=out["energy"], selected=lead["selected"],
@@ -633,20 +640,50 @@ def _check_f32_priorities(preps: Sequence[_Prepared]) -> None:
                 f"use engine='loop' or shrink rounds/data sizes")
 
 
-def _run_group_scan(cfgs: Sequence[SimConfig], preps: Sequence[_Prepared],
-                    ras: Sequence[RAResult], plan_walls: Sequence[float],
-                    device: torch.device) -> list[SimHistory]:
-    """Run one group of simulations through the scan engine, a cell at a
-    time over the group's shared model, trainer and leader branches."""
+def _run_group(mode: str, cfgs: Sequence[SimConfig], preps: Sequence[_Prepared],
+               ras: Sequence[RAResult], plan_walls: Sequence[float],
+               device: torch.device) -> list[SimHistory]:
+    """Run one group of simulations through the scan or the async engine
+    as ONE loop over a leading cell axis, sharing the group's model,
+    trainer and leader variants.  The cells run sorted by policy, so each
+    distinct policy's leader runs once per round on a contiguous slice;
+    the histories come back in the given order.  On the async engine each
+    cell's commit batch size, staleness exponent and server step enter as
+    data.
+
+    A cell's `wall_s` is the GROUP's wall time plus the cell's own share of
+    planning (`plan_wall_s`): the cells run together, so there is no
+    per-cell time."""
+    cfg = cfgs[0]
     model, trainer, policies, pol_idx = _group_trainer_and_policies(cfgs, device)
-    run = _build_scan_runner(cfgs[0], model, trainer, policies)
     _check_f32_priorities(preps)
-    out = []
-    for c, p, ra, w, i in zip(cfgs, preps, ras, plan_walls, pol_idx):
-        t_start = time.perf_counter()
-        ys = _to_host(run(_scan_inputs(p, ra, device, i)))
-        out.append(_history_from_scan(c, p.beta, ys,
-                                      time.perf_counter() - t_start + w, w))
+    order = sorted(range(len(cfgs)), key=pol_idx.__getitem__)
+    t_start = time.perf_counter()
+    cells = []
+    for i in order:
+        d = _scan_inputs(preps[i], ras[i], device, pol_idx[i])
+        if mode == "async":
+            spec = _async_spec(cfgs[i])
+            d.update(buffer=spec.resolve_buffer(cfg.n_devices, cfg.n_subchannels),
+                     stale_exp=torch.tensor(spec.stale_exponent(), dtype=torch.float32,
+                                            device=device),
+                     server_lr=torch.tensor(spec.server_lr, dtype=torch.float32,
+                                            device=device))
+        cells.append(d)
+    if mode == "scan":
+        run = _build_scan_runner(cfg, model, trainer, policies)
+    else:
+        run = build_async_group_runner(
+            model, trainer, policies, k=cfg.n_subchannels, n=cfg.n_devices,
+            rounds=cfg.rounds, eval_mask=_eval_mask(cfg),
+            track_gradnorm=cfg.track_gradnorm)
+    ys = _to_host(run(group_data(cells)))
+    wall = time.perf_counter() - t_start
+    history = _history_from_scan if mode == "scan" else _history_from_async
+    out: list[SimHistory | None] = [None] * len(cfgs)
+    for j, i in enumerate(order):
+        out[i] = history(cfgs[i], preps[i].beta, {name: v[:, j] for name, v in ys.items()},
+                         wall + plan_walls[i], plan_walls[i])
     return out
 
 
@@ -676,35 +713,6 @@ def _history_from_async(cfg: SimConfig, beta: np.ndarray, ys: dict,
     return hist
 
 
-def _run_group_async(cfgs: Sequence[SimConfig], preps: Sequence[_Prepared],
-                     ras: Sequence[RAResult], plan_walls: Sequence[float],
-                     device: torch.device) -> list[SimHistory]:
-    """Run one group through the buffered event-timeline engine
-    (`fl.async_loop`), a cell at a time; each cell's commit batch size,
-    staleness exponent and server step enter as data."""
-    cfg = cfgs[0]
-    model, trainer, policies, pol_idx = _group_trainer_and_policies(cfgs, device)
-    run = build_async_runner(
-        model, trainer, policies, k=cfg.n_subchannels, n=cfg.n_devices,
-        rounds=cfg.rounds, eval_mask=_eval_mask(cfg),
-        track_gradnorm=cfg.track_gradnorm)
-    _check_f32_priorities(preps)
-    out = []
-    for c, p, ra, w, i in zip(cfgs, preps, ras, plan_walls, pol_idx):
-        t_start = time.perf_counter()
-        data = _scan_inputs(p, ra, device, i)
-        spec = _async_spec(c)
-        data["buffer"] = spec.resolve_buffer(c.n_devices, c.n_subchannels)
-        data["stale_exp"] = torch.tensor(spec.stale_exponent(), dtype=torch.float32,
-                                         device=device)
-        data["server_lr"] = torch.tensor(spec.server_lr, dtype=torch.float32,
-                                         device=device)
-        ys = _to_host(run(data))
-        out.append(_history_from_async(c, p.beta, ys,
-                                       time.perf_counter() - t_start + w, w))
-    return out
-
-
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -715,7 +723,11 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_solver: str = "fused",
 
     Configs identical up to the policy (and aggregation) share one
     `_Prepared` world and one Γ solve per RA scheme; each simulation then
-    replays its precomputed per-round slices through its engine.
+    replays its precomputed per-round slices through its engine.  On the
+    scan and async engines, configs that differ only in seed, wireless
+    data, policy, scenario or aggregation form a group that runs as one
+    loop on a leading cell axis (`_run_group`), each cell bitwise its solo
+    run.
 
     Args:
       cfgs: the simulations to run; results are returned in the same order.
@@ -769,10 +781,8 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_solver: str = "fused",
         else:
             groups.setdefault((mode, _scan_group_key(c)), []).append(i)
     for (mode, _), idx in groups.items():
-        run_group = _run_group_scan if mode == "scan" else _run_group_async
-        hists = run_group([cfgs[i] for i in idx], [preps[i] for i in idx],
-                          [ras[i] for i in idx], [plan_walls[i] for i in idx],
-                          device)
+        hists = _run_group(mode, [cfgs[i] for i in idx], [preps[i] for i in idx],
+                           [ras[i] for i in idx], [plan_walls[i] for i in idx], device)
         for i, h in zip(idx, hists):
             out[i] = h
     return out

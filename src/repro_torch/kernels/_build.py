@@ -49,7 +49,8 @@ _SIGNATURES = {
                   "polyblock_solve_f64": _SOLVE, "polyblock_solve_f32": _SOLVE,
                   "polyblock_solve_max_iter": [_I32, _I32]},
     "fedavg_agg": {"fedavg_agg_leaves_f32": [_P, _I32, _P, _I32, _P],
-                   "fedavg_agg_table_leaves": []},
+                   "fedavg_agg_cells_f32": [_P, _I32, _P, _I32, _I32, _P],
+                   "fedavg_agg_table_leaves": [], "fedavg_agg_max_cells": []},
     "flash_attention": {"flash_attention_f32": _FLASH, "flash_attention_bf16": _FLASH,
                         "flash_attention_bf16_smem_bytes": [_I32]},
     "rwkv6_wkv": {"wkv6_f32": _WKV6, "wkv6_threads_per_block": [_I32]},

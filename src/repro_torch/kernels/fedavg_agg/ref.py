@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fedavg_agg_plain"]
+__all__ = ["fedavg_agg_plain", "fedavg_agg_plain_cells"]
 
 
 def fedavg_agg_plain(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -25,3 +25,9 @@ def fedavg_agg_plain(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tens
     for w_k, x_k in zip(w_hat, stacked):
         acc = acc + w_k * x_k
     return acc
+
+
+def fedavg_agg_plain_cells(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The cell-axis form: stacked (B, K, ...), weights (B, K) -> (B, ...),
+    each cell's `fedavg_agg_plain` on its own slots and weights."""
+    return torch.stack([fedavg_agg_plain(x, w) for x, w in zip(stacked, weights)])

@@ -19,11 +19,13 @@ from repro_torch.service import ServiceConfig, SustainedService
 from repro_torch.core import WirelessConfig, is_infeasible
 from repro_torch.core.monotonic_torch import solve_pairs_fused, solve_pairs_step
 from repro_torch.fl import (HierSimConfig, SimConfig, run_hier_many, run_hierarchical,
-                            run_simulation)
+                            run_many, run_simulation)
 from repro_torch.kernels import _build, flash_attention, flash_attention_plain, wkv6, wkv6_plain
 from repro_torch.fl.server import aggregate, aggregate_buffered
 from repro_torch.kernels.fedavg_agg import (fedavg_agg_plain, fedavg_aggregate,
-                                            fedavg_aggregate_leaves, fedavg_aggregate_tree)
+                                            fedavg_aggregate_leaves,
+                                            fedavg_aggregate_leaves_batched,
+                                            fedavg_aggregate_tree)
 from repro_torch.kernels.polyblock_fused.ops import (LANES, coop_lanes, polyblock_solve_fused,
                                                      polyblock_solve_plain)
 from repro_torch.kernels.polyblock_project.ops import (LANES as PROJECT_LANES,
@@ -452,6 +454,93 @@ def test_fedavg_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fedavg_aggregate(x, w.cpu())
     with pytest.raises(ValueError):
         fedavg_aggregate(x, w[:3])
+
+
+def _cell_weights(cells: int, k: int, gen, dev) -> torch.Tensor:
+    """(cells, k) weights cycling through random, all-zero and single-slot
+    cells."""
+    w = torch.rand(cells, k, generator=gen, device=dev) * 50 + 1
+    w[1::3] = 0.0
+    w[2::3] = 0.0
+    w[2::3, k - 1] = 7.0
+    return w
+
+
+@pytest.mark.parametrize("cells", [1, 3, 32])
+def test_fedavg_cells_match_plain_and_one_cell_launches(dev, cells):
+    """K3's cell axis: one launch for every cell of the mnist MLP's six
+    leaves (and an odd, an empty and a (K, 7, 5) leaf); each cell bitwise
+    the plain version and its own one-cell launch; a zero-weight cell gives
+    0, a single-slot cell that slot."""
+    gen = torch.Generator(dev).manual_seed(cells)
+    k = 4
+    shapes = [(200, 784), (200,), (200, 200), (200,), (10, 200), (10,), (13,), (0,), (7, 5)]
+    stacked = [torch.randn((cells, k) + s, generator=gen, device=dev) for s in shapes]
+    kinds = ([_cell_weights(3, k, gen, dev)[i:i + 1] for i in range(3)] if cells == 1
+             else [_cell_weights(cells, k, gen, dev)])
+    for w in kinds:
+        before = fedavg_aggregate_leaves_batched.launches
+        got = fedavg_aggregate_leaves_batched(stacked, w)
+        torch.cuda.synchronize()
+        assert fedavg_aggregate_leaves_batched.launches == before + 1
+        for c in range(cells):
+            one = fedavg_aggregate_leaves([x[c] for x in stacked], w[c])
+            for g, x, o in zip(got, stacked, one):
+                assert g.shape == (cells,) + x.shape[2:]
+                torch.testing.assert_close(g[c], fedavg_agg_plain(x[c], w[c]), rtol=0, atol=0)
+                assert torch.equal(g[c], o)
+                if not w[c].any():
+                    assert not g[c].any()
+                elif int((w[c] != 0).sum()) == 1:
+                    assert torch.equal(g[c], x[c][k - 1])
+
+
+def test_server_cell_axis_on_the_card(dev):
+    """`aggregate` and `aggregate_buffered` with (B, K) weights: one K3
+    launch for the group, the bits of the same call on the CPU."""
+    gen = torch.Generator(dev).manual_seed(19)
+    shapes = {"w1": (200, 784), "b1": (200,), "w2": (10, 200), "b2": (10,)}
+    cells = 5
+    g = {n: torch.randn((cells,) + s, generator=gen, device=dev) for n, s in shapes.items()}
+    c = {n: torch.randn((cells, 4) + s, generator=gen, device=dev) for n, s in shapes.items()}
+    w = _cell_weights(cells, 4, gen, dev)
+    lr = torch.tensor([1.0, 0.5, 0.25, 1.0, 0.75], device=dev)
+    cpu = lambda d: {n: v.cpu() for n, v in d.items()}
+    for call, extra in ((aggregate, ()), (aggregate_buffered, (lr,))):
+        before = fedavg_aggregate_leaves_batched.launches
+        got = call(g, c, w, *extra)
+        torch.cuda.synchronize()
+        assert fedavg_aggregate_leaves_batched.launches == before + 1
+        want = call(cpu(g), cpu(c), w.cpu(), *(x.cpu() for x in extra))
+        for n in shapes:
+            torch.testing.assert_close(got[n].cpu(), want[n], rtol=0, atol=0)
+
+
+def test_fedavg_cells_reject_what_the_kernel_does_not_take(dev):
+    x = torch.randn(3, 4, 64, device=dev)
+    w = torch.rand(3, 4, device=dev)
+    for bad_x, bad_w in ((x.double(), w.double()), (x, w.double()), (x[:, :, ::2], w),
+                         (x, w.cpu()), (x, w[:, :3]), (x, w[:2])):
+        with pytest.raises(ValueError):
+            fedavg_aggregate_leaves_batched([bad_x], bad_w)
+
+
+@pytest.mark.parametrize("engine,aggregation", [("scan", "sync"), ("async", "async")])
+def test_group_cells_bitwise_solo_on_the_card(dev, engine, aggregation):
+    """A `run_many` group of four cells (two seeds x alg3 / random DS) on
+    the card: every cell bitwise its solo run on the card."""
+    small = dict(rounds=6, n_devices=8, n_subchannels=3, n_samples=96, batch=16,
+                 local_steps=2, eval_every=2, scenario="churn", aggregation=aggregation)
+    cfgs = [SimConfig(**small, seed=s, policy=RoundPolicy(ds=ds))
+            for s in (0, 1) for ds in ("alg3", "random")]
+    group = run_many(cfgs, engine=engine, device=dev)
+    for c, h in zip(cfgs, group):
+        solo = run_simulation(c, engine=engine, device=dev)
+        for f in dataclasses.fields(h):
+            if f.name in ("wall_s", "plan_wall_s", "async_trace"):
+                continue
+            np.testing.assert_array_equal(getattr(h, f.name), getattr(solo, f.name),
+                                          err_msg=f.name)
 
 
 # --------------------------------------------------------------------------
