@@ -9,8 +9,9 @@ against its plain PyTorch version on the card, drives the paper simulation
 against the same runs on the CPU, runs a `run_many` group of 16 cells as one
 batch on each device engine (every cell bitwise its solo run), runs the
 sweep harness (`run_sweep`) and
-the sustained service (`SustainedService`) on them, and serves two 7B models of the model zoo
-(`serve_loop`) at full width and depth through K4 and K5.  Phases, in order:
+the sustained service (`SustainedService`) on them, serves two 7B models of the model zoo
+(`serve_loop`) at full width and depth through K4 and K5, and trains them
+(`train_loop`) at full width with the depth cut.  Phases, in order:
 
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. kernel build (one nvcc per source, all four started together; plain C
@@ -90,7 +91,7 @@ the sustained service (`SustainedService`) on them, and serves two 7B models of 
      cell per (aggregation, cell count) bitwise equal to its solo run on
      the card and its traces equal to the CPU's; then SustainedService at
      `python -m repro_torch.service.run --ra mo`'s defaults (N 64, K 16,
-     128 samples, batch 16, churn; one warm-up and 4 measured segments of
+     128 samples, batch 16, churn; one warm-up and 2 measured segments of
      100 events, closed loop): events/s, p50/p95/p99 commit latency, SLO
      attainment, K1 once per segment, K3 once per event, host reads per
      event, and one more segment under torch.profiler (K1's device ms and
@@ -111,10 +112,27 @@ the sustained service (`SustainedService`) on them, and serves two 7B models of 
      "ref" path on the same weights on the card, tokens in range, logits
      finite; a second, warm run under torch's sync debug mode (no host
      sync inside the decode loop) and a third under torch.profiler;
- 12. the kernel list as one JSON line (with K1-K3's launches on the
+ 12. the training path: train_loop(fl=True) — the Stackelberg planner's
+     cohort weights in the loss, AdamW, train_loop's batch 8 x seq 128,
+     lr 3e-4 — at full width with the depth cut (qwen2-7b at 4 layers for
+     20 steps, rwkv6-7b at 2 for 8), random weights from a seed, the launch
+     counters set to 0 just before each and read just after (none
+     launches: training runs the "ref" paths), under torch's sync debug
+     mode: parameter count, warm ms/step, tokens/s, model TFLOP/s
+     (6 * params * tokens / time) and its share of the bf16 peak,
+     max_memory_allocated, host syncs per step and the loss trace, which
+     must be finite and fall (mean of the last 3 below that of the first
+     3); one make_train_step with sgd for qwen2-7b at full width, 1 layer,
+     batch 1, seq 32 on the card and on the CPU from the same weights
+     (loss within 1e-2, grad norm within 2e-2 relative) and remat=True
+     against remat=False on the card; examples/torch_train_100m.py
+     --steps 10 --ckpt-every 5 into a temporary directory, its checkpoint
+     restored bitwise; every number beside the card's name and power limit;
+ 13. the kernel list as one JSON line (with K1-K3's launches on the
      hierarchy's, the batched groups', the sweep's and the service's paths:
      `hier_launches`, `batch_launches`, `sweep_launches`,
-     `service_launches`; K1's bound at the hierarchy's and a service
+     `service_launches`; every kernel's launches on the training path,
+     `train_launches`; K1's bound at the hierarchy's and a service
      segment's pairs, `at`; K3's cell axis at 1, 16 and 32 cells, `cells`).
 
 Any failure raises; the last line is the device JSON only when every phase
@@ -126,6 +144,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
+import importlib.util
 import json
 import subprocess
 import sys
@@ -164,7 +183,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain  # noqa: E402
 from repro_torch.launch.serve import serve_loop  # noqa: E402
-from repro_torch.models.transformer import forward, init_params  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
+from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
+from repro_torch.train.optimizer import adamw, sgd  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
+from repro_torch.train.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.transformer import forward, init_params, param_count  # noqa: E402
 from repro_torch.models.small import get_small_model  # noqa: E402
 from repro_torch.scenarios import ScenarioStream  # noqa: E402
 from repro_torch.service import ServiceConfig, SustainedService  # noqa: E402
@@ -958,25 +982,36 @@ def profile_run(cfg, focus: tuple[str, ...] = (), run=run_simulation, **kw) -> N
                  lambda: run(cfg, device=DEV, **kw), focus)
 
 
+# What torch's sync debug mode says of a synchronizing call (it also warns,
+# once per process, that the mode is a prototype: that is not a sync).
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def sync_counted(fn):
+    """fn() under torch's sync debug mode: (result, its synchronizing calls
+    counted by source line)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if SYNC_WARNING in str(w.message)]
+    return out, collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+
+
 def count_syncs(cfg, run=run_simulation, **kw) -> None:
     """Every host sync of one run of `run(cfg, device=DEV, **kw)`, as
     torch's sync debug mode reports them (one warning per synchronizing
     call), by the source line that made it, beside the engine's own count
     of its host reads (`host_int`)."""
     host_int.syncs = 0
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run(cfg, device=DEV, **kw)
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
-    by_line = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+    _, by_line = sync_counted(lambda: (run(cfg, device=DEV, **kw), torch.cuda.synchronize()))
+    n = sum(by_line.values())
     name = run_name(run, kw)
-    line(f"syncs {name} rounds={cfg.rounds}: {len(syncs)} synchronizing calls "
-         f"({len(syncs) / cfg.rounds:.2f} per round); host_int reads={host_int.syncs}; "
+    line(f"syncs {name} rounds={cfg.rounds}: {n} synchronizing calls "
+         f"({n / cfg.rounds:.2f} per round); host_int reads={host_int.syncs}; "
          "by source line: " + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(8)))
 
 
@@ -1229,7 +1264,7 @@ SWEEP_SPEC = dict(name="fig3_convergence", datasets="mnist", ds=PAPER_BASELINE_D
 SERVICE_SIM = dict(dataset="mnist", n_devices=64, n_subchannels=16, n_samples=128,
                    batch=16, local_steps=1, scenario="churn", aggregation="async",
                    policy=RoundPolicy(ra="mo"))
-SERVICE_SEGMENTS = 4
+SERVICE_SEGMENTS = 2
 
 
 def k1_bound(label: str, beta64, h264, e64, cfg) -> dict:
@@ -1601,20 +1636,13 @@ def serve_phase(arch: str, kernel: str, expect: int) -> dict:
     if not (finite and err <= 4e-2):
         raise AssertionError(f"serve {arch}: prefill logits off the ref path ({err:.3e})")
 
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            warm = serve_loop(cfg, device=DEV, params=params, log_every=SERVE["new_tokens"],
-                              **SERVE)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
-    by_line = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+    warm, by_line = sync_counted(lambda: serve_loop(cfg, device=DEV, params=params,
+                                                    log_every=SERVE["new_tokens"], **SERVE))
+    syncs = sum(by_line.values())
     line(f"  warm run: prefill_s={warm.prefill_s:.4f} ({warm.prefill_tok_s:.0f} tok/s) "
          f"decode_s={warm.decode_s:.4f} ({warm.decode_tok_s:.1f} tok/s, "
          f"{warm.decode_s / SERVE['new_tokens'] * 1e3:.3f} ms/step); same tokens as the first "
-         f"run: {bool(np.array_equal(warm.tokens, toks))}; {len(syncs)} synchronizing calls: "
+         f"run: {bool(np.array_equal(warm.tokens, toks))}; {syncs} synchronizing calls: "
          + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(6)))
 
     from torch.profiler import ProfilerActivity, profile
@@ -1636,6 +1664,160 @@ def serve_phase(arch: str, kernel: str, expect: int) -> dict:
     del params
     torch.cuda.empty_cache()
     return dict(launches=launches, first=first, warm=warm, err=err)
+
+
+# The training phase: train_loop's defaults (batch 8, seq 128, lr 3e-4) with
+# fl=True, at full width with the depth cut so that bf16 weights and
+# gradients and AdamW's two f32 moments fit the card (PERF.md section 4):
+# (arch, layers, steps).
+TRAIN = dict(batch=8, seq=128, lr=3e-4, seed=0)
+TRAIN_RUNS = (("qwen2-7b", 4, 20), ("rwkv6-7b", 2, 8))
+
+
+def train_run(arch: str, layers: int, steps: int) -> dict:
+    """train_loop(fl=True) at full width and `layers` layers on the card,
+    random weights from the seed, under torch's sync debug mode, with every
+    launch counter set to 0 just before it and read just after (training
+    runs the "ref" paths: no kernel of the port launches); returns those
+    launch counts."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, by_line = sync_counted(lambda: train_loop(cfg, steps=steps, fl=True, device=DEV,
+                                                   log_every=steps, **TRAIN))
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    warm = res.step_s[2:]                      # the first two steps warm the card up
+    step_ms = 1e3 * sum(warm) / len(warm)
+    tflops = 6 * res.n_params * tokens / (step_ms / 1e3) / 1e12
+    n_sync = sum(by_line.values())
+    line(f"main path train {arch} (full width, {layers} layers, fl=True, AdamW) on {CARD}: "
+         f"params={res.n_params} ({res.n_params / 1e9:.3f} B) B={TRAIN['batch']} "
+         f"seq={TRAIN['seq']} steps={steps}: warm ms/step={step_ms:.2f} (steps 2-{steps - 1}; "
+         f"first {1e3 * res.step_s[0]:.1f}, second {1e3 * res.step_s[1]:.1f}) "
+         f"tokens/s={tokens / (step_ms / 1e3):.0f} model TFLOP/s (6*P*tokens/time)="
+         f"{tflops:.2f} = {tflops / (PEAK_OPS[torch.bfloat16] / 1e12):.4f} of the dense bf16 peak; "
+         f"max_memory_allocated={peak / 2**30:.2f} GiB; wall_s={wall:.2f}")
+    line(f"  host syncs: {n_sync} in {steps} steps ({n_sync / steps:.2f} per step): "
+         + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(6)))
+    line("  loss trace: " + " ".join(f"{x:.4f}" for x in res.losses))
+    line("  grad-norm trace: " + " ".join(f"{x:.3f}" for x in res.grad_norms))
+    line("  kernel launches on the training path: "
+         + " ".join(f"{k}={v}" for k, v in launches.items()))
+    profile_step(cfg, arch)
+    first, last = np.mean(res.losses[:3]), np.mean(res.losses[-3:])
+    if not np.all(np.isfinite(res.losses)) or not last < first:
+        raise AssertionError(f"train {arch}: losses not finite or not falling "
+                             f"(first 3 mean {first:.4f}, last 3 mean {last:.4f})")
+    if any(launches.values()):
+        raise AssertionError(f"train {arch}: a kernel launched on the training path: {launches}")
+    return launches
+
+
+def profile_step(cfg, arch: str) -> None:
+    """Where a warm training step's time goes: one make_train_step (AdamW)
+    under torch.profiler, then AdamW's update alone on the same state."""
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(TRAIN["seed"]))
+    opt = adamw(TRAIN["lr"])
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, remat=False)
+    b = synthetic_token_batch(np.random.default_rng(2), TRAIN["batch"], TRAIN["seq"], cfg.vocab)
+    batch = {"tokens": torch.from_numpy(b["tokens"]).to(DEV),
+             "labels": torch.from_numpy(b["labels"]).to(DEV),
+             "fl_weights": torch.ones(TRAIN["batch"], device=DEV)}
+    params, state, _ = step(params, state, batch)              # warm
+    profile_call(f"train step {arch} (warm, AdamW) on {CARD}",
+                 lambda: step(params, state, batch), focus=("gemm", "nvjet", "elementwise"))
+    grads = tree_map(lambda p: torch.full_like(p, 1e-3, dtype=torch.float32), params)
+    profile_call(f"  of which AdamW's update alone ({arch})",
+                 lambda: opt.update(grads, state, params), focus=("elementwise",))
+    del params, state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def card_vs_cpu_step(arch: str = "qwen2-7b") -> None:
+    """One make_train_step with sgd at full width, 1 layer, batch 1, seq
+    32, from the same weights on the card and on the CPU: loss within 1e-2
+    absolute, grad norm within 2e-2 relative.  Then remat=True against
+    remat=False on the card: bitwise equal, or the largest gap."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(TRAIN["seed"]))
+    host = tree_map(lambda t: t.cpu(), params)
+    b = synthetic_token_batch(np.random.default_rng(1), 1, 32, cfg.vocab)
+    batch = {"tokens": torch.from_numpy(b["tokens"]), "labels": torch.from_numpy(b["labels"]),
+             "fl_weights": torch.ones(1)}
+    on_card = {k: v.to(DEV) for k, v in batch.items()}
+    step = make_train_step(cfg, sgd(TRAIN["lr"]), remat=False)
+    p_card, _, m_card = step(params, (), on_card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_host, _, m_host = step(host, (), batch)
+    cpu_s = time.perf_counter() - t0
+    loss, gn = float(m_card["loss"]), float(m_card["grad_norm"])
+    loss_h, gn_h = float(m_host["loss"]), float(m_host["grad_norm"])
+    moved = max(float((a.cpu().float() - c.float()).abs().max())
+                for a, c in zip(tree_leaves(p_card), tree_leaves(p_host)))
+    line(f"train step {arch} (full width, 1 layer, sgd) B=1 seq=32, card vs cpu on {CARD}: "
+         f"params={param_count(params)} loss card={loss:.6f} cpu={loss_h:.6f} "
+         f"|diff|={abs(loss - loss_h):.3e} (limit 1e-2); grad_norm card={gn:.6f} "
+         f"cpu={gn_h:.6f} rel={abs(gn - gn_h) / gn_h:.3e} (limit 2e-2); largest gap in the "
+         f"updated weights {moved:.3e}; cpu step {cpu_s:.1f}s "
+         f"({torch.get_num_threads()} threads)")
+    del p_host, host
+    if not (abs(loss - loss_h) <= 1e-2 and abs(gn - gn_h) <= 2e-2 * gn_h):
+        raise AssertionError(f"train step {arch}: the card is off the cpu")
+    p_remat, _, m_remat = make_train_step(cfg, sgd(TRAIN["lr"]), remat=True)(params, (), on_card)
+    gaps = [float((a.float() - c.float()).abs().max())
+            for a, c in zip(tree_leaves(p_remat), tree_leaves(p_card))]
+    same = (all(g == 0 for g in gaps) and torch.equal(m_remat["loss"], m_card["loss"])
+            and torch.equal(m_remat["grad_norm"], m_card["grad_norm"]))
+    line(f"  remat=True vs remat=False on the card: bitwise equal: {same}"
+         + ("" if same else f"; largest gap in the updated weights {max(gaps):.3e}, loss "
+            f"{abs(float(m_remat['loss']) - loss):.3e}, grad_norm "
+            f"{abs(float(m_remat['grad_norm']) - gn):.3e}"))
+
+
+def example_phase() -> None:
+    """examples/torch_train_100m.py --steps 10 --ckpt-every 5 on the card
+    into a temporary directory; its last checkpoint restores bitwise into
+    the final parameters."""
+    path = Path(__file__).resolve().parent / "examples" / "torch_train_100m.py"
+    spec = importlib.util.spec_from_file_location("torch_train_100m", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "ckpt_100m.npz"
+        t0 = time.perf_counter()
+        params = example.main(["--steps", "10", "--ckpt-every", "5", "--out", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, step = restore_checkpoint(str(out), params)
+        same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+                   for a, b in zip(tree_leaves(got), tree_leaves(params)))
+        line(f"example torch_train_100m --steps 10 --ckpt-every 5 on {CARD}: wall_s={wall:.2f}; "
+             f"checkpoint of {out.stat().st_size / 2**20:.1f} MiB at step {step} restores "
+             f"bitwise: {same}")
+    if not (same and step == 10):
+        raise AssertionError("example checkpoint does not restore bitwise")
+
+
+def train_phase() -> dict:
+    """Phase 12; returns each run's launch counts by arch."""
+    launches = {arch: train_run(arch, layers, steps) for arch, layers, steps in TRAIN_RUNS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_vs_cpu_step()
+    gc.collect()
+    torch.cuda.empty_cache()
+    example_phase()
+    return launches
 
 
 def ptxas_lines(lib: str, kernel: str) -> list[str]:
@@ -1874,8 +2056,12 @@ def main() -> None:
     line(f"K5 per launch on the card: prefill {k5_main['ms']:.4f} ms, decode "
          f"{k5_decode['ms']:.4f} ms")
 
-    # ---- 12. kernel list ----------------------------------------------------
+    # ---- 12. the training path ------------------------------------------------
     phase_mark(12, t_all)
+    train = train_phase()
+
+    # ---- 13. kernel list ----------------------------------------------------
+    phase_mark(13, t_all)
     kernels = []
     hier_launches = {"polyblock_fused": hs_launches["polyblock_fused"],
                      "polyblock_project": hstep_launches["polyblock_project"],
@@ -1901,6 +2087,7 @@ def main() -> None:
                             ms=res["ms"], plain_ms=res["plain_ms"],
                             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                             library_ms=res["library_ms"]))
+        kernels[-1]["train_launches"] = {arch: n[name] for arch, n in train.items()}
         if "lanes" in res:
             kernels[-1]["lanes"] = res["lanes"]
         if name == "polyblock_fused":

@@ -22,7 +22,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "load_polyblock", "load_fedavg", "build_info", "check_launch",
+import torch
+
+__all__ = ["load", "load_polyblock", "load_fedavg", "build_info", "check_launch", "check_no_grad",
            "nvcc_flags", "sass_opcodes", "LIBRARIES", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -170,3 +172,15 @@ def check_launch(err: int, what: str) -> None:
     """Raise on a non-zero `cudaGetLastError()` code returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def check_no_grad(what: str, *xs) -> None:
+    """Raise if autograd would record a call of a kernel that has no
+    backward: grad mode is on and an input requires grad.  The kernel's
+    output would have no grad_fn, and a gradient through it would be
+    silently dropped."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, so it cannot run on inputs that "
+            "require grad (the JAX package cannot differentiate its Pallas kernel either); "
+            "use the config's 'ref' path, or call it under torch.no_grad()")

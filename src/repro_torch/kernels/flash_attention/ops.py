@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check_launch, load
+from .._build import check_launch, check_no_grad, load
 from .ref import flash_attention_plain
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
@@ -33,11 +33,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On the card q, k and v are contiguous, of one dtype (bf16 or f32) and on
     one device, with D in HEAD_DIMS, Hq a multiple of Hkv and Sq <= Sk; in
     bf16 they also start on a 16-byte boundary (the kernel reads them by
-    TMA); anything else raises."""
+    TMA); anything else raises, as does a call that autograd would record
+    (an input requires grad): the kernel has no backward."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    check_no_grad("flash_attention", q, k, v)
     if q.dtype not in _ENTRY:
         raise ValueError(f"flash_attention: dtype {q.dtype} not supported "
                          "(bfloat16 or float32)")

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check_launch, load
+from .._build import check_launch, check_no_grad, load
 from .ref import wkv6_plain
 
 __all__ = ["wkv6", "wkv6_plain", "HEAD_SIZES"]
@@ -25,11 +25,13 @@ HEAD_SIZES = (32, 64)
 def wkv6(r, k, v, w, u, state):
     """Same semantics as `wkv6_plain`.  On the card every argument is a
     contiguous float32 tensor on one device, with hs in HEAD_SIZES and
-    T >= 1; anything else raises."""
+    T >= 1; anything else raises, as does a call that autograd would
+    record (an input requires grad): the kernel has no backward."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
+    check_no_grad("wkv6", r, k, v, w, u, state)
     if r.ndim != 4:
         raise ValueError(f"wkv6: r must be (B, T, H, hs), got {tuple(r.shape)}")
     b, t, h, hs = r.shape

@@ -1,1 +1,2 @@
-"""Launchers of the model zoo: the serving driver (`serve.py`)."""
+"""Launchers of the model zoo: the serving driver (`serve.py`) and the
+training driver (`train.py`)."""

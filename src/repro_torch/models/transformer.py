@@ -18,7 +18,7 @@ attention group {"k": (repeats, B, C, Hkv, Dh), "v": ..., "pos":
 layer reads and writes its own slice in place (`decode_step`).
 
 Modes:
-  forward(..., mode="train")   -> (logits, aux)
+  forward(..., mode="train")   -> (logits, aux)     lm_loss trains on it
   forward(..., mode="prefill") -> (logits, aux, cache)  also seeds the caches
   decode_step(...)             -> (logits, cache)       one token, ring caches
 """
@@ -29,6 +29,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv6
@@ -44,6 +45,7 @@ __all__ = [
     "init_params",
     "params_from_jax",
     "forward",
+    "lm_loss",
     "decode_step",
     "init_cache",
     "clone_cache",
@@ -250,12 +252,19 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, positions, chunk: int, want_cache
     return x, cache
 
 
-def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headroom: int = 0):
+def _sublayer_train(cfg, kind: LayerKind, p, x, positions, chunk: int):
+    return _sublayer_full(cfg, kind, p, x, positions, chunk, False)[0]
+
+
+def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headroom: int = 0,
+            remat: bool = False):
     """mode: "train" -> (logits, aux); "prefill" -> (logits, aux, cache).
 
     batch["tokens"]: (B, S) integer tensor on the parameters' device.
     cache_headroom: extra decode slots to allocate in the prefill cache
-    (full-attention configs need >= the number of tokens to decode)."""
+    (full-attention configs need >= the number of tokens to decode).
+    remat (train mode): keep only each sublayer's input for the backward
+    pass and recompute the sublayer there (torch.utils.checkpoint)."""
     stages = _ported_plan(cfg)
     want_cache = mode == "prefill"
     h = params["embed"]["w"][batch["tokens"].long()]
@@ -268,6 +277,10 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
         got: list[list] = [[] for _ in st.pattern]
         for rep in range(st.repeats):
             for li, kind in enumerate(st.pattern):
+                if remat and not want_cache:
+                    h = checkpoint(_sublayer_train, cfg, kind, layers[li][rep], h, positions,
+                                   chunk, use_reentrant=False)
+                    continue
                 h, c = _sublayer_full(cfg, kind, layers[li][rep], h, positions, chunk,
                                       want_cache)
                 got[li].append(c)
@@ -278,6 +291,25 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
     if mode == "train":
         return logits, aux
     return logits, aux, _assemble_prefill_cache(cfg, stages, all_caches, s, cache_headroom)
+
+
+def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False):
+    """Selection-weighted causal-LM loss: the FL aggregation of eq. (34)
+    folded into the loss, so one backward pass gives the weighted FedAvg
+    gradient.  batch["fl_weights"] (B,) f32 carries alpha_n * beta_n * S_n
+    per device-cohort (1s outside the FL context; rows of weight 0 add
+    nothing).  Returns (loss, {"aux": aux}); aux is 0, as the port runs no
+    MoE layer."""
+    logits, aux = forward(cfg, params, batch, mode="train", remat=remat)
+    labels = batch["labels"].long()
+    w = batch.get("fl_weights")
+    if w is None:
+        w = torch.ones(labels.shape[0], dtype=torch.float32, device=logits.device)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]            # (B, S)
+    wsum = torch.clamp(w.sum(), min=1e-9)
+    loss = (nll.mean(dim=-1) * w).sum() / wsum
+    return loss + cfg.router_aux_coef * aux, {"aux": aux}
 
 
 # ==========================================================================

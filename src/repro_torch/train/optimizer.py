@@ -1,4 +1,5 @@
-"""Functional optimizers over parameter dicts — the two Table I uses.
+"""Functional optimizers over parameter trees (PyTorch copy of the JAX
+package's `train/optimizer.py`).
 
 The JAX package's GradientTransformation-style API, kept:
 
@@ -7,8 +8,17 @@ The JAX package's GradientTransformation-style API, kept:
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
-with the same arithmetic: sgd's update is -lr * g; adam keeps float32
-moments and its bias corrections 1 - b ** count in float32.
+with the same arithmetic.  A tree is a flat dict of tensors (the paper's
+models, `models/small.py`) or a model-zoo tree (`train/tree.py`: nested
+dicts with per-layer lists).  sgd's update is -lr * g; adam and adamw keep
+float32 moments and adam's bias corrections 1 - b ** count in float32;
+momentum, adamw and adafactor are the model zoo's.  sgd, momentum, adam
+and adamw are elementwise, so the per-layer lists change nothing.
+Adafactor's factored moments and its update clip are not: it takes each
+per-layer group as the JAX package's stacked leaf (`tree.jax_leaves`), so
+a per-layer 1-D leaf is a 2-D (repeats, D) leaf and is factored, and the
+clip's RMS runs over all the group's layers, as in the JAX package.  Its
+row and column moments are kept in the JAX tree's stacked layout.
 """
 from __future__ import annotations
 
@@ -17,19 +27,55 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-__all__ = ["Optimizer", "apply_updates", "sgd", "adam", "make_optimizer"]
+from .tree import jax_leaves, map_jax_leaves, stacked, tree_leaves, tree_map
 
-Params = dict[str, torch.Tensor]
+__all__ = [
+    "Optimizer",
+    "AdamState",
+    "AdafactorState",
+    "apply_updates",
+    "sgd",
+    "momentum",
+    "adam",
+    "adamw",
+    "adafactor",
+    "clip_by_global_norm",
+    "chain",
+    "global_norm",
+    "make_optimizer",
+]
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    init: Callable[[Params], Any]
-    update: Callable[[Params, Any, Params], tuple[Params, Any]]  # (grads, state, params)
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], tuple[Any, Any]]  # (grads, state, params)
 
 
-def apply_updates(params: Params, updates: Params) -> Params:
-    return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf in float32, summed leaf by
+    leaf in the JAX tree's order (a per-layer group layer by layer)."""
+    total = None
+    for _, leaf in jax_leaves(tree):
+        for x in (leaf if isinstance(leaf, list) else [leaf]):
+            s = torch.sum(torch.square(x.to(torch.float32)))
+            total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float, floor: float) -> torch.Tensor:
+    """min(1, max_norm / max(norm, floor)) on the device, with a true
+    division (a Python number over a tensor is reciprocal-then-multiply in
+    torch, which rounds twice)."""
+    return torch.clamp(torch.full_like(norm, max_norm) / torch.clamp(norm, min=floor), max=1.0)
+
+
+def _device(params) -> torch.device:
+    return tree_leaves(params)[0].device
 
 
 def sgd(lr: float) -> Optimizer:
@@ -37,40 +83,180 @@ def sgd(lr: float) -> Optimizer:
         return ()
 
     def update(grads, state, params=None):
-        return {k: -lr * g for k, g in grads.items()}, state
+        return tree_map(lambda g: -lr * g, grads), state
+
+    return Optimizer(init, update)
+
+
+def momentum(lr: float, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
+    def init(params):
+        return tree_map(torch.zeros_like, params)
+
+    def update(grads, state, params=None):
+        new_m = tree_map(lambda m, g: beta * m + g, state, grads)
+        if nesterov:
+            upd = tree_map(lambda m, g: -lr * (beta * m + g), new_m, grads)
+        else:
+            upd = tree_map(lambda m: -lr * m, new_m)
+        return upd, new_m
 
     return Optimizer(init, update)
 
 
 class AdamState(NamedTuple):
     count: torch.Tensor
-    mu: Params
-    nu: Params
+    mu: Any
+    nu: Any
+
+
+def _bias_corrections(count: torch.Tensor, b1: float, b2: float):
+    """1 - b ** count in float32 (the bases made on the count's device, so
+    no host-to-device copy)."""
+    c32 = count.to(torch.float32)
+    return (1 - torch.pow(torch.full_like(c32, b1), c32),
+            1 - torch.pow(torch.full_like(c32, b2), c32))
+
+
+def _adam_update(lr: float, b1: float, b2: float, eps: float, wd: float):
+    """The update of adam (wd = 0) and adamw, one leaf at a time."""
+
+    def update(grads, state, params=None):
+        count = state.count + 1
+        bc1, bc2 = _bias_corrections(count, b1, b2)
+
+        def leaf(g, m, v, p=None):
+            g = g.to(torch.float32)
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * (g * g)
+            u = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if wd:
+                u = u - lr * wd * p.to(torch.float32)
+            return u, m, v
+
+        rest = (state.mu, state.nu) + ((params,) if wd else ())
+        triples = tree_map(leaf, grads, *rest)
+        part = lambda i: tree_map(lambda t: t[i], triples)  # noqa: E731
+        return part(0), AdamState(count=count, mu=part(1), nu=part(2))
+
+    return update
 
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
     def init(params):
-        z = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
-        count = torch.zeros((), dtype=torch.int32,
-                            device=next(iter(params.values())).device)
-        return AdamState(count=count, mu=z, nu=dict(z))
+        z = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        count = torch.zeros((), dtype=torch.int32, device=_device(params))
+        return AdamState(count=count, mu=z, nu=z)
+
+    return Optimizer(init, _adam_update(lr, b1, b2, eps, 0.0))
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          wd: float = 0.01) -> Optimizer:
+    return Optimizer(adam(lr, b1, b2, eps).init, _adam_update(lr, b1, b2, eps, wd))
+
+
+class AdafactorState(NamedTuple):
+    count: torch.Tensor
+    row: Any   # per-leaf row second moments (or the full moment of a < 2-D leaf)
+    col: Any
+
+
+def adafactor(lr: float = 1e-2, eps: float = 1e-30, clip_threshold: float = 1.0,
+              decay: float = 0.8) -> Optimizer:
+    """Factored second-moment estimator (Shazeer & Stern 2018), memory
+    O(rows + cols) per matrix, over the JAX layout: a per-layer group is
+    one stacked leaf (module docstring)."""
+
+    def shape(leaf):
+        return ((len(leaf),) + tuple(leaf[0].shape) if isinstance(leaf, list)
+                else tuple(leaf.shape))
+
+    def device(leaf):
+        return (leaf[0] if isinstance(leaf, list) else leaf).device
+
+    def init(params):
+        def rows(_, leaf):
+            s = shape(leaf)
+            return torch.zeros(s[:-1] if len(s) >= 2 else s, dtype=torch.float32,
+                               device=device(leaf))
+
+        def cols(_, leaf):
+            s = shape(leaf)
+            return torch.zeros(s[:-2] + s[-1:] if len(s) >= 2 else (), dtype=torch.float32,
+                               device=device(leaf))
+
+        return AdafactorState(count=torch.zeros((), dtype=torch.int32, device=_device(params)),
+                              row=map_jax_leaves(rows, params, stack=True),
+                              col=map_jax_leaves(cols, params, stack=True))
 
     def update(grads, state, params=None):
         count = state.count + 1
-        g32 = {k: g.to(torch.float32) for k, g in grads.items()}
-        mu = {k: b1 * state.mu[k] + (1 - b1) * g for k, g in g32.items()}
-        nu = {k: b2 * state.nu[k] + (1 - b2) * (g * g) for k, g in g32.items()}
-        c32 = count.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=c32.device), c32)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c32.device), c32)
-        upd = {k: -lr * (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps) for k in mu}
-        return upd, AdamState(count=count, mu=mu, nu=nu)
+        beta = 1.0 - torch.pow(count.to(torch.float32), -decay)
+
+        def upd_leaf(g, r, c, factored):
+            g = g.to(torch.float32)
+            g2 = torch.square(g) + eps
+            if factored:
+                new_r = beta * r + (1 - beta) * g2.mean(dim=-1)
+                new_c = beta * c + (1 - beta) * g2.mean(dim=-2)
+                denom = new_r.mean(dim=-1, keepdim=True)
+                vr = new_r / torch.clamp(denom, min=eps)
+                u = (g / torch.sqrt(vr)[..., None]
+                     / torch.sqrt(torch.clamp(new_c, min=eps))[..., None, :])
+            else:
+                new_r = beta * r + (1 - beta) * g2
+                new_c = c
+                u = g / torch.sqrt(torch.clamp(new_r, min=eps))
+            rms = torch.sqrt(torch.mean(torch.square(u)))
+            scale = torch.clamp(rms / clip_threshold, min=1.0)
+            return -lr * u / scale, new_r, new_c
+
+        out = {}
+        p_leaves = jax_leaves(params if params is not None else grads)
+        for (path, g), (_, r), (_, c), (_, p) in zip(jax_leaves(grads), jax_leaves(state.row),
+                                                     jax_leaves(state.col), p_leaves):
+            out[path] = upd_leaf(stacked(g), r, c, len(shape(p)) >= 2)
+
+        def unstack(path, g):
+            u = out[path][0]
+            return list(u.unbind(0)) if isinstance(g, list) else u
+
+        upd = map_jax_leaves(unstack, grads)
+        row = map_jax_leaves(lambda path, _: out[path][1], state.row)
+        col = map_jax_leaves(lambda path, _: out[path][2], state.col)
+        return upd, AdafactorState(count=count, row=row, col=col)
+
+    return Optimizer(init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> Optimizer:
+    def init(params):
+        return ()
+
+    def update(grads, state, params=None):
+        scale = _clip_scale(global_norm(grads), max_norm, 1e-12)
+        return tree_map(lambda g: g * scale, grads), state
+
+    return Optimizer(init, update)
+
+
+def chain(*opts: Optimizer) -> Optimizer:
+    def init(params):
+        return tuple(o.init(params) for o in opts)
+
+    def update(grads, state, params=None):
+        new_states = []
+        for o, s in zip(opts, state):
+            grads, s = o.update(grads, s, params)
+            new_states.append(s)
+        return grads, tuple(new_states)
 
     return Optimizer(init, update)
 
 
 def make_optimizer(name: str, lr: float, **kw) -> Optimizer:
-    table = {"sgd": sgd, "adam": adam}
+    table = {"sgd": sgd, "momentum": momentum, "adam": adam, "adamw": adamw,
+             "adafactor": adafactor}
     try:
         return table[name](lr, **kw)
     except KeyError:

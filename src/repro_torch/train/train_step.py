@@ -1,0 +1,62 @@
+"""Training and serving steps of the model zoo (PyTorch copy of the JAX
+package's `train/train_step.py`).
+
+train_step folds the paper's eq.-(34) aggregation into the loss
+(`models.transformer.lm_loss`): each batch row is a device-cohort whose
+contribution is scaled by its Stackelberg selection weight
+(batch["fl_weights"]), so one backward pass gives the weighted FedAvg
+gradient.  The serving steps live in `serve_step.py` and are re-exported
+here, where the JAX package has them.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..models.transformer import lm_loss
+from .optimizer import Optimizer, _clip_scale, apply_updates, global_norm
+from .serve_step import make_prefill_step, make_serve_step
+from .tree import tree_leaves, tree_map, tree_unflatten
+
+__all__ = ["make_train_step", "make_prefill_step", "make_serve_step"]
+
+
+def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
+                    clip_norm: float = 1.0):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): the loss and its gradient by autograd, the gradient's global
+    norm, the clip to `clip_norm` (none if 0), the optimizer update.  The
+    metrics {"loss", "grad_norm", "aux"} stay on the parameters' device.
+    remat=True recomputes each sublayer in the backward pass.
+
+    The port's K4 and K5 kernels have no backward, nor do the JAX
+    package's Pallas kernels, so a config with attn_impl or rwkv_wkv_impl
+    "pallas" is refused: training runs the "ref" paths."""
+    for field, kernel in (("attn_impl", "flash_attention (K4)"),
+                          ("rwkv_wkv_impl", "rwkv6_wkv (K5)")):
+        if getattr(cfg, field) == "pallas":
+            raise NotImplementedError(
+                f"make_train_step: {cfg.name} has {field}='pallas', but the {kernel} kernel "
+                "has no backward kernel, and the JAX package cannot differentiate its "
+                f"Pallas kernels either; train with {field}='ref'")
+
+    def train_step(params, opt_state, batch):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, extras = lm_loss(cfg, tree_unflatten(params, leaves), batch, remat=remat)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
+                                        for p, g in zip(leaves, grads)])
+        del leaves
+        gnorm = global_norm(grads)
+        if clip_norm > 0:
+            # The JAX package's bf16 gradient times its f32 scale is f32.
+            scale = _clip_scale(gnorm, clip_norm, 1e-9)
+            grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        del grads
+        params = apply_updates(params, updates)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "aux": extras["aux"]}
+        return params, opt_state, metrics
+
+    return train_step

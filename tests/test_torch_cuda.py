@@ -7,6 +7,7 @@ imports no JAX, so it runs on a GPU machine without it:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -31,7 +32,12 @@ from repro_torch.kernels.polyblock_fused.ops import (LANES, coop_lanes, polybloc
 from repro_torch.kernels.polyblock_project.ops import (LANES as PROJECT_LANES,
                                                        polyblock_project, project_bisect,
                                                        project_lanes)
+from repro_torch.data.pipeline import synthetic_lm_stream
 from repro_torch.launch.serve import serve_loop
+from repro_torch.launch.train import train_loop
+from repro_torch.train.optimizer import adamw
+from repro_torch.train.train_step import make_train_step
+from repro_torch.train.tree import tree_map
 from repro_torch.models.transformer import forward, init_params
 
 pytestmark = pytest.mark.cuda
@@ -220,6 +226,14 @@ SMALL = dict(rounds=6, n_devices=8, n_subchannels=3, n_samples=96, batch=16,
              local_steps=2)
 
 
+def _k3_launches() -> int:
+    """K3's launches through either entry: one aggregation
+    (`fedavg_aggregate_leaves`: the loop engine, the hierarchy's global
+    tier) or every cell of a group at once (`fedavg_aggregate_leaves_batched`:
+    the scan and async engines, groups of one included)."""
+    return fedavg_aggregate_leaves.launches + fedavg_aggregate_leaves_batched.launches
+
+
 @pytest.mark.parametrize("engine,aggregation", [("loop", "sync"), ("scan", "sync"),
                                                 ("async", "async"),
                                                 ("async", "async_full")])
@@ -229,12 +243,12 @@ def test_simulation_traces_match_the_cpu(dev, engine, aggregation):
     leader plane's latencies agree to 1e-6, and float32 training on the
     card drifts from the CPU's only by summation order (1e-4)."""
     cfg = SimConfig(**SMALL, aggregation=aggregation, scenario="churn")
-    before = fedavg_aggregate_leaves.launches
+    before = _k3_launches()
     got = run_simulation(cfg, engine=engine, device=dev)
     # K3 once per aggregation on every engine: every round with a
     # transmission (loop, scan), every commit event (async, one per round).
     aggregations = cfg.rounds if engine == "async" else int(got.tx_trace.any(1).sum())
-    assert fedavg_aggregate_leaves.launches - before == aggregations > 0
+    assert _k3_launches() - before == aggregations > 0
     want = run_simulation(cfg, engine=engine, device="cpu")
     np.testing.assert_array_equal(got.tx_trace, want.tx_trace)
     np.testing.assert_array_equal(got.age_trace, want.age_trace)
@@ -271,14 +285,14 @@ def test_hierarchy_traces_match_the_cpu(dev, engine):
     per event."""
     cfg = HierSimConfig(**HIER_SMALL, aggregation="async" if engine == "async" else "sync",
                         global_aggregation="async" if engine == "async" else "sync")
-    k1, k3 = polyblock_solve_fused.launches, fedavg_aggregate_leaves.launches
+    k1, k3 = polyblock_solve_fused.launches, _k3_launches()
     got = run_hierarchical(cfg, engine=engine, device=dev)
     assert polyblock_solve_fused.launches - k1 == 1
     trained = got["tx"].any(axis=2)
     want_k3 = {"loop": trained.sum() + trained.any(axis=1).sum(),
                "scan": trained.sum() + cfg.rounds,
                "async": cfg.rounds * (cfg.n_cells + 1)}[engine]
-    assert fedavg_aggregate_leaves.launches - k3 == want_k3
+    assert _k3_launches() - k3 == want_k3
     want = run_hierarchical(cfg, engine=engine, device="cpu")
     for name in ("tx", "age", "committed", "cell_committed"):
         if name in want:
@@ -305,10 +319,10 @@ def test_sweep_on_the_card_matches_the_cpu(dev):
     spec = SweepSpec(name="t", ds="alg3", aggregation=("sync", "async"), cell_counts=(1, 2),
                      rounds=6, n_devices=8, n_subchannels=4,
                      overrides={"n_samples": 96, "batch": 16, "local_steps": 2})
-    k1, k3 = polyblock_solve_fused.launches, fedavg_aggregate_leaves.launches
+    k1, k3 = polyblock_solve_fused.launches, _k3_launches()
     got = run_sweep(spec, device=dev, write=False)
     assert polyblock_solve_fused.launches - k1 == 2
-    assert fedavg_aggregate_leaves.launches - k3 > 0
+    assert _k3_launches() - k3 > 0
     assert got.record["env"]["torch_device"].startswith("cuda")
     want = run_sweep(spec, device="cpu", write=False)
     for g, w in zip(got.histories, want.histories):
@@ -329,9 +343,9 @@ def test_service_on_the_card_chains_and_matches_the_cpu(dev):
         return SustainedService(ServiceConfig(sim=sim, segment_events=events,
                                               eval_every_events=2), device=device)
 
-    k1, k3 = polyblock_solve_fused.launches, fedavg_aggregate_leaves.launches
+    k1, k3 = polyblock_solve_fused.launches, _k3_launches()
     one = service(12, dev).run_segment()
-    assert (polyblock_solve_fused.launches - k1, fedavg_aggregate_leaves.launches - k3) == (1, 12)
+    assert (polyblock_solve_fused.launches - k1, _k3_launches() - k3) == (1, 12)
     chained = service(4, dev)
     parts = [chained.run_segment() for _ in range(3)]
     for name, v in one.items():
@@ -688,3 +702,77 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def test_llm_wrappers_refuse_inputs_that_require_grad(dev):
+    """K4 and K5 have no backward: on the card, a call that autograd would
+    record raises instead of returning an output with no grad_fn; under
+    no_grad the same inputs run."""
+    q = torch.randn(1, 16, 4, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn(1, 16, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="flash_attention: the CUDA kernel has no backward"):
+        flash_attention(q, kv, kv, causal=True)
+    r = torch.randn(2, 3, 4, 32, device=dev)
+    u, s0 = torch.randn(4, 32, device=dev, requires_grad=True), torch.randn(2, 4, 32, 32,
+                                                                           device=dev)
+    with pytest.raises(RuntimeError, match="wkv6: the CUDA kernel has no backward"):
+        wkv6(r, r, r, torch.sigmoid(r), u, s0)
+    with torch.no_grad():
+        flash_attention(q, kv, kv, causal=True)
+        wkv6(r, r, r, torch.sigmoid(r), u, s0)
+
+
+def _train_params(arch, dev):
+    """Seeded weights of `arch` on `dev`; rwkv6-7b-smoke's held in f32, where
+    its gradient has digits (tests/test_torch_train.py's docstring)."""
+    cfg = get_config(arch)
+    params = _to(init_params(cfg, torch.Generator().manual_seed(0)), dev)
+    if arch.startswith("rwkv6"):
+        params = tree_map(lambda t: t.float(), params)
+    return cfg, params
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b-smoke", "rwkv6-7b-smoke"])
+def test_train_steps_on_the_card_match_the_cpu(dev, arch):
+    """Three AdamW make_train_step steps on the card against device="cpu"
+    from the same weights and batches: loss within 5e-3, grad norm within
+    2e-2 relative, at every step."""
+    cfg, params = _train_params(arch, dev)
+    host = _to(params, "cpu")
+    opt = adamw(3e-4)
+    step = make_train_step(cfg, opt, remat=False)
+    state, hstate = opt.init(params), opt.init(host)
+    stream = synthetic_lm_stream(0, 4, 64, cfg.vocab)
+    w = torch.tensor([1.0, 0.0, 2.5, 0.5])
+    for _ in range(3):
+        b = next(stream)
+        batch = {"tokens": torch.from_numpy(b["tokens"]), "labels": torch.from_numpy(b["labels"]),
+                 "fl_weights": w}
+        params, state, m = step(params, state, {k: v.to(dev) for k, v in batch.items()})
+        host, hstate, hm = step(host, hstate, batch)
+        assert abs(float(m["loss"]) - float(hm["loss"])) <= 5e-3
+        assert abs(float(m["grad_norm"]) - float(hm["grad_norm"])) <= 2e-2 * float(hm["grad_norm"])
+
+
+def _syncs(fn) -> list[str]:
+    """The synchronizing calls torch's sync debug mode reports in fn() (it
+    also warns, once per process, that the mode is a prototype)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def test_train_loop_reads_the_host_once_per_step(dev):
+    """train_loop(fl=True) on the card: a step's one synchronizing call is
+    its metrics read (the batch goes over from pinned memory without
+    waiting)."""
+    train_loop("qwen2-7b-smoke", steps=1, fl=True, device=dev)        # warm-up
+    syncs = _syncs(lambda: train_loop("qwen2-7b-smoke", steps=3, fl=True, device=dev))
+    assert len(syncs) == 3 and len(set(syncs)) == 1, syncs
+    assert "launch/train.py" in syncs[0], syncs

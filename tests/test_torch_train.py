@@ -1,0 +1,584 @@
+"""The model zoo's training slice in the PyTorch port against the JAX
+package, on the CPU: the token stream and the Stackelberg cohort weights
+(bitwise), the optimizers, `lm_loss` and its gradients, `make_train_step`
+and `train_loop` traces, and checkpoints both ways, on qwen2-7b-smoke and
+rwkv6-7b-smoke with the JAX package's `init_params` draws
+(`params_from_jax`).
+
+Tolerances, with the gaps measured on an x86-64 CPU, one thread:
+  * optimizers, f32 tree, three updates: rtol 1e-6 and atol 1e-9 on the
+    updates and the states (max rel: adam 1.2e-7, adamw 1.5e-7, clip+sgd
+    2.4e-7, sgd and momentum 0), Adafactor rtol 1e-5 (3.9e-7);
+  * lm_loss: 5e-3 absolute (qwen2 2.6e-4; rwkv6 bf16 1.0e-3, f32 4.8e-7);
+  * global grad norm: 2e-2 relative (qwen2 3.9e-5; rwkv6 f32 2.2e-4);
+  * each gradient leaf, relative Frobenius error: 5e-2 (qwen2 1.8e-2;
+    rwkv6 f32 2.2e-4);
+  * the 3-step traces of make_train_step and train_loop(fl=True), the
+    same gates on every step (loss: qwen2 2.5e-4, rwkv6 f32 9.5e-7; grad
+    norm: qwen2 3.8e-4, rwkv6 f32 3.3e-5).
+
+qwen2-7b-smoke runs on the JAX draws as they are, bf16 weights.  rwkv6's
+gradient at these draws is ill-conditioned in bf16: the per-head RMS
+normalisation after the WKV divides rank-one outputs whose scale is a dot
+product that nearly cancels, so the JAX package's own gradient moves by
+more than half its norm when the same weights are held in f32
+(`test_rwkv6_bf16_gradient_has_no_digits_at_the_gate`: global norm 47.6 in
+bf16 against 1548 in f32, every leaf but five off by more than 0.88).  The
+port's bf16 gradient is off the JAX bf16 one by up to 0.48 (u), and by 0.11
+in the global norm, inside that spread.  So rwkv6's gradients and traces
+are compared on the same draws held in f32 in both packages (`_params`),
+where the comparison has digits; its bf16 loss is held at 5e-3 too.
+"""
+from _torch_oracle import f32, jax_llm_params  # noqa: I001  (alias first)
+
+import dataclasses
+import importlib.util
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import restore_checkpoint as jax_restore_checkpoint
+from repro.checkpoint import save_checkpoint as jax_save_checkpoint
+from repro.configs import get_config as jax_get_config
+from repro.core import RoundPolicy as JaxPolicy
+from repro.core import WirelessConfig as JaxWireless
+from repro.core import init_aou as jax_init_aou
+from repro.core import sample_topology as jax_sample_topology
+from repro.data.pipeline import synthetic_lm_stream as jax_lm_stream
+from repro.launch import train as JL
+from repro.models import transformer as JT
+from repro.train import optimizer as JO
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.configs import get_config
+from repro_torch.core import RoundPolicy, WirelessConfig, init_aou
+from repro_torch.core.wireless import sample_topology
+from repro_torch.data.pipeline import synthetic_lm_stream
+from repro_torch.kernels._build import check_no_grad
+from repro_torch.launch import train as TL
+from repro_torch.models import transformer as TT
+from repro_torch.train import optimizer as TO
+from repro_torch.train.train_step import make_train_step
+from repro_torch.train.tree import jax_leaves, tree_leaves, tree_unflatten
+
+ARCHS = ["qwen2-7b-smoke", "rwkv6-7b-smoke"]
+F32_ARCHS = ("rwkv6-7b-smoke",)      # compared on f32 copies of the draws (docstring)
+LOSS_ATOL, GNORM_RTOL, LEAF_RTOL = 5e-3, 2e-2, 5e-2
+OPT_RTOL, OPT_ATOL, ADAFACTOR_RTOL = 1e-6, 1e-9, 1e-5
+SEED = 3
+STEPS, BATCH, SEQ = 3, 8, 128        # train_loop's defaults, 3 steps
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small tensors: beside other
+    test workers, torch's default (one thread per core each) oversubscribes
+    the cores and slows every worker several-fold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# --------------------------------------------------------------------------
+# helpers
+# --------------------------------------------------------------------------
+
+def _jpath(path) -> tuple[str, ...]:
+    """A jax.tree_util key path as the strings of the checkpoint's keys."""
+    out = []
+    for k in path:
+        for attr in ("key", "idx", "name"):
+            if hasattr(k, attr):
+                out.append(str(getattr(k, attr)))
+                break
+    return tuple(out)
+
+
+def _port_flat(tree) -> list[tuple[tuple[str, ...], np.ndarray]]:
+    return [(p, f32(torch.stack(v) if isinstance(v, list) else v)) for p, v in jax_leaves(tree)]
+
+
+def _jax_flat(tree) -> list[tuple[tuple[str, ...], np.ndarray]]:
+    return [(_jpath(p), f32(v)) for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+def _assert_trees_close(got, want, rtol, atol, what) -> float:
+    """Same JAX-layout paths and shapes, values within rtol/atol; returns
+    the largest relative gap."""
+    g, w = _port_flat(got), _jax_flat(want)
+    assert [p for p, _ in g] == [p for p, _ in w], what
+    worst = 0.0
+    for (p, a), (_, b) in zip(g, w):
+        assert a.shape == b.shape, (what, p)
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=f"{what} {p}")
+        worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30),
+                                        initial=0.0)))
+    return worst
+
+
+def _params(arch):
+    """(jax cfg, port cfg, numpy draws): the JAX package's init_params at
+    SEED, held in f32 for the archs of F32_ARCHS."""
+    jcfg, tcfg = jax_get_config(arch), get_config(arch)
+    p = jax_llm_params(jcfg, SEED)
+    if arch in F32_ARCHS:
+        p = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), p)
+    return jcfg, tcfg, p
+
+
+def _lm_batch(vocab, b=4, s=32, w=(1.5, 0.0, 2.0, 0.5), seed=0):
+    toks = np.random.default_rng(seed).integers(0, vocab, (b, s + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:], "fl_weights": np.asarray(w, np.float32)}
+
+
+def _port_value_and_grad(cfg, params, batch, remat=False):
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, _ = TT.lm_loss(cfg, tree_unflatten(params, leaves), tb, remat=remat)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), tree_unflatten(params, grads)
+
+
+_JAX_GRADS: dict = {}
+
+
+def _jax_value_and_grad(jcfg, p_np, batch):
+    key = (jcfg.name, str(jax.tree_util.tree_leaves(p_np)[0].dtype))
+    if key not in _JAX_GRADS:
+        fn = jax.jit(jax.value_and_grad(lambda p, b: JT.lm_loss(jcfg, p, b), has_aux=True))
+        (loss, _), grads = fn(jax.tree_util.tree_map(jnp.asarray, p_np),
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+        _JAX_GRADS[key] = (float(loss), grads)
+    return _JAX_GRADS[key]
+
+
+def _gnorm(flat) -> float:
+    return float(np.sqrt(sum(float((a.astype(np.float64) ** 2).sum()) for _, a in flat)))
+
+
+# --------------------------------------------------------------------------
+# the host side: stream and Stackelberg weights, bitwise
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batch,seq,vocab", [(8, 128, 1024), (3, 17, 152064)])
+def test_lm_stream_is_bitwise_jax(batch, seq, vocab):
+    got, want = synthetic_lm_stream(7, batch, seq, vocab), jax_lm_stream(7, batch, seq, vocab)
+    for _ in range(3):
+        a, b = next(got), next(want)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+
+
+def test_fl_round_weights_are_bitwise_jax():
+    """8 cohorts, 5 rounds, as train_loop(fl=True) draws them."""
+    n = 8
+    out = []
+    for wcfg_cls, policy, topo_fn, aou_fn, fn in (
+            (WirelessConfig, RoundPolicy(), sample_topology, init_aou, TL.fl_round_weights),
+            (JaxWireless, JaxPolicy(), jax_sample_topology, jax_init_aou, JL.fl_round_weights)):
+        rng = np.random.default_rng(0)
+        wcfg = wcfg_cls(n_devices=n, n_subchannels=max(2, n // 4))
+        state = {"topo": topo_fn(rng, wcfg), "aou": aou_fn(n)}
+        beta = rng.integers(10, 50, n).astype(np.float64)
+        rounds = []
+        for _ in range(5):
+            w, plan, lat = fn(state, beta, wcfg, rng, policy)
+            rounds.append((w, lat, plan.transmitted, state["aou"].age))
+        out.append(rounds)
+    for (w, lat, tx, age), (jw, jlat, jtx, jage) in zip(*out):
+        assert np.array_equal(w, jw) and w.dtype == jw.dtype
+        assert lat == jlat
+        assert np.array_equal(tx, jtx) and np.array_equal(age, jage)
+    assert any(r[0].sum() > 0 for r in out[0])
+
+
+# --------------------------------------------------------------------------
+# optimizers
+# --------------------------------------------------------------------------
+
+def _opt_trees(seed):
+    """A port tree (nested dicts, 1-, 2- and 3-D leaves, one per-layer list
+    of 3 layers) and the same values in the JAX layout (the list stacked)."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    layers = [{"g": r(6), "w": r(5, 4), "mu": {"m": r(2, 3, 4)}} for _ in range(3)]
+    port_np = {"embed": {"w": r(9, 6)}, "final": {"g": r(6), "b": r(4, 3, 2)},
+               "s0_l0": layers}
+    jax_np = dict(port_np, s0_l0=jax.tree_util.tree_map(lambda *xs: np.stack(xs), *layers))
+    return (jax.tree_util.tree_map(torch.from_numpy, port_np),
+            jax.tree_util.tree_map(jnp.asarray, jax_np))
+
+
+OPTIMIZERS = {
+    "sgd": lambda m: m.sgd(0.1),
+    "momentum": lambda m: m.momentum(0.1, beta=0.9),
+    "nesterov": lambda m: m.momentum(0.1, beta=0.9, nesterov=True),
+    "adam": lambda m: m.adam(1e-2),
+    "adamw": lambda m: m.adamw(1e-2, wd=0.1),
+    "adafactor": lambda m: m.adafactor(1e-2),
+    # The chain holds the clip with an elementwise-linear step: after the
+    # clip, adamw's second update has an element whose first moment nearly
+    # cancels (4.2e-5 of the ~1e-2 updates), where the global norm's last
+    # bit (its summation order differs from XLA's) moves it by 1.2e-9.
+    "clip+sgd": lambda m: m.chain(m.clip_by_global_norm(1.0), m.sgd(0.1)),
+    "make_optimizer(adafactor)": lambda m: m.make_optimizer("adafactor", 3e-3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_optimizer_matches_jax(name):
+    """Three updates with fresh gradients each: updates and states within
+    rtol 1e-6 (Adafactor 1e-5), leaf for leaf in the JAX layout."""
+    rtol = ADAFACTOR_RTOL if "adafactor" in name else OPT_RTOL
+    params, jparams = _opt_trees(0)
+    opt, jopt = OPTIMIZERS[name](TO), OPTIMIZERS[name](JO)
+    state, jstate = opt.init(params), jopt.init(jparams)
+    _assert_trees_close(state, jstate, rtol, OPT_ATOL, f"{name} init")
+    for i in range(3):
+        grads, jgrads = _opt_trees(10 + i)
+        upd, state = opt.update(grads, state, params)
+        jupd, jstate = jopt.update(jgrads, jstate, jparams)
+        _assert_trees_close(upd, jupd, rtol, OPT_ATOL, f"{name} update {i}")
+        _assert_trees_close(state, jstate, rtol, OPT_ATOL, f"{name} state {i}")
+        params, jparams = TO.apply_updates(params, upd), JO.apply_updates(jparams, jupd)
+    _assert_trees_close(params, jparams, rtol, OPT_ATOL, f"{name} params")
+
+
+def test_global_norm_matches_jax():
+    tree, jtree = _opt_trees(4)
+    got, want = float(TO.global_norm(tree)), float(JO.global_norm(jtree))
+    assert got == pytest.approx(want, rel=OPT_RTOL)
+
+
+def test_adafactor_takes_a_layer_group_as_one_stacked_leaf():
+    """The per-layer list's 1-D leaves are factored as one (3, D) leaf and
+    its update is clipped over all three layers, as the JAX tree does; the
+    same layers handed over one at a time (a 1-D leaf each: not factored,
+    clipped per layer) give another update, so this fails if the port
+    treated the list per layer."""
+    rng = np.random.default_rng(1)
+    scale = np.asarray([1e-3, 1.0, 30.0], np.float32)[:, None]
+    p = (rng.standard_normal((3, 8)) * scale).astype(np.float32)
+    g = (rng.standard_normal((3, 8)) * scale[::-1]).astype(np.float32)
+    port = lambda a: {"s0_l0": [{"g": torch.from_numpy(row.copy())} for row in a]}  # noqa: E731
+    opt, jopt = TO.adafactor(1e-2), JO.adafactor(1e-2)
+    upd, state = opt.update(port(g), opt.init(port(p)), port(p))
+    jp = {"s0_l0": {"g": jnp.asarray(p)}}
+    jupd, jstate = jopt.update({"s0_l0": {"g": jnp.asarray(g)}}, jopt.init(jp), jp)
+    _assert_trees_close(upd, jupd, ADAFACTOR_RTOL, OPT_ATOL, "stacked update")
+    _assert_trees_close(state, jstate, ADAFACTOR_RTOL, OPT_ATOL, "stacked state")
+    assert tuple(state.col["s0_l0"]["g"].shape) == (8,)      # factored: a column moment
+    per_layer = np.stack([np.asarray(jopt.update({"g": jnp.asarray(g[i])},
+                                                 jopt.init({"g": jnp.asarray(p[i])}),
+                                                 {"g": jnp.asarray(p[i])})[0]["g"])
+                          for i in range(3)])
+    assert not np.allclose(np.stack([f32(u["g"]) for u in upd["s0_l0"]]), per_layer,
+                           rtol=1e-2)
+
+
+def test_flat_dict_adam_is_unchanged():
+    """The paper models' flat dicts: adam's arithmetic, expression for
+    expression as the FL learning plane has always run it (bias
+    corrections 1 - b ** count in f32), three steps bitwise."""
+    rng = np.random.default_rng(2)
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for k, s in (("fc1.weight", (5, 4)), ("fc1.bias", (5,)))}
+    opt = TO.adam(1e-3)
+    state = opt.init(params)
+    mu = {k: torch.zeros_like(p) for k, p in params.items()}
+    nu = {k: torch.zeros_like(p) for k, p in params.items()}
+    want = dict(params)
+    for i in range(3):
+        grads = {k: torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(np.float32))
+                 for k, p in params.items()}
+        upd, state = opt.update(grads, state, params)
+        params = TO.apply_updates(params, upd)
+        c = torch.tensor(i + 1, dtype=torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(0.9, dtype=torch.float32), c)
+        bc2 = 1 - torch.pow(torch.tensor(0.999, dtype=torch.float32), c)
+        for k, g in grads.items():
+            mu[k] = 0.9 * mu[k] + (1 - 0.9) * g
+            nu[k] = 0.999 * nu[k] + (1 - 0.999) * (g * g)
+            want[k] = (want[k] + -1e-3 * (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + 1e-8)
+                       ).to(want[k].dtype)
+        assert list(params) == list(want)
+        for k in params:
+            assert torch.equal(params[k], want[k]), k
+    assert state.count.dtype == torch.int32 and int(state.count) == 3
+
+
+# --------------------------------------------------------------------------
+# lm_loss and its gradients
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_loss_and_grads_match_jax(arch):
+    """Weighted NLL (fl_weights with a zero) and its gradient against
+    jax.value_and_grad on the same draws: loss 5e-3 absolute, global grad
+    norm 2e-2 relative, every leaf's relative Frobenius error <= 5e-2."""
+    jcfg, tcfg, p_np = _params(arch)
+    batch = _lm_batch(jcfg.vocab)
+    jloss, jgrads = _jax_value_and_grad(jcfg, p_np, batch)
+    loss, grads = _port_value_and_grad(tcfg, TT.params_from_jax(tcfg, p_np), batch)
+    assert abs(loss - jloss) <= LOSS_ATOL
+    g, w = _port_flat(grads), _jax_flat(jgrads)
+    assert [p for p, _ in g] == [p for p, _ in w]
+    assert abs(_gnorm(g) - _gnorm(w)) <= GNORM_RTOL * _gnorm(w)
+    for (path, a), (_, b) in zip(g, w):
+        assert a.shape == b.shape and a.dtype == b.dtype, path
+        assert np.linalg.norm(a - b) <= LEAF_RTOL * np.linalg.norm(b), path
+
+
+def test_rwkv6_bf16_loss_matches_jax():
+    jcfg, tcfg = jax_get_config("rwkv6-7b-smoke"), get_config("rwkv6-7b-smoke")
+    p_np = jax_llm_params(jcfg, SEED)
+    batch = _lm_batch(jcfg.vocab)
+    jloss = float(JT.lm_loss(jcfg, jax.tree_util.tree_map(jnp.asarray, p_np),
+                             {k: jnp.asarray(v) for k, v in batch.items()})[0])
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss = float(TT.lm_loss(tcfg, TT.params_from_jax(tcfg, p_np), tb)[0])
+    assert abs(loss - jloss) <= LOSS_ATOL
+
+
+def test_rwkv6_bf16_gradient_has_no_digits_at_the_gate():
+    """Why rwkv6 is compared in f32 (module docstring): the JAX package's
+    own gradient at its bf16 draws and at the same draws held in f32 differ
+    by far more than the 5e-2 gate, in the global norm and in most leaves."""
+    jcfg = jax_get_config("rwkv6-7b-smoke")
+    bf16 = jax_llm_params(jcfg, SEED)
+    batch = _lm_batch(jcfg.vocab)
+    lo = _jax_flat(_jax_value_and_grad(jcfg, bf16, batch)[1])
+    hi = _jax_flat(_jax_value_and_grad(
+        jcfg, jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), bf16), batch)[1])
+    assert abs(_gnorm(lo) - _gnorm(hi)) > 0.5 * _gnorm(hi)
+    off = [p for (p, a), (_, b) in zip(lo, hi) if np.linalg.norm(a - b) > 0.5 * np.linalg.norm(b)]
+    assert len(off) > len(lo) // 2, off
+
+
+def test_fl_weights_change_the_loss_and_zero_weights_are_guarded():
+    """Counterparts of tests/test_models_smoke.py's eq.-34 checks."""
+    jcfg, tcfg, p_np = _params("qwen2-7b-smoke")
+    params = TT.params_from_jax(tcfg, p_np)
+    batch = _lm_batch(jcfg.vocab, w=(1.0, 1.0, 1.0, 1.0))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    l1 = float(TT.lm_loss(tcfg, params, tb)[0])
+    l2 = float(TT.lm_loss(tcfg, params, dict(tb, fl_weights=torch.tensor([1.0, 0, 0, 0])))[0])
+    assert abs(l1 - l2) > 1e-6
+    l0 = TT.lm_loss(tcfg, params, dict(tb, fl_weights=torch.zeros(4)))[0]
+    assert bool(torch.isfinite(l0))
+    l_none = float(TT.lm_loss(tcfg, params, {k: tb[k] for k in ("tokens", "labels")})[0])
+    assert l_none == l1
+
+
+# --------------------------------------------------------------------------
+# make_train_step and train_loop against the JAX package's train_loop
+# --------------------------------------------------------------------------
+
+_JAX_LOOP: dict = {}
+
+
+def _jax_train_loop(arch, monkeypatch):
+    """The JAX package's train_loop(arch, steps=3, fl=True) on `_params`'s
+    draws: its returned losses, and the loss and grad norm of every step as
+    its jitted step computed them (recorded by jax.debug.callback)."""
+    if arch not in _JAX_LOOP:
+        _, _, p_np = _params(arch)
+        seen = []
+        real_step = JL.make_train_step
+
+        def recording_step(cfg, opt, ctx, remat):
+            step = real_step(cfg, opt, ctx, remat=remat)
+
+            def wrapped(params, opt_state, batch):
+                out = step(params, opt_state, batch)
+                jax.debug.callback(lambda l, g: seen.append((float(l), float(g))),
+                                   out[2]["loss"], out[2]["grad_norm"])
+                return out
+            return wrapped
+
+        with monkeypatch.context() as m:
+            m.setattr(JL, "make_train_step", recording_step)
+            m.setattr(JL, "init_params",
+                      lambda cfg, key: jax.tree_util.tree_map(jnp.asarray, p_np))
+            losses = JL.train_loop(arch, steps=STEPS, fl=True)
+        _JAX_LOOP[arch] = (losses, seen)
+    return _JAX_LOOP[arch]
+
+
+def _loop_batches(cfg, steps=STEPS, batch=BATCH, seq=SEQ, seed=0, n=8):
+    """The batches train_loop(fl=True) trains on (its stream and weights)."""
+    rng = np.random.default_rng(seed)
+    stream = synthetic_lm_stream(seed, batch, seq, cfg.vocab)
+    wcfg = WirelessConfig(n_devices=n, n_subchannels=max(2, n // 4))
+    state = {"topo": sample_topology(rng, wcfg), "aou": init_aou(n)}
+    beta = rng.integers(10, 50, n).astype(np.float64)
+    out = []
+    for _ in range(steps):
+        b = next(stream)
+        w = TL.fl_round_weights(state, beta, wcfg, rng, RoundPolicy())[0]
+        row_w = w[np.arange(batch) % n]
+        if row_w.sum() == 0:
+            row_w = np.ones(batch)
+        out.append({"tokens": torch.from_numpy(b["tokens"]),
+                    "labels": torch.from_numpy(b["labels"]),
+                    "fl_weights": torch.from_numpy(row_w.astype(np.float32))})
+    return out
+
+
+def _run_steps(tcfg, params, batches, opt=None, remat=False):
+    opt = opt or TO.adamw(3e-4)
+    step = make_train_step(tcfg, opt, remat=remat)
+    state = opt.init(params)
+    trace = []
+    for b in batches:
+        params, state, m = step(params, state, b)
+        trace.append((float(m["loss"]), float(m["grad_norm"])))
+        assert float(m["aux"]) == 0.0
+    return params, state, trace
+
+
+def _assert_trace_close(got, want):
+    for (loss, gn), (jloss, jgn) in zip(got, want, strict=True):
+        assert abs(loss - jloss) <= LOSS_ATOL
+        assert abs(gn - jgn) <= GNORM_RTOL * jgn
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_make_train_step_matches_jax(arch, monkeypatch):
+    """Three AdamW steps on train_loop(fl=True)'s batches: the loss and
+    grad-norm traces against the JAX package's jitted step; remat=True is
+    bitwise remat=False in the port."""
+    _, tcfg, p_np = _params(arch)
+    _, want = _jax_train_loop(arch, monkeypatch)
+    batches = _loop_batches(tcfg)
+    params, state, trace = _run_steps(tcfg, TT.params_from_jax(tcfg, p_np), batches)
+    _assert_trace_close(trace, want)
+    rparams, rstate, rtrace = _run_steps(tcfg, TT.params_from_jax(tcfg, p_np), batches,
+                                         remat=True)
+    assert rtrace == trace
+    for a, b in zip(tree_leaves(params) + tree_leaves(state.mu) + tree_leaves(state.nu),
+                    tree_leaves(rparams) + tree_leaves(rstate.mu) + tree_leaves(rstate.nu)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_loop_matches_jax(arch, monkeypatch, capsys):
+    """train_loop(steps=3, fl=True) on the CPU against the JAX package's:
+    losses and grad norms of every step; the printed log keeps the JAX
+    package's lines."""
+    _, tcfg, p_np = _params(arch)
+    jlosses, want = _jax_train_loop(arch, monkeypatch)
+    capsys.readouterr()
+    res = TL.train_loop(arch, steps=STEPS, fl=True, device="cpu",
+                        params=TT.params_from_jax(tcfg, p_np))
+    log = capsys.readouterr().out
+    assert [l for l, _ in want] == jlosses
+    _assert_trace_close(list(zip(res.losses, res.grad_norms)), want)
+    assert len(res.step_s) == STEPS and res.n_params == TT.param_count(
+        TT.params_from_jax(tcfg, p_np))
+    assert len(re.findall(r"step +\d+ loss [\d.]+ gnorm [\d.]+ round_latency", log)) == STEPS
+    assert res.wireless_latency_s > 0
+
+
+def test_train_loop_runs_on_the_cpu_and_needs_a_card_by_default(monkeypatch):
+    res = TL.train_loop("qwen2-7b-smoke", steps=2, batch=2, seq=16, device="cpu")
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TL.train_loop("qwen2-7b-smoke", steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TL.main(["--steps", "1"])
+
+
+@pytest.mark.parametrize("field", ["attn_impl", "rwkv_wkv_impl"])
+def test_pallas_impls_are_refused_for_training(field):
+    arch = "qwen2-7b-smoke" if field == "attn_impl" else "rwkv6-7b-smoke"
+    cfg = dataclasses.replace(get_config(arch), **{field: "pallas"})
+    with pytest.raises(NotImplementedError, match="no backward kernel.*JAX package cannot"):
+        make_train_step(cfg, TO.adamw(1e-3))
+
+
+def test_kernel_wrappers_refuse_what_autograd_would_record():
+    """The K4 / K5 wrappers call this on their CUDA branch: a kernel with no
+    backward must not run where autograd would record it."""
+    x, y = torch.ones(2), torch.ones(2, requires_grad=True)
+    check_no_grad("k", x, x)
+    with pytest.raises(RuntimeError, match="k: the CUDA kernel has no backward"):
+        check_no_grad("k", x, y)
+    with torch.no_grad():
+        check_no_grad("k", x, y)
+
+
+# --------------------------------------------------------------------------
+# checkpoints
+# --------------------------------------------------------------------------
+
+def _assert_bitwise(got, want):
+    g, w = jax_leaves(got), jax_leaves(want)
+    assert [p for p, _ in g] == [p for p, _ in w]
+    for (_, a), (_, b) in zip(g, w):
+        for x, y in zip(a if isinstance(a, list) else [a], b if isinstance(b, list) else [b]):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_checkpoint_round_trip_in_the_port(tmp_path):
+    """Params and the AdamW state after 3 steps, bitwise, with the step."""
+    _, tcfg, p_np = _params("qwen2-7b-smoke")
+    batches = _loop_batches(tcfg, batch=2, seq=16)
+    params, state, _ = _run_steps(tcfg, TT.params_from_jax(tcfg, p_np), batches)
+    like = TT.params_from_jax(tcfg, p_np)
+    save_checkpoint(str(tmp_path / "p.npz"), params, step=3)
+    got, step = restore_checkpoint(str(tmp_path / "p.npz"), like)
+    assert step == 3
+    _assert_bitwise(got, params)
+    save_checkpoint(str(tmp_path / "s.npz"), state)
+    got, step = restore_checkpoint(str(tmp_path / "s.npz"), TO.adamw(1e-3).init(like))
+    assert step is None and isinstance(got, TO.AdamState)
+    _assert_bitwise(got, state)
+    with np.load(tmp_path / "s.npz") as data:
+        assert sorted(data.files)[:3] == ["count", "mu|embed|w", "mu|final_ln|g"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_checkpoint_crosses_packages_both_ways(arch, tmp_path):
+    """A file the JAX package writes restores bitwise into the port, and one
+    the port writes restores bitwise into the JAX package (bf16 draws, the
+    per-layer groups stacked in the file)."""
+    jcfg, tcfg = jax_get_config(arch), get_config(arch)
+    p_np = jax_llm_params(jcfg, SEED)
+    jp = jax.tree_util.tree_map(jnp.asarray, p_np)
+    jax_save_checkpoint(str(tmp_path / "j.npz"), jp, step=5)
+    got, step = restore_checkpoint(str(tmp_path / "j.npz"), TT.init_params(
+        tcfg, torch.Generator().manual_seed(0)))
+    assert step == 5
+    _assert_bitwise(got, TT.params_from_jax(tcfg, p_np))
+
+    save_checkpoint(str(tmp_path / "t.npz"), TT.params_from_jax(tcfg, p_np), step=7)
+    back, step = jax_restore_checkpoint(str(tmp_path / "t.npz"), jp)
+    assert step == 7
+    for (path, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(back)[0],
+                                 jax.tree_util.tree_flatten_with_path(jp)[0]):
+        assert a.dtype == b.dtype and np.array_equal(np.asarray(a).view(np.uint8),
+                                                     np.asarray(b).view(np.uint8)), path
+
+
+def test_train_100m_example_checkpoints_on_the_cpu(tmp_path, capsys):
+    """examples/torch_train_100m.py at a tiny batch: its checkpoint restores
+    bitwise into its final parameters."""
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch_train_100m.py"
+    spec = importlib.util.spec_from_file_location("torch_train_100m", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out = tmp_path / "ckpt.npz"
+    params = example.main(["--steps", "2", "--batch", "1", "--seq", "8", "--ckpt-every", "2",
+                           "--device", "cpu", "--out", str(out)])
+    assert "checkpoint ->" in capsys.readouterr().out
+    got, step = restore_checkpoint(str(out), params)
+    assert step == 2
+    _assert_bitwise(got, params)
