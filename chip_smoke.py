@@ -9,8 +9,10 @@ against its plain PyTorch version on the card, drives the paper simulation
 against the same runs on the CPU, runs a `run_many` group of 16 cells as one
 batch on each device engine (every cell bitwise its solo run), runs the
 sweep harness (`run_sweep`) and
-the sustained service (`SustainedService`) on them, serves two 7B models of the model zoo
-(`serve_loop`) at full width and depth through K4 and K5, and trains them
+the sustained service (`SustainedService`) on them, serves six models of the model zoo
+(`serve_loop`) at full width through K4 and K5 (qwen2-7b, rwkv6-7b, the MoE
+granite-moe-3b-a800m, stablelm-3b at head dim 80 and yi-6b at full depth,
+qwen1.5-110b at 16 of its 80 layers), and trains qwen2-7b and rwkv6-7b
 (`train_loop`) at full width with the depth cut.  Phases, in order:
 
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
@@ -37,8 +39,9 @@ the sustained service (`SustainedService`) on them, serves two 7B models of the 
      launch, each cell bitwise its plain version and its own one-cell
      launch, timed beside one one-cell launch per cell;
   6. K4, flash attention, against its plain version at qwen2-7b's prefill
-     shape (B 4, S 512, Hq 28, Hkv 4, D 128, causal) in bf16 and f32 and at
-     a right-aligned, windowed shape (Sq < Sk); K5, the WKV6 recurrence, at
+     shape (B 4, S 512, Hq 28, Hkv 4, D 128, causal) and stablelm-3b's
+     (Hq = Hkv = 32, D 80) in bf16 and f32, each also at a right-aligned,
+     windowed shape (Sq < Sk), and D 80's time per FLOP beside D 128's; K5, the WKV6 recurrence, at
      rwkv6-7b's prefill shape (4 x 512 x 64 heads x 64) and its T = 1
      decode shape; each with its time on the card, as called, its bound,
      the plain version's time and the library call's (SDPA for K4); the
@@ -111,8 +114,25 @@ the sustained service (`SustainedService`) on them, serves two 7B models of the 
      exactly 28, K5 exactly 1 088); prefill logits within 4e-2 of the
      "ref" path on the same weights on the card, tokens in range, logits
      finite; a second, warm run under torch's sync debug mode (no host
-     sync inside the decode loop) and a third under torch.profiler;
- 12. the training path: train_loop(fl=True) — the Stackelberg planner's
+     sync inside the decode loop) and a third, of 8 new tokens, under
+     torch.profiler;
+ 12. four more archs of the zoo, each freed before the next loads, the
+     largest last: serve_loop as in phase 11 (kernel path, batch 4, prompt
+     512, 32 new tokens, counters set to 0 just before and read just after)
+     for granite-moe-3b-a800m (32 layers, the MoE FFN on each), stablelm-3b
+     (32, K4 at D 80) and yi-6b (32) at full depth and qwen1.5-110b at 16
+     of its 80 layers (80 do not fit one card), K4 exactly once per layer;
+     parameter count, memory allocated, prefill tok/s and decode ms/step;
+     prefill logits against "ref" (granite's routing-aware: per layer the
+     share of (token, slot) choices that agree, at least 0.99 at the first
+     MoE layer and at every layer the floor that plain K4 against "ref"
+     shows in the same run, less 0.02; the logits within 4e-2 on the rows
+     routed alike at every layer and against "ref" routed as the kernel
+     path routed); for
+     granite also a warm run under sync debug (no host sync in the model's
+     code) and a profiled run (idle share, the MoE's share of device time
+     and its launches per step); the phase's wall time;
+ 13. the training path: train_loop(fl=True) — the Stackelberg planner's
      cohort weights in the loss, AdamW, train_loop's batch 8 x seq 128,
      lr 3e-4 — at full width with the depth cut (qwen2-7b at 4 layers for
      20 steps, rwkv6-7b at 2 for 8), random weights from a seed, the launch
@@ -128,7 +148,8 @@ the sustained service (`SustainedService`) on them, serves two 7B models of the 
      against remat=False on the card; examples/torch_train_100m.py
      --steps 10 --ckpt-every 5 into a temporary directory, its checkpoint
      restored bitwise; every number beside the card's name and power limit;
- 13. the kernel list as one JSON line (with K1-K3's launches on the
+ 14. the kernel list as one JSON line (K4's launches per served arch,
+     `serve_launches`, and its D 80 check, `d80`; with K1-K3's launches on the
      hierarchy's, the batched groups', the sweep's and the service's paths:
      `hier_launches`, `batch_launches`, `sweep_launches`,
      `service_launches`; every kernel's launches on the training path,
@@ -188,6 +209,9 @@ from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.train.optimizer import adamw, sgd  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 from repro_torch.train.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models import attention as attention_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as tf_mod  # noqa: E402
 from repro_torch.models.transformer import forward, init_params, param_count  # noqa: E402
 from repro_torch.models.small import get_small_model  # noqa: E402
 from repro_torch.scenarios import ScenarioStream  # noqa: E402
@@ -1578,25 +1602,210 @@ def service_pairs(cfg: ServiceConfig):
 # ---------------------------------------------------------------------------
 
 SERVE = dict(batch=4, prompt_len=512, new_tokens=32, seed=0)
+PROFILE_TOKENS = 8
 
 
-def serve_phase(arch: str, kernel: str, expect: int) -> dict:
-    """Serve `arch` at full width and depth on the kernel path: random
-    weights from the seed, the launch counters set to 0 just before
-    serve_loop and read just after; `kernel` must have launched exactly
-    `expect` times.  Then prefill logits on the kernel path against the
-    "ref" path on the same weights and prompt (4e-2 of the scale, the JAX
-    package's serving tolerance), a warm second run under torch's sync
-    debug mode (every host sync, by source line) and a third under
-    torch.profiler (the card's busy time and idle share)."""
+class RoutingRecorder:
+    """Inside `with`, every MoE layer's routing (`models.moe._dispatch`):
+    per call, the (T, k) expert ids and a (T, E) code per token and expert:
+    0 not chosen, 1 chosen and kept, 2 chosen and dropped by capacity.  (A
+    set per token, not the top-k's order of probability, which a near-tie
+    inside the k can swap without changing what the layer computes.)  With
+    `replay` (a list of (T, k) expert ids, one per layer, in call order),
+    each layer routes to the given experts instead of its own top k, their
+    weights renormalised from its own probabilities."""
+
+    def __init__(self, replay: list | None = None):
+        self.replay = list(replay) if replay is not None else None
+
+    def __enter__(self) -> list:
+        self.calls, self.real_dispatch, self.real_route = [], moe_mod._dispatch, moe_mod._route
+
+        def recording(top_e, n_local, capacity):
+            order, keep, slot = self.real_dispatch(top_e, n_local, capacity)
+            kept = torch.empty_like(keep)
+            kept[order] = keep
+            code = torch.zeros(top_e.shape[0], n_local, dtype=torch.int8, device=top_e.device)
+            code.scatter_(1, top_e, (2 - kept.reshape(top_e.shape).to(torch.int8)))
+            self.calls.append((top_e.clone(), code))
+            return order, keep, slot
+
+        def replaying(x2d, router_w, k):
+            probs, _, _ = self.real_route(x2d, router_w, k)
+            top_e = self.replay.pop(0)
+            top_p = torch.gather(probs, 1, top_e)
+            return probs, top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9), top_e
+
+        moe_mod._dispatch = recording
+        if self.replay is not None:
+            moe_mod._route = replaying
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        moe_mod._dispatch, moe_mod._route = self.real_dispatch, self.real_route
+
+
+# Routing agreement of an MoE arch's two prefill paths: the first MoE layer
+# sees one attention's difference (the kernel's bf16 output against "ref",
+# which rounds the probabilities to bf16 before P.V); deeper layers compound
+# it.  The floor of that noise is read in the same run from a witness that
+# holds no kernel: plain K4 (`flash_attention_plain`) against "ref".  The
+# kernel path must share at least ROUTE_FIRST of the choices at the first
+# MoE layer, and at every layer at least the witness's minimum less
+# ROUTE_MARGIN; the witness itself must reach ROUTE_FLOOR at every layer.
+# (On the CPU, granite-moe-3b-a800m at full width, B 2 x S 512, the share
+# settled at ~0.98 after ~10 layers, min 0.976 over 32, both for plain K4
+# against "ref" and for the bf16 kernel's arithmetic against plain K4; on
+# the card the kernel path's per-layer shares spread over 0.972-0.989, so
+# the margin is that spread.)
+ROUTE_FIRST, ROUTE_MARGIN, ROUTE_FLOOR = 0.99, 0.02, 0.95
+
+
+def route_shares(got_routes, want_routes, b, s, k):
+    """Per layer, the share of (token, slot) choices, expert and kept, that
+    two recorded routings share, and the (b * s,) mask of the tokens routed
+    alike at every layer."""
+    rows_agree = torch.ones(b * s, dtype=torch.bool, device=DEV)
+    shares = []
+    for (_, gc_), (_, wc) in zip(got_routes, want_routes, strict=True):
+        both = ((gc_ == wc) & (gc_ > 0)).sum(-1)
+        shares.append(float(both.sum()) / (b * s * k))
+        rows_agree &= both == k
+    return shares, rows_agree
+
+
+def moe_logits_check(arch, cfg, ref_cfg, params, batch) -> tuple[float, float]:
+    """Prefill logits of an MoE arch, kernel path against "ref": routing is
+    discontinuous (an ulp of attention can move a token to another
+    expert, and a moved copy can shift which copies fit their capacity), so
+    (1) per layer, the share of (token, slot) choices that the two paths
+    share, held as the comment above says against the plain-K4 witness;
+    (2) the logits within 4e-2 of the scale on the rows routed alike at
+    every layer; (3) the whole tensor's error beside it; (4) the whole
+    tensor within 4e-2 against "ref" routed as the kernel path routed
+    (`RoutingRecorder(replay=...)`).  Returns (rows' error, replayed whole
+    error)."""
+    with RoutingRecorder() as got_routes:
+        got = forward(cfg, params, batch)[0]
+    with RoutingRecorder() as want_routes:
+        want = forward(ref_cfg, params, batch)[0]
+    with RoutingRecorder(replay=[e for e, _ in got_routes]):
+        replayed = forward(ref_cfg, params, batch)[0]
+    real_k4 = attention_mod.flash_attention
+    attention_mod.flash_attention = flash_attention_plain
+    try:
+        with RoutingRecorder() as plain_routes:
+            forward(cfg, params, batch)
+    finally:
+        attention_mod.flash_attention = real_k4
+    assert len(got_routes) == len(want_routes) == len(plain_routes) == cfg.n_layers
+    b, s = batch["tokens"].shape
+    shares, rows_agree = route_shares(got_routes, want_routes, b, s, cfg.top_k)
+    witness, _ = route_shares(plain_routes, want_routes, b, s, cfg.top_k)
+    route_any = min(witness) - ROUTE_MARGIN
+    g, w = got.float().reshape(b * s, -1), want.float().reshape(b * s, -1)
+    r = replayed.float().reshape(b * s, -1)
+    finite = all(bool(torch.isfinite(t).all()) for t in (g, w, r))
+    scale = float(w.abs().max())
+    whole = float((g - w).abs().max()) / scale
+    rows = float((g[rows_agree] - w[rows_agree]).abs().max()) / scale
+    same_routes = float((g - r).abs().max()) / float(r.abs().max())
+    for name, sh in (("plain K4 (witness)", witness), ("kernel path", shares)):
+        line(f"  routing agreement per layer, {name} vs ref (share of (token, slot) choices "
+             f"shared): first {sh[0]:.4f}, min {min(sh):.4f}, mean {sum(sh) / len(sh):.4f} "
+             f"[{' '.join(f'{x:.3f}' for x in sh)}]")
+    line(f"  routing limits: first layer {ROUTE_FIRST}; every layer {route_any:.4f} (the "
+         f"witness's min {min(witness):.4f} less {ROUTE_MARGIN}); the witness at every layer "
+         f"{ROUTE_FLOOR}")
+    line(f"  prefill logits, kernel path vs ref on the card: rows routed alike at every layer "
+         f"{int(rows_agree.sum())}/{b * s}, their rel_err={rows:.3e} (limit 4e-2); whole tensor "
+         f"rel_err={whole:.3e}; ref routed as the kernel path: rel_err={same_routes:.3e} "
+         f"(limit 4e-2); finite={finite}; max|logit|={scale:.3f}")
+    if not (finite and shares[0] >= ROUTE_FIRST and witness[0] >= ROUTE_FIRST
+            and min(witness) >= ROUTE_FLOOR and min(shares) >= route_any
+            and rows <= 4e-2 and same_routes <= 4e-2):
+        raise AssertionError(f"serve {arch}: routing agreement ({shares[0]:.4f} first, "
+                             f"{min(shares):.4f} min; witness {witness[0]:.4f} first, "
+                             f"{min(witness):.4f} min) or logits ({rows:.3e}, "
+                             f"{same_routes:.3e}) off the ref path")
+    return rows, same_routes
+
+
+def device_kernels(prof) -> list:
+    """The profile's device events by name, without the device-side copies
+    of user ranges (`record_function`), which span their kernels."""
+    return [e for e in prof.key_averages() if e.self_device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA and e.key != "moe_apply"]
+
+
+def moe_profile_share(prof, steps: int) -> None:
+    """The MoE FFN's share of the profiled run's device time and its
+    launches per step, from the `moe_apply` ranges (`profiled_moe`)."""
+    def kernels_under(ev) -> tuple[int, float]:
+        n = len(getattr(ev, "kernels", []) or [])
+        us = sum(k.duration for k in (getattr(ev, "kernels", []) or []))
+        for c in ev.cpu_children:
+            cn, cus = kernels_under(c)
+            n, us = n + cn, us + cus
+        return n, us
+
+    ranges = [e for e in prof.events() if e.name == "moe_apply"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    n = sum(kernels_under(e)[0] for e in ranges)
+    us = sum(kernels_under(e)[1] for e in ranges)
+    busy = sum(e.self_device_time_total for e in device_kernels(prof)) or float("nan")
+    if n == 0:
+        line(f"  MoE share of device time: not measured ({len(ranges)} moe_apply ranges, no "
+             "kernel linked to them in this trace)")
+        return
+    line(f"  MoE FFN ({len(ranges)} moe_apply calls): device_ms={us / 1e3:.2f} share of device "
+         f"time {us / busy:.4f}; kernels {n} ({n / len(ranges):.1f} per moe_apply call, "
+         f"~{n / steps:.0f} per step)")
+
+
+class profiled_moe:
+    """Inside `with`, every `moe_apply` of the model runs under a profiler
+    range named "moe_apply"."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        self.real = tf_mod.moe_apply
+
+        def ranged(*args, **kw):
+            with record_function("moe_apply"):
+                return self.real(*args, **kw)
+
+        tf_mod.moe_apply = ranged
+
+    def __exit__(self, *exc) -> None:
+        tf_mod.moe_apply = self.real
+
+
+def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
+                full: bool = True) -> dict:
+    """Serve `arch` at full width on the kernel path, at full depth or cut
+    to `layers`: random weights from the seed, the launch counters set to 0
+    just before serve_loop and read just after; `kernel` must have launched
+    exactly `expect` times.  Then prefill logits on the kernel path against
+    the "ref" path on the same weights and prompt (4e-2 of the scale, the
+    JAX package's serving tolerance; an MoE arch by `moe_logits_check`).
+    With `full`, a warm second run under torch's sync debug mode (every
+    host sync, by source line; none may come from the model's code, which
+    the decode loop runs) and a third, of PROFILE_TOKENS new tokens, under
+    torch.profiler (the card's busy time and idle share; an MoE arch's
+    share of it)."""
     base = get_config(arch)
+    if layers:
+        base = dataclasses.replace(base, n_layers=layers)
     cfg = dataclasses.replace(base, attn_impl="pallas", rwkv_wkv_impl="pallas")
     ref_cfg = dataclasses.replace(base, attn_impl="ref", rwkv_wkv_impl="ref")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(SERVE["seed"]))
     torch.cuda.synchronize()
-    line(f"serve {arch}: init_params {time.perf_counter() - t0:.2f}s; "
-         f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    n_params = param_count(params)
+    line(f"serve {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers): init_params "
+         f"{time.perf_counter() - t0:.2f}s; params={n_params}; memory allocated "
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; {CARD}")
 
     for fn in COUNTERS.values():
         fn.launches = 0
@@ -1609,7 +1818,8 @@ def serve_phase(arch: str, kernel: str, expect: int) -> dict:
          + " ".join(f"{k}={v}" for k, v in launches.items())
          + f"; first run wall_s={wall:.3f} prefill_s={first.prefill_s:.4f} "
          f"({first.prefill_tok_s:.0f} tok/s) decode_s={first.decode_s:.4f} "
-         f"({first.decode_tok_s:.1f} tok/s)")
+         f"({first.decode_tok_s:.1f} tok/s, {first.decode_s / SERVE['new_tokens'] * 1e3:.3f} "
+         f"ms/step)")
     if launches[kernel] != expect:
         raise AssertionError(f"serve {arch}: {kernel} launched {launches[kernel]} times, "
                              f"expected {expect}")
@@ -1624,46 +1834,96 @@ def serve_phase(arch: str, kernel: str, expect: int) -> dict:
     prompt = synthetic_token_batch(np.random.default_rng(SERVE["seed"]), SERVE["batch"],
                                    SERVE["prompt_len"], cfg.vocab)["tokens"]
     batch = {"tokens": torch.from_numpy(prompt).to(DEV)}
-    got = forward(cfg, params, batch)[0]
-    want = forward(ref_cfg, params, batch)[0]
-    finite = bool(torch.isfinite(got.float()).all()) and bool(torch.isfinite(want.float()).all())
-    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
-    same_next = float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).float().mean())
-    line(f"  prefill logits, kernel path vs ref on the card: rel_err={err:.3e} (limit 4e-2); "
-         f"finite={finite}; max|logit|={float(want.float().abs().max()):.3f}; same next "
-         f"token {same_next:.2f}; first decoded row: {toks[0, :8].tolist()}")
-    del got, want
-    if not (finite and err <= 4e-2):
-        raise AssertionError(f"serve {arch}: prefill logits off the ref path ({err:.3e})")
+    if cfg.n_experts:
+        err, _ = moe_logits_check(arch, cfg, ref_cfg, params, batch)
+    else:
+        got = forward(cfg, params, batch)[0]
+        want = forward(ref_cfg, params, batch)[0]
+        finite = (bool(torch.isfinite(got.float()).all())
+                  and bool(torch.isfinite(want.float()).all()))
+        err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        same_next = float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).float().mean())
+        line(f"  prefill logits, kernel path vs ref on the card: rel_err={err:.3e} (limit "
+             f"4e-2); finite={finite}; max|logit|={float(want.float().abs().max()):.3f}; same "
+             f"next token {same_next:.2f}; first decoded row: {toks[0, :8].tolist()}")
+        del got, want
+        if not (finite and err <= 4e-2):
+            raise AssertionError(f"serve {arch}: prefill logits off the ref path ({err:.3e})")
+    out = dict(launches=launches, first=first, warm=None, err=err, params=n_params)
+    if not full:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
 
     warm, by_line = sync_counted(lambda: serve_loop(cfg, device=DEV, params=params,
                                                     log_every=SERVE["new_tokens"], **SERVE))
     syncs = sum(by_line.values())
+    in_model = [k for k in by_line if not k.startswith("serve.py:")]
     line(f"  warm run: prefill_s={warm.prefill_s:.4f} ({warm.prefill_tok_s:.0f} tok/s) "
          f"decode_s={warm.decode_s:.4f} ({warm.decode_tok_s:.1f} tok/s, "
          f"{warm.decode_s / SERVE['new_tokens'] * 1e3:.3f} ms/step); same tokens as the first "
          f"run: {bool(np.array_equal(warm.tokens, toks))}; {syncs} synchronizing calls: "
-         + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(6)))
+         + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(6))
+         + f"; in the model's code (the decode loop's): {len(in_model)}")
+    if in_model:
+        raise AssertionError(f"serve {arch}: host syncs in the model's code: {in_model}")
+    out["warm"] = warm
 
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # The profiled run decodes fewer tokens than SERVE: reading a trace back
+    # costs ~40 s per ~90 000 kernels (a 32-token qwen2-7b run).
+    prof_serve = dict(SERVE, new_tokens=PROFILE_TOKENS)
+    with profiled_moe(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prof_run = serve_loop(cfg, device=DEV, params=params, log_every=SERVE["new_tokens"],
-                              **SERVE)
+        prof_run = serve_loop(cfg, device=DEV, params=params,
+                              log_every=prof_serve["new_tokens"], **prof_serve)
         prof_wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
+    t0 = time.perf_counter()
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
-    line(f"  profile (profiled run): wall_s={prof_wall:.3f} prefill_s={prof_run.prefill_s:.4f} "
-         f"decode_s={prof_run.decode_s:.4f} device_busy_ms={busy_ms:.2f} device_idle_share="
-         f"{1 - busy_ms / 1e3 / prof_wall:.4f} kernel_launches={n_launch} "
-         f"(~{n_launch / (SERVE['new_tokens'] + 2):.0f} per step)")
+    steps = prof_serve["new_tokens"] + 2
+    line(f"  profile (profiled run, {prof_serve['new_tokens']} new tokens): wall_s={prof_wall:.3f} "
+         f"prefill_s={prof_run.prefill_s:.4f} decode_s={prof_run.decode_s:.4f} "
+         f"device_busy_ms={busy_ms:.2f} device_idle_share={1 - busy_ms / 1e3 / prof_wall:.4f} "
+         f"kernel_launches={n_launch} (~{n_launch / steps:.0f} per step)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         line(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    del params
+    if cfg.n_experts:
+        moe_profile_share(prof, steps)
+    line(f"  profile read back in {time.perf_counter() - t0:.1f}s")
+    del params, prof
+    gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches, first=first, warm=warm, err=err)
+    return out
+
+
+# The zoo phase: the four archs this slice serves, at batch 4, prompt 512,
+# 32 new tokens (SERVE), each freed before the next loads, the largest
+# last: (arch, layers (0: full depth), full serve_phase).  qwen1.5-110b's
+# 80 layers (222 GB in bf16) do not fit one card; 16 (48.5 GB) do.
+ZOO = (("granite-moe-3b-a800m", 0, True), ("stablelm-3b", 0, False),
+       ("yi-6b", 0, False), ("qwen1.5-110b", 16, False))
+
+
+def zoo_phase() -> dict:
+    t0 = time.perf_counter()
+    out = {}
+    for arch, layers, full in ZOO:
+        t_arch = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        line(f"zoo {arch}: memory allocated before init {torch.cuda.memory_allocated() / 2**30:.2f}"
+             " GiB")
+        cfg = get_config(arch)
+        out[arch] = serve_phase(arch, "flash_attention", layers or cfg.n_layers, layers=layers,
+                                full=full)
+        out[arch]["head_dim"] = cfg.head_dim
+        line(f"zoo {arch}: wall_s={time.perf_counter() - t_arch:.1f}")
+    line(f"zoo phase wall_s={time.perf_counter() - t0:.1f} on {CARD}")
+    return out
 
 
 # The training phase: train_loop's defaults (batch 8, seq 128, lr 3e-4) with
@@ -1809,7 +2069,7 @@ def example_phase() -> None:
 
 
 def train_phase() -> dict:
-    """Phase 12; returns each run's launch counts by arch."""
+    """Phase 13; returns each run's launch counts by arch."""
     launches = {arch: train_run(arch, layers, steps) for arch, layers, steps in TRAIN_RUNS}
     gc.collect()
     torch.cuda.empty_cache()
@@ -1951,7 +2211,8 @@ def main() -> None:
             line(f"K4 bf16 entry SASS, {fn}: tensor-core instructions "
                  + " ".join(f"{op}={n}" for op, n in opcodes.items()))
     line("K4 bf16 entry: dynamic shared memory "
-         + ", ".join(f"D={d}: {fa_lib.flash_attention_bf16_smem_bytes(d)} bytes" for d in (64, 128)))
+         + ", ".join(f"D={d}: {fa_lib.flash_attention_bf16_smem_bytes(d)} bytes"
+                     for d in (64, 80, 128)))
     for ln in ptxas_lines("flash_attention", "flash_fwd_bf16_wgmma"):
         line("  ptxas: " + ln)
     line(f"K5 wkv6_f32: {wkv_lib.wkv6_threads_per_block(rwkv.rwkv_head_size)} threads per block "
@@ -1966,6 +2227,20 @@ def main() -> None:
     for dtype in (torch.bfloat16, torch.float32):
         check_k4(b, 384, s, qwen.n_heads, qwen.n_kv_heads, qwen.head_dim, 128, dtype,
                  "Sq < Sk, window 128", reps=10)
+    # D = 80 at stablelm-3b's prefill shape (32 heads, MHA), on CARD.
+    slm = get_config("stablelm-3b")
+    slm_shape = (b, s, s, slm.n_heads, slm.n_kv_heads, slm.head_dim, 0)
+    k4_d80 = check_k4(*slm_shape, torch.bfloat16, f"D=80 (stablelm-3b prefill) on {CARD}",
+                      reps=20)
+    check_k4(*slm_shape, torch.float32, "D=80 (stablelm-3b prefill)", reps=10)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_k4(b, 384, s, slm.n_heads, slm.n_kv_heads, slm.head_dim, 128, dtype,
+                 "D=80, Sq < Sk, window 128", reps=10)
+    f80 = 4 * b * slm.n_heads * slm.head_dim * attn_pairs(s, s, 0)
+    f128 = 4 * b * qwen.n_heads * qwen.head_dim * attn_pairs(s, s, 0)
+    line(f"K4 bf16 per FLOP: D=80 {f80 / k4_d80['ms'] / 1e9:.2f} TFLOP/s against D=128 "
+         f"{f128 / k4_main['ms'] / 1e9:.2f} (time per FLOP at D=80: "
+         f"{(k4_d80['ms'] / f80) / (k4_main['ms'] / f128):.2f}x D=128's)")
     wkv_shape = (b, rwkv.n_rwkv_heads, rwkv.rwkv_head_size)
     k5_main = check_k5(b, s, *wkv_shape[1:], "main-path prefill shape (rwkv6-7b)", reps=20)
     k5_decode = check_k5(b, 1, *wkv_shape[1:], "main-path decode shape (rwkv6-7b, T=1)",
@@ -2056,12 +2331,16 @@ def main() -> None:
     line(f"K5 per launch on the card: prefill {k5_main['ms']:.4f} ms, decode "
          f"{k5_decode['ms']:.4f} ms")
 
-    # ---- 12. the training path ------------------------------------------------
+    # ---- 12. four more archs of the zoo ---------------------------------------
     phase_mark(12, t_all)
+    zoo = zoo_phase()
+
+    # ---- 13. the training path ------------------------------------------------
+    phase_mark(13, t_all)
     train = train_phase()
 
-    # ---- 13. kernel list ----------------------------------------------------
-    phase_mark(13, t_all)
+    # ---- 14. kernel list ----------------------------------------------------
+    phase_mark(14, t_all)
     kernels = []
     hier_launches = {"polyblock_fused": hs_launches["polyblock_fused"],
                      "polyblock_project": hstep_launches["polyblock_project"],
@@ -2088,6 +2367,11 @@ def main() -> None:
                             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                             library_ms=res["library_ms"]))
         kernels[-1]["train_launches"] = {arch: n[name] for arch, n in train.items()}
+        if name == "flash_attention":
+            kernels[-1]["serve_launches"] = dict(
+                {"qwen2-7b": launches}, **{a: r["launches"][name] for a, r in zoo.items()})
+            kernels[-1]["d80"] = {k: k4_d80[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "library_ms")}
         if "lanes" in res:
             kernels[-1]["lanes"] = res["lanes"]
         if name == "polyblock_fused":

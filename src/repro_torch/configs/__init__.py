@@ -1,17 +1,22 @@
-"""Config registry of the port's model zoo: the families the port runs so
-far (dense GQA: qwen2-7b; RWKV-6: rwkv6-7b), and their reduced smoke
-variants via the `-smoke` suffix (`ArchConfig.reduced()`)."""
+"""Config registry of the port's model zoo: the architectures whose layer
+kinds the port runs (dense GQA: qwen2-7b, stablelm-3b, yi-6b,
+qwen1.5-110b; GQA + MoE: granite-moe-3b-a800m; RWKV-6: rwkv6-7b), and their
+reduced smoke variants via the `-smoke` suffix (`ArchConfig.reduced()`)."""
 from .base import INPUT_SHAPES, ArchConfig, InputShape
+from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
+from .qwen1_5_110b import CONFIG as qwen1_5_110b
 from .qwen2_7b import CONFIG as qwen2_7b
 from .rwkv6_7b import CONFIG as rwkv6_7b
+from .stablelm_3b import CONFIG as stablelm_3b
+from .yi_6b import CONFIG as yi_6b
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in (qwen2_7b, rwkv6_7b)}
+ARCHS: dict[str, ArchConfig] = {
+    c.name: c for c in (qwen2_7b, rwkv6_7b, stablelm_3b, yi_6b, qwen1_5_110b,
+                        granite_moe_3b_a800m)}
 
-# The JAX package's other architectures: their families (MoE, MLA,
-# hybrid/Mamba, audio, VLM) are still to port.
-STILL_TO_PORT = ("deepseek-v3-671b", "granite-moe-3b-a800m", "qwen1.5-110b",
-                 "whisper-base", "stablelm-3b", "yi-6b", "jamba-v0.1-52b",
-                 "qwen2-vl-2b")
+# The JAX package's other architectures: their families (MLA, hybrid/Mamba,
+# audio, VLM) are still to port.
+STILL_TO_PORT = ("deepseek-v3-671b", "whisper-base", "jamba-v0.1-52b", "qwen2-vl-2b")
 
 
 def get_config(name: str) -> ArchConfig:

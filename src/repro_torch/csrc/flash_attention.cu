@@ -27,11 +27,15 @@
 //     numbered so that the last query blocks, whose causal range is the
 //     longest, start first.
 //   * The producer warp's lane 0 loads the block's Q tile once and K and V
-//     tiles of 64 keys into a two-stage ring by TMA (3-D tensor maps over
-//     (B, S, H * D), so the ragged end of a batch's keys reads as zeros),
-//     in the 128-byte swizzle the wgmma descriptors expect.  Each load
+//     tiles of 64 keys into a two-stage ring by TMA, in the 128-byte
+//     swizzle the wgmma descriptors expect.  The tensor maps are 4-D,
+//     (D, H, S, B), with boxes of 64 columns of one head, so a read past a
+//     head's D columns or past a batch's S rows fills zeros: a tile is
+//     ceil(D / 64) atoms of 64 columns, and at D = 80 the second atom holds
+//     columns 64-79 and 48 zero columns (never the next head's).  Each load
 //     completes on an mbarrier; the consumers free a stage on another.
 //   * S = Q K^T is wgmma m64n64k16 with both operands in shared memory,
+//     D / 16 steps of 16 (5 at D = 80: the zero columns are not read),
 //     accumulated in f32 registers.  The row max and sum of the online
 //     softmax run on those registers (a row's 64 scores lie in 4 lanes).
 //   * O += P V is wgmma m64n64k16 with P from registers and V read in its
@@ -44,6 +48,9 @@
 //     flops.  exp2 is one ex2.approx instruction.
 //   * The row rescale acc *= exp(m_old - m_new) runs in registers between
 //     the two products, as in the Pallas body.
+//   * At D = 80 the body is D = 128's: P V runs over both 64-column atoms
+//     of V (its zero columns give zero outputs), and the store writes
+//     only the D columns of the head.
 //   * Each tile runs S, softmax, P V in order; the two blocks on an SM
 //     overlap one another's phases.  On the H100, two 64-row warpgroups per
 //     block sharing the ring, a third stage, and issuing tile n's Q K^T
@@ -270,6 +277,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b, int sq
   if (b <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(q, k, v, o, b, sq, sk, hq, hkv, scale, causal, window, s);
+  if (d == 80) return launch<80>(q, k, v, o, b, sq, sk, hq, hkv, scale, causal, window, s);
   if (d == 128) return launch<128>(q, k, v, o, b, sq, sk, hq, hkv, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -286,13 +294,15 @@ constexpr int kRowBytes = 128;          // one swizzle row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory layout of the tensor-core kernel, in bytes from a
-// 1024-aligned base.  Each tile is stored as D/64 "atoms" of [rows][64]
-// bf16, 128 bytes per row, swizzled by TMA's 128-byte pattern.
+// 1024-aligned base.  Each tile is stored as ceil(D/64) "atoms" of [rows][64]
+// bf16, 128 bytes per row, swizzled by TMA's 128-byte pattern; columns past
+// D in the last atom hold zeros (the TMA box reads past the head's edge).
 template <int D>
 struct TcLayout {
-  static constexpr int kAtoms = D / 64;
-  static constexpr int kQBytes = kTQ * D * 2;
-  static constexpr int kKVBytes = kTK * D * 2;  // one K or V tile
+  static_assert(D % 16 == 0, "Q K^T steps over D in slices of 16");
+  static constexpr int kAtoms = (D + 63) / 64;
+  static constexpr int kQBytes = kTQ * kAtoms * kRowBytes;     // full boxes, zeros included
+  static constexpr int kKVBytes = kTK * kAtoms * kRowBytes;    // one K or V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
@@ -336,12 +346,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
+// One box of a 4-D (D, H, S, B) map at column c0 of head c1, row c2, batch c3.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -494,17 +505,17 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (lane == 0) {
       mbar_expect_tx(q_full(), L::kQBytes);
       for (int a = 0; a < L::kAtoms; ++a)
-        tma_load_3d(q_s + a * kTQ * kRowBytes, &q_map, q_full(), h * D + a * 64, q0, b);
+        tma_load_4d(q_s + a * kTQ * kRowBytes, &q_map, q_full(), a * 64, h, q0, b);
       for (int kt = kt_lo, n = 0; kt < kt_hi; ++kt, ++n) {
         const int st = n % kStages, round = n / kStages;
         if (round > 0) mbar_wait(empty(st), (round - 1) & 1);
         mbar_expect_tx(k_full(st), L::kKVBytes);
         for (int a = 0; a < L::kAtoms; ++a)
-          tma_load_3d(k_s(st) + a * kTK * kRowBytes, &k_map, k_full(st), hk * D + a * 64,
+          tma_load_4d(k_s(st) + a * kTK * kRowBytes, &k_map, k_full(st), a * 64, hk,
                       kt * kTK, b);
         mbar_expect_tx(v_full(st), L::kKVBytes);
         for (int a = 0; a < L::kAtoms; ++a)
-          tma_load_3d(v_s(st) + a * kTK * kRowBytes, &v_map, v_full(st), hk * D + a * 64,
+          tma_load_4d(v_s(st) + a * kTK * kRowBytes, &v_map, v_full(st), a * 64, hk,
                       kt * kTK, b);
       }
     }
@@ -516,7 +527,7 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int row0 = q0 + 16 * warp + g;  // and row0 + 8
   const int q_hi = min(q0 + kTQ - 1, sq - 1);
 
-  float acc[L::kAtoms][32];  // O, 64 x D: atom c holds columns 64 c .. 64 c + 63
+  float acc[L::kAtoms][32];  // O, 64 x 64 kAtoms: atom c holds columns 64 c .. 64 c + 63
   float m_run[2] = {kNegInf, kNegInf}, l_part[2] = {0.f, 0.f};
 #pragma unroll
   for (int c = 0; c < L::kAtoms; ++c)
@@ -535,7 +546,7 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
     const int k0 = kt * kTK;
     mbar_wait(k_full(st), phase);
     __syncwarp();
-    // S = Q K^T over D / 16 slices of 16.
+    // S = Q K^T over D / 16 slices of 16 (the zero columns past D skipped).
     wgmma_fence();
     fence_regs(s);
 #pragma unroll
@@ -617,7 +628,8 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (lane == 0) mbar_arrive(empty(st));  // this warp is done with the stage
   }
 
-  // o = acc / max(l, 1e-30), one bf16 cast; lanes 4g .. 4g + 3 share a row.
+  // o = acc / max(l, 1e-30), one bf16 cast; lanes 4g .. 4g + 3 share a row;
+  // only the head's D columns are stored (8 j + 2 t < 16 at D = 80's edge).
   const int64_t q_stride = static_cast<int64_t>(hq) * D;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -633,6 +645,7 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
     for (int c = 0; c < L::kAtoms; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if (64 * c + 8 * j >= D) break;  // compile-time: past the head's columns
         const int col = 64 * c + 8 * j + 2 * t;
         *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
             acc[c][4 * j + 2 * hh] * inv, acc[c][4 * j + 2 * hh + 1] * inv);
@@ -665,19 +678,23 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 3-D map over a (batch, rows, heads * d) bf16 tensor, boxes of 64
-// columns x box_rows rows x 1 batch, 128-byte swizzle; reads past the rows
-// fill zeros.
-bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int width, int box_rows) {
+// A 4-D map over a (batch, rows, heads, d) bf16 tensor, innermost first
+// (d, heads, rows, batch), boxes of 64 columns x 1 head x box_rows rows x 1
+// batch, 128-byte swizzle; reads past a head's d columns or past the rows
+// fill zeros.  The strides (2 d bytes between heads: 160 at d = 80) are
+// multiples of 16, as TMA needs.
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int heads, int d,
+                int box_rows) {
   EncodeTiled fn = encoder();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
-                                 static_cast<cuuint64_t>(width) * rows * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(d) * heads * 2,
+                                 static_cast<cuuint64_t>(d) * heads * rows * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -687,8 +704,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
                  int hq, int hkv, float scale, int causal, int window, cudaStream_t stream) {
   constexpr int smem = TcLayout<D>::kBytes;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, q, b, sq, hq * D, kTQ) || !encode_map(&k_map, k, b, sk, hkv * D, kTK) ||
-      !encode_map(&v_map, v, b, sk, hkv * D, kTK))
+  if (!encode_map(&q_map, q, b, sq, hq, D, kTQ) || !encode_map(&k_map, k, b, sk, hkv, D, kTK) ||
+      !encode_map(&v_map, v, b, sk, hkv, D, kTK))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_wgmma<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -703,8 +720,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  q (b, sq, hq, d), k and v
-// (b, sk, hkv, d), o like q, all contiguous on the current device; d is 64
-// or 128, hq a multiple of hkv, sq <= sk; the bf16 entry also needs q, k
+// (b, sk, hkv, d), o like q, all contiguous on the current device; d is 64,
+// 80 or 128, hq a multiple of hkv, sq <= sk; the bf16 entry also needs q, k
 // and v 16-byte aligned (TMA).  Returns the cudaGetLastError() code right
 // after the launch (0 = launched), or cudaErrorInvalidValue for arguments
 // the kernel does not take.
@@ -720,6 +737,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   if (b <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_wgmma<64>(q, k, v, o, b, sq, sk, hq, hkv, scale, causal, window, s);
+  if (d == 80) return launch_wgmma<80>(q, k, v, o, b, sq, sk, hq, hkv, scale, causal, window, s);
   if (d == 128)
     return launch_wgmma<128>(q, k, v, o, b, sq, sk, hq, hkv, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -727,5 +745,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
 
 // Dynamic shared memory of the bf16 entry's launch at head dim d, in bytes.
 extern "C" int flash_attention_bf16_smem_bytes(int d) {
-  return d == 64 ? TcLayout<64>::kBytes : d == 128 ? TcLayout<128>::kBytes : 0;
+  return d == 64 ? TcLayout<64>::kBytes
+         : d == 80 ? TcLayout<80>::kBytes
+         : d == 128 ? TcLayout<128>::kBytes
+                    : 0;
 }

@@ -20,7 +20,7 @@ from .ref import flash_attention_plain
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)     # 80: stablelm-3b (2560 / 32)
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
 
@@ -31,10 +31,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     output in q's dtype.
 
     On the card q, k and v are contiguous, of one dtype (bf16 or f32) and on
-    one device, with D in HEAD_DIMS, Hq a multiple of Hkv and Sq <= Sk; in
-    bf16 they also start on a 16-byte boundary (the kernel reads them by
-    TMA); anything else raises, as does a call that autograd would record
-    (an input requires grad): the kernel has no backward."""
+    one device, with D in HEAD_DIMS (64, 80 or 128), Hq a multiple of Hkv
+    and Sq <= Sk; in bf16 they also start on a 16-byte boundary (the kernel
+    reads them by TMA); anything else raises, as does a call that autograd
+    would record (an input requires grad): the kernel has no backward."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

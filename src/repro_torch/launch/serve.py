@@ -4,10 +4,10 @@ the ring caches (PyTorch copy of the JAX package's `launch/serve.py`).
   python -m repro_torch.launch.serve --arch qwen2-7b --batch 4 \
       --prompt-len 512 --new-tokens 32
 
-runs on the current CUDA device (and raises without one), with the
-config's own `attn_impl` / `rwkv_wkv_impl`.  `serve_loop` also takes an
-`ArchConfig`, which is how a caller selects the kernel path ("pallas"),
-and `device="cpu"`.
+runs on the current CUDA device (and raises without one; `--device cpu`
+runs the plain versions on the CPU), with the config's own `attn_impl` /
+`rwkv_wkv_impl`.  `serve_loop` also takes an `ArchConfig`, which is how a
+caller selects the kernel path ("pallas"), and `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -115,9 +115,10 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="default: the current CUDA device")
     a = ap.parse_args(argv)
     serve_loop(a.arch, batch=a.batch, prompt_len=a.prompt_len,
-               new_tokens=a.new_tokens, seed=a.seed)
+               new_tokens=a.new_tokens, seed=a.seed, device=a.device)
 
 
 if __name__ == "__main__":

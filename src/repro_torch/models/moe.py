@@ -1,0 +1,164 @@
+"""Mixture-of-Experts FFN (PyTorch copy of the JAX package's
+`models/moe.py`, its single-device path): dropping top-k routing with
+sort-based capacity dispatch into a fixed (E, C, d) buffer, dense expert
+GEMMs, and a gather-and-combine back to the tokens.
+
+The expert-parallel path of the JAX package (experts sharded over a mesh
+axis by shard_map, one psum to combine) needs more than one card; it is
+still to port (ROADMAP.md, Queue 1 "Across cards"), so `ep_size` must be 1.
+
+Every shape is static, as in JAX, and no step reads the host: counts are a
+`scatter_add_` (not `bincount`), masks multiply (no boolean indexing), so a
+decode step on the card never synchronises.  The results follow JAX's:
+  * the router is an f32 product (with TF32 off, torch's default: a TF32
+    product keeps ~10 bits and moves routes), f32 softmax, ties in the
+    top-k broken toward the lower expert id (`jax.lax.top_k`'s order) by a stable sort;
+  * the T*k token copies are ordered by a stable sort on the expert id in
+    `repeat(arange(T), k)` order, so capacity drops the same copies;
+  * the combine weight is cast to the activation dtype before the
+    multiply, and each token's k outputs are added one after another in
+    increasing expert id, each sum rounded to the activation dtype: the
+    order in which JAX's `.at[tok].add` visits them.  The adds are plain
+    tensor adds, so two runs on the card give the same bits (`index_add_`
+    uses atomics there and would not).
+
+Capacity: C = T * top_k when that is <= 256 (decode, smoke tests: dropless),
+else int(T * top_k * 1.25 / E) + 1; overflowing copies are dropped (their
+contribution is 0).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from .layers import DTYPE, dense_init, swiglu, swiglu_init
+
+__all__ = ["moe_init", "moe_apply", "pad_experts", "CAPACITY_FACTOR"]
+
+CAPACITY_FACTOR = 1.25
+
+
+def _check_ep(ep_size: int) -> None:
+    if ep_size != 1:
+        raise NotImplementedError(
+            f"moe: ep_size={ep_size}; expert parallelism across cards is still to port "
+            "(ROADMAP.md, Queue 1 'Across cards'); the port runs ep_size=1")
+
+
+def pad_experts(n_experts: int, ep_size: int) -> int:
+    return ((n_experts + ep_size - 1) // ep_size) * ep_size
+
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig, *, ep_size: int = 1):
+    """The JAX package's distributions: router Normal * 0.02, experts
+    Normal * sqrt(2 / (d + ff)), all stored bf16; shared experts (deepseek)
+    one SwiGLU of width ff * n_shared_experts."""
+    _check_ep(ep_size)
+    e_pad = pad_experts(cfg.n_experts, ep_size)
+    ff, d, dev = cfg.ffn_expert, cfg.d_model, gen.device
+    scale = (2.0 / (d + ff)) ** 0.5
+
+    def experts(shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(DTYPE)
+
+    p: dict[str, Any] = {"router": dense_init(gen, d, cfg.n_experts, scale=0.02),
+                         "gate": experts((e_pad, d, ff)), "up": experts((e_pad, d, ff)),
+                         "down": experts((e_pad, ff, d))}
+    if cfg.n_shared_experts > 0:
+        p["shared"] = swiglu_init(gen, d, ff * cfg.n_shared_experts)
+    return p
+
+
+def _capacity(n_tokens: int, cfg: ArchConfig) -> int:
+    """Expert capacity: dropless (T * top_k) for small token counts, else the
+    capacity-factor bound."""
+    if n_tokens * cfg.top_k <= 256:
+        return n_tokens * cfg.top_k
+    c = int(n_tokens * cfg.top_k * CAPACITY_FACTOR / cfg.n_experts) + 1
+    return max(c, cfg.top_k)
+
+
+def _route(x2d: torch.Tensor, router_w: torch.Tensor, k: int):
+    """(probs (T, E) f32, top_p (T, k) renormalised, top_e (T, k) int64):
+    the k largest probabilities, the lower expert id first on ties."""
+    probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :k], top_e[:, :k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_e
+
+
+def _dispatch(top_e: torch.Tensor, n_local: int, capacity: int):
+    """The sort-based dispatch of the T*k copies: (order, keep, slot), with
+    order the stable sort of the copies by expert id, keep whether the
+    sorted copy fits its expert's capacity, and slot its row in the
+    (n_local * capacity + 1, d) buffer (the last row takes the dropped)."""
+    t, k = top_e.shape
+    key = top_e.reshape(-1)
+    order = torch.argsort(key, stable=True)
+    e_sorted = key[order]
+    counts = torch.zeros(n_local + 1, dtype=torch.int64, device=key.device)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts[:n_local], 0)])
+    rank = torch.arange(t * k, device=key.device) - starts[torch.clamp(e_sorted, max=n_local)]
+    keep = (e_sorted < n_local) & (rank < capacity)
+    slot = torch.where(keep, e_sorted * capacity + rank,
+                       torch.full_like(rank, n_local * capacity))
+    return order, keep, slot
+
+
+def _local_moe(x2d, router_w, gate, up, down, cfg: ArchConfig, capacity: int):
+    """T tokens through the E experts held here.  x2d (T, d); gate/up/down
+    (E, d|ff, ff|d).  Returns (y (T, d), aux ())."""
+    t, d = x2d.shape
+    n_local, k = gate.shape[0], cfg.top_k
+    probs, top_p, top_e = _route(x2d, router_w, k)
+
+    # Load-balance aux (Switch-style): E * sum_e f_e * P_e, in f32.
+    flat_e = top_e.reshape(-1)
+    frac = torch.zeros(cfg.n_experts, dtype=torch.float32, device=x2d.device)
+    frac.scatter_add_(0, flat_e, torch.ones(flat_e.shape, dtype=torch.float32,
+                                            device=x2d.device))
+    frac = frac / (t * k)
+    aux = cfg.n_experts * torch.sum(frac * probs.mean(0))
+
+    # ---- the T*k copies, sorted by expert; scatter into (E * C) rows. ----
+    order, keep, slot = _dispatch(top_e, n_local, capacity)
+    tok_sorted = torch.div(order, k, rounding_mode="floor")   # repeat(arange(T), k)[order]
+    w_sorted = top_p.reshape(-1)[order]
+    gathered = x2d[tok_sorted] * keep[:, None].to(x2d.dtype)
+    buf = x2d.new_zeros(n_local * capacity + 1, d)
+    buf[slot] = gathered             # kept slots are distinct; the last row is discarded
+    buf = buf[:-1].reshape(n_local, capacity, d)
+
+    h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
+    out = torch.bmm(h, down)                                          # (E, C, d)
+
+    # ---- combine: gather by slot, weight, add each token's k in expert order.
+    out_flat = torch.cat([out.reshape(n_local * capacity, d), out.new_zeros(1, d)])
+    y_sorted = out_flat[slot] * (w_sorted * keep).to(out.dtype)[:, None]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    copies = y_sorted[inv].reshape(t, k, d)                       # token-major, top-k order
+    by_expert = torch.argsort(top_e, dim=-1)                      # ids distinct in a row
+    copies = torch.gather(copies, 1, by_expert[:, :, None].expand(t, k, d))
+    y = copies[:, 0]
+    for j in range(1, k):
+        y = y + copies[:, j]
+    return y, aux
+
+
+def moe_apply(p, cfg: ArchConfig, x: torch.Tensor):
+    """x (B, S, d) -> (y (B, S, d), aux ()).  Shared experts (deepseek) are a
+    plain dense SwiGLU added to the routed output."""
+    b, s, d = x.shape
+    x2d = x.reshape(b * s, d)
+    y2d, aux = _local_moe(x2d, p["router"]["w"], p["gate"], p["up"], p["down"], cfg,
+                          _capacity(b * s, cfg))
+    y = y2d.reshape(b, s, d)
+    if "shared" in p:
+        y = y + swiglu(p["shared"], x)
+    return y, aux

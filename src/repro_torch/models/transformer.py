@@ -1,8 +1,10 @@
 """Model-zoo assembly (PyTorch copy of the JAX package's
-`models/transformer.py`), for the two layer kinds the port runs so far:
-`LayerKind("attn", "dense")` (GQA + SwiGLU: qwen2-7b) and
-`LayerKind("rwkv", "rwkv_cm")` (RWKV-6 time-mix + channel-mix: rwkv6-7b).
-Any other mixer or FFN raises NotImplementedError.
+`models/transformer.py`), for the three layer kinds the port runs so far:
+`LayerKind("attn", "dense")` (GQA + SwiGLU: qwen2-7b, stablelm-3b, yi-6b,
+qwen1.5-110b), `LayerKind("attn", "moe")` (GQA + the MoE FFN of
+`models/moe.py`: granite-moe-3b-a800m) and `LayerKind("rwkv", "rwkv_cm")`
+(RWKV-6 time-mix + channel-mix: rwkv6-7b).  Any other mixer or FFN raises
+NotImplementedError.
 
 The stage plan is the JAX package's: layers are grouped into stages, each
 a periodic pattern of sublayer kinds repeated `repeats` times.  Where the
@@ -21,6 +23,8 @@ Modes:
   forward(..., mode="train")   -> (logits, aux)     lm_loss trains on it
   forward(..., mode="prefill") -> (logits, aux, cache)  also seeds the caches
   decode_step(...)             -> (logits, cache)       one token, ring caches
+
+aux is the MoE layers' summed load-balance loss (f32; 0 without them).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv6
 from .attention import gqa_decode, gqa_forward, gqa_init, init_kv_cache
 from .layers import DTYPE, dense, dense_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .moe import moe_apply, moe_init
 from .ssm import (init_rwkv6_state, rwkv6_channel_mix, rwkv6_init, rwkv6_time_mix,
                   wkv6_scan_ref)
 
@@ -84,7 +89,8 @@ class Stage:
     repeats: int
 
 
-PORTED_KINDS = (LayerKind("attn", "dense"), LayerKind("rwkv", "rwkv_cm"))
+PORTED_KINDS = (LayerKind("attn", "dense"), LayerKind("attn", "moe"),
+                LayerKind("rwkv", "rwkv_cm"))
 
 
 def _kind_of(cfg: ArchConfig, i: int, *, decoder: bool) -> LayerKind:
@@ -154,14 +160,17 @@ def _init_sublayer(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind):
     p["ln2"] = rmsnorm_init(cfg.d_model, gen.device)
     if kind.ffn == "dense":
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.ffn_dense)
+    elif kind.ffn == "moe":
+        p["moe"] = moe_init(gen, cfg)
     return p
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator):
     """Random parameters on `gen`'s device, drawn from `gen` with the JAX
     package's distributions (normal * scale stored bf16, f32 norms, RWKV
-    w0 = -6 and u = 0).  The two frameworks draw different numbers from one
-    seed: tests hand the JAX package's draws over with `params_from_jax`."""
+    w0 = -6 and u = 0; experts unpadded, as the JAX package's ep_size 1).
+    The two frameworks draw different numbers from one seed: tests hand the
+    JAX package's draws over with `params_from_jax`."""
     stages = _ported_plan(cfg)
     embed = torch.randn(cfg.vocab, cfg.d_model, generator=gen, device=gen.device) * 0.02
     p: dict[str, Any] = {
@@ -225,8 +234,9 @@ def param_count(params) -> int:
 # ==========================================================================
 
 def _sublayer_full(cfg, kind: LayerKind, p, x, positions, chunk: int, want_cache: bool):
-    """Returns (x, cache contribution)."""
+    """Returns (x, aux, cache contribution); aux is None without a MoE FFN."""
     cache: dict[str, Any] = {}
+    aux = None
     h_in = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind.mixer == "attn":
         if want_cache:
@@ -243,17 +253,20 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, positions, chunk: int, want_cache
     x = x + h
     if kind.ffn == "dense":
         x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    elif kind.ffn == "moe":
+        y, aux = moe_apply(p["moe"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
+        x = x + y
     else:
         cm_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
         y, cm_prev = rwkv6_channel_mix(p["rwkv"], cfg, cm_in, torch.zeros_like(x[:, 0]))
         x = x + y
         if want_cache:
             cache["cm_prev"] = cm_prev
-    return x, cache
+    return x, aux, cache
 
 
 def _sublayer_train(cfg, kind: LayerKind, p, x, positions, chunk: int):
-    return _sublayer_full(cfg, kind, p, x, positions, chunk, False)[0]
+    return _sublayer_full(cfg, kind, p, x, positions, chunk, False)[:2]
 
 
 def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headroom: int = 0,
@@ -271,6 +284,7 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
     chunk = ATTN_CHUNK if s > 2 * ATTN_CHUNK else 0
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     all_caches = []
     for si, st in enumerate(stages):
         layers = [params[f"s{si}_l{li}"] for li in range(len(st.pattern))]
@@ -278,16 +292,17 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
         for rep in range(st.repeats):
             for li, kind in enumerate(st.pattern):
                 if remat and not want_cache:
-                    h = checkpoint(_sublayer_train, cfg, kind, layers[li][rep], h, positions,
-                                   chunk, use_reentrant=False)
-                    continue
-                h, c = _sublayer_full(cfg, kind, layers[li][rep], h, positions, chunk,
-                                      want_cache)
-                got[li].append(c)
+                    h, a = checkpoint(_sublayer_train, cfg, kind, layers[li][rep], h,
+                                      positions, chunk, use_reentrant=False)
+                else:
+                    h, a, c = _sublayer_full(cfg, kind, layers[li][rep], h, positions, chunk,
+                                             want_cache)
+                    got[li].append(c)
+                if a is not None:
+                    aux = aux + a
         all_caches.append(got)
     h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
     logits = dense(params["lm_head"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if mode == "train":
         return logits, aux
     return logits, aux, _assemble_prefill_cache(cfg, stages, all_caches, s, cache_headroom)
@@ -298,8 +313,8 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False):
     folded into the loss, so one backward pass gives the weighted FedAvg
     gradient.  batch["fl_weights"] (B,) f32 carries alpha_n * beta_n * S_n
     per device-cohort (1s outside the FL context; rows of weight 0 add
-    nothing).  Returns (loss, {"aux": aux}); aux is 0, as the port runs no
-    MoE layer."""
+    nothing).  Returns (loss + router_aux_coef * aux, {"aux": aux}); aux is
+    the MoE layers' summed load-balance loss (0 without MoE layers)."""
     logits, aux = forward(cfg, params, batch, mode="train", remat=remat)
     labels = batch["labels"].long()
     w = batch.get("fl_weights")
@@ -423,6 +438,8 @@ def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos):
     x = x + h
     if kind.ffn == "dense":
         x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    elif kind.ffn == "moe":   # aux computed and dropped, as in the JAX package's decode
+        x = x + moe_apply(p["moe"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))[0]
     else:
         cm_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
         y, prev = rwkv6_channel_mix(p["rwkv"], cfg, cm_in, c["cm_prev"][i])

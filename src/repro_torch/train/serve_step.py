@@ -1,6 +1,6 @@
 """Serving steps of the model zoo (PyTorch copy of the JAX package's
 `train/train_step.py::make_prefill_step` / `make_serve_step`; the training
-step is still to port)."""
+step is `train_step.py`)."""
 from __future__ import annotations
 
 import torch

@@ -56,7 +56,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
         updates, opt_state = opt.update(grads, opt_state, params)
         del grads
         params = apply_updates(params, updates)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "aux": extras["aux"]}
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "aux": extras["aux"].detach()}
         return params, opt_state, metrics
 
     return train_step

@@ -578,7 +578,10 @@ def _bf16_ulp(x):
     (2, 64, 64, 4, 2, 64, 0),            # the smoke configs' head dim
     (1, 33, 70, 7, 1, 64, 17),
     (8, 200, 333, 28, 4, 128, 0),        # more query blocks than SMs; Sq, Sk off the tiles
-    (1, 130, 260, 4, 4, 64, 100)])       # G = 1, a window across a tile edge
+    (1, 130, 260, 4, 4, 64, 100),        # G = 1, a window across a tile edge
+    (4, 512, 512, 32, 32, 80, 0),        # stablelm-3b prefill at the serving shape (D = 80)
+    (2, 100, 300, 8, 2, 80, 64),         # D = 80, right-aligned, window, ragged tiles
+    (1, 33, 70, 3, 3, 80, 17)])          # D = 80, heads past the first: no neighbour's columns
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, hq, hkv, d, window):
     """Both accumulate in f32 and cast once: f32 within 1e-5 (summation
     order, FMA), bf16 within one ulp plus that floor."""
@@ -620,11 +623,11 @@ def test_wkv6_kernel_matches_plain(dev, b, t, h, hs):
 
 
 def test_flash_bf16_kernel_runs_on_the_tensor_cores(dev):
-    """The bf16 K4 entry's kernel (both head dims) issues wgmma: HGMMA in
-    its SASS; the f32 SIMT kernel issues none."""
+    """The bf16 K4 entry's kernel (all three head dims) issues wgmma: HGMMA
+    in its SASS; the f32 SIMT kernel issues none."""
     counts = _build.sass_opcodes("flash_attention", ("HGMMA", "HMMA"))
     tc = {name: c for name, c in counts.items() if "flash_fwd_bf16_wgmma" in name}
-    assert len(tc) == 2, sorted(counts)
+    assert len(tc) == 3, sorted(counts)
     assert all(c["HGMMA"] > 0 for c in tc.values()), tc
     simt = {name: c for name, c in counts.items() if "flash_fwd_kernel" in name}
     assert simt and all(c["HGMMA"] == 0 and c["HMMA"] == 0 for c in simt.values()), simt
@@ -674,26 +677,71 @@ def test_llm_wrappers_reject_what_the_kernels_do_not_take(dev):
             wkv6(*bad)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b-smoke", "rwkv6-7b-smoke"])
+@pytest.mark.parametrize("arch", ["qwen2-7b-smoke", "rwkv6-7b-smoke",
+                                  "granite-moe-3b-a800m-smoke", "stablelm-3b-smoke"])
 def test_serve_loop_on_the_card_goes_through_the_kernels(dev, arch):
     """serve_loop with the kernel path on the card: K4 once per attention
     layer (prefill), K5 once per RWKV layer in prefill and in each of the
     new_tokens + 1 decode steps (warm-up included); prefill logits within
-    4e-2 of the same weights on the CPU's plain versions."""
+    4e-2 of the same weights on the CPU's plain versions.  The MoE arch's
+    logits are compared on f32 copies of the weights (TF32 off): in bf16 a
+    token's experts change where two router probabilities lie within the
+    card's and the CPU's rounding of each other (granite-moe-3b-a800m-smoke
+    moved tokens off by 0.38 of the scale)."""
     cfg = dataclasses.replace(get_config(arch), attn_impl="pallas", rwkv_wkv_impl="pallas")
     params = init_params(cfg, torch.Generator().manual_seed(0))
     on_card = _to(params, dev)
     flash_attention.launches = wkv6.launches = 0
     res = serve_loop(cfg, batch=2, prompt_len=64, new_tokens=4, device=dev, params=on_card)
-    attn = cfg.family == "dense"
+    attn = cfg.family in ("dense", "moe")
     assert flash_attention.launches == (cfg.n_layers if attn else 0)
     assert wkv6.launches == (0 if attn else cfg.n_layers * (1 + 4 + 1))
     assert res.tokens.shape == (2, 5) and ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()
     toks = torch.randint(0, cfg.vocab, (2, 64), generator=torch.Generator().manual_seed(1))
+    if cfg.n_experts:
+        params = tree_map(lambda t: t.float(), params)
+        on_card = _to(params, dev)
+        assert not torch.backends.cuda.matmul.allow_tf32
     got = forward(cfg, on_card, {"tokens": toks.to(dev)})[0]
     want = forward(cfg, params, {"tokens": toks})[0]
     assert bool(torch.isfinite(got.float()).all())
     assert _rel_max(got.float().cpu(), want.float()) < 4e-2
+
+
+@pytest.mark.parametrize("tokens", [64, 400])
+def test_moe_on_the_card_matches_the_cpu_and_repeats_bitwise(dev, tokens):
+    """granite's MoE FFN (smoke width) on the card against the CPU on the
+    same weights and inputs, held in f32 (TF32 off): routing, keep mask and
+    slots exact (64 tokens: dropless; 400: capacity drops), y within 1e-5,
+    aux within 1e-6 relative; in bf16 two card calls bitwise equal (the
+    combine adds in a fixed order, no atomics) and no host sync in the call
+    (torch's sync debug mode)."""
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-3b-a800m-smoke")
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = (torch.randn(2, tokens // 2, cfg.d_model, generator=torch.Generator().manual_seed(1))
+         + (1.0 if tokens > 128 else 0.0))
+    p32 = tree_map(lambda t: t.float(), p)
+    y_cpu, aux_cpu = moe.moe_apply(p32, cfg, x)
+    y_dev, aux_dev = moe.moe_apply(_to(p32, dev), cfg, x.to(dev))
+    assert (y_dev.cpu() - y_cpu).abs().max().item() <= 1e-5
+    assert abs(float(aux_dev) - float(aux_cpu)) <= 1e-6 * abs(float(aux_cpu))
+    cap = moe._capacity(tokens, cfg)
+    routes = []
+    for pp, xx in ((p32, x), (_to(p32, dev), x.to(dev))):
+        _, _, top_e = moe._route(xx.reshape(tokens, -1), pp["router"]["w"], cfg.top_k)
+        routes.append([t.cpu() for t in (top_e,) + moe._dispatch(top_e, cfg.n_experts, cap)])
+    for a, b in zip(*routes):
+        assert torch.equal(a, b)
+    assert (tokens > 128) == bool((~routes[0][2]).any())         # drops only at 400
+    p_dev, x_dev = _to(p, dev), x.bfloat16().to(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y1, aux1 = moe.moe_apply(p_dev, cfg, x_dev)
+        y2, aux2 = moe.moe_apply(p_dev, cfg, x_dev.clone())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
 
 
 def _to(tree, dev):

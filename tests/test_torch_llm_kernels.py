@@ -114,18 +114,20 @@ def _qkv(b, sq, sk, hq, hkv, d, dtype_name, seed):
     return (qj, kj, vj), (qt, kt, vt)
 
 
+@pytest.mark.parametrize("d", [32, 80])
 @pytest.mark.parametrize("g", [1, 2, 7])
 @pytest.mark.parametrize("sq,sk", [(64, 64), (32, 64)])
 @pytest.mark.parametrize("window", [0, 16])
 @pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
-def test_flash_plain_matches_pallas_interpret(dtype_name, window, sq, sk, g):
+def test_flash_plain_matches_pallas_interpret(dtype_name, window, sq, sk, g, d):
     """The plain version against the JAX K4 (Pallas, interpret mode), causal,
-    right-aligned queries, GQA by head h -> h // G.  Both accumulate in f32
-    and cast once: f32 within 1e-5; bf16 within one ulp, plus the f32
-    tolerance for outputs near 0 (there the two f32 results, ~1e-6 apart,
-    can round to bf16 values two ulps apart)."""
+    right-aligned queries, GQA by head h -> h // G, at head dims 32 and 80
+    (stablelm-3b's; scale 80**-0.5).  Both accumulate in f32 and cast once:
+    f32 within 1e-5; bf16 within one ulp, plus the f32 tolerance for outputs
+    near 0 (there the two f32 results, ~1e-6 apart, can round to bf16
+    values two ulps apart)."""
     hkv = 2
-    (qj, kj, vj), (qt, kt, vt) = _qkv(2, sq, sk, hkv * g, hkv, 32, dtype_name, 5 * g + sq)
+    (qj, kj, vj), (qt, kt, vt) = _qkv(2, sq, sk, hkv * g, hkv, d, dtype_name, 5 * g + sq)
     want = jax_flash(qj, kj, vj, causal=True, window=window, bq=32, bk=32, interpret=True)
     got = flash_attention_plain(qt, kt, vt, causal=True, window=window)
     assert got.dtype == qt.dtype and got.shape == qt.shape
@@ -205,7 +207,7 @@ def _flash_split_p(q, k, v, *, window, tile=64, split=True):
 @pytest.mark.parametrize("g", [1, 7])
 @pytest.mark.parametrize("window", [0, 16])
 @pytest.mark.parametrize("sq,sk", [(256, 256), (100, 230)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_flash_split_p_stays_within_the_card_gate(d, sq, sk, window, g):
     """The bf16 K4 kernel's P.V with P split into bf16 p_hi + p_lo stays
     within the card's gate (chip_smoke.py, tests/test_torch_cuda.py) of the

@@ -122,7 +122,8 @@ def test_rwkv6_channel_mix_matches_jax(t):
     assert torch.equal(tprev, xt[:, -1])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b-smoke", "rwkv6-7b-smoke"])
+@pytest.mark.parametrize("arch", ["qwen2-7b-smoke", "rwkv6-7b-smoke",
+                                  "granite-moe-3b-a800m-smoke", "qwen1.5-110b-smoke"])
 def test_params_from_jax_and_init_params_match_the_jax_tree(arch):
     """`params_from_jax` unstacks each group's leading `repeats` axis
     without changing a value; `init_params` draws a tree of the same
@@ -153,7 +154,10 @@ def test_params_from_jax_and_init_params_match_the_jax_tree(arch):
 
 
 def test_config_registry():
-    assert sorted(ARCHS) == ["qwen2-7b", "rwkv6-7b"]
+    assert sorted(ARCHS) == ["granite-moe-3b-a800m", "qwen1.5-110b", "qwen2-7b", "rwkv6-7b",
+                             "stablelm-3b", "yi-6b"]
+    assert sorted(STILL_TO_PORT) == ["deepseek-v3-671b", "jamba-v0.1-52b", "qwen2-vl-2b",
+                                     "whisper-base"]
     for name in ARCHS:
         assert get_config(name) == ARCHS[name]
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jax_get_config(name))
@@ -168,6 +172,6 @@ def test_config_registry():
 
 
 def test_unported_layer_kinds_raise():
-    cfg = dataclasses.replace(get_config("qwen2-7b-smoke"), n_experts=4, top_k=2)
+    cfg = dataclasses.replace(get_config("qwen2-7b-smoke"), use_mla=True)
     with pytest.raises(NotImplementedError, match="still to port"):
         init_params(cfg, torch.Generator().manual_seed(0))

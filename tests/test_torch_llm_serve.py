@@ -24,6 +24,18 @@ from repro_torch.train.serve_step import make_prefill_step, make_serve_step
 
 TOL = 4e-2          # the JAX package's serving tolerance (tests/test_serving.py)
 ROOT = Path(__file__).resolve().parents[1]
+NEW = ["stablelm-3b-smoke", "yi-6b-smoke", "qwen1.5-110b-smoke", "granite-moe-3b-a800m-smoke"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: beside other test
+    workers, torch's default (one thread per core each) oversubscribes the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _port_cfg(arch, impl):
@@ -32,7 +44,8 @@ def _port_cfg(arch, impl):
 
 
 @pytest.mark.parametrize("arch,impl", [("qwen2-7b-smoke", "ref"), ("qwen2-7b-smoke", "pallas"),
-                                       ("rwkv6-7b-smoke", "ref"), ("rwkv6-7b-smoke", "pallas")])
+                                       ("rwkv6-7b-smoke", "ref"), ("rwkv6-7b-smoke", "pallas")]
+                         + [(a, impl) for a in NEW for impl in ("ref", "pallas")])
 def test_serve_loop_matches_jax_serve_loop(arch, impl):
     """Greedy tokens equal to the JAX package's serve_loop (its default
     "ref" paths) on the same weights, up to the first step where JAX's
@@ -69,7 +82,7 @@ def jax_serve_inputs(arch, batch, prompt_len, seed):
                                  jax_get_config(arch).vocab)["tokens"]
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b-smoke", "rwkv6-7b-smoke"])
+@pytest.mark.parametrize("arch", ["qwen2-7b-smoke", "rwkv6-7b-smoke", "granite-moe-3b-a800m-smoke"])
 def test_serve_loop_warmup_does_not_perturb_generation(arch, monkeypatch, capsys):
     """serve_loop, with its discarded warm-up step, decodes exactly what a
     plain prefill + decode loop without the warm-up decodes: the same
@@ -120,6 +133,14 @@ def test_serve_cli_refuses_a_silent_cpu():
         pytest.skip("a CUDA device is visible: the CLI runs there")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_mod.main(["--arch", "qwen2-7b-smoke", "--prompt-len", "8", "--new-tokens", "2"])
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_serve_cli_runs_each_new_arch_on_the_cpu(arch, capsys):
+    serve_mod.main(["--arch", arch, "--batch", "2", "--prompt-len", "8", "--new-tokens", "2",
+                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}" in out and "device=cpu" in out and "steady-state decode" in out
 
 
 def test_chip_smoke_imports_no_jax():

@@ -1,10 +1,13 @@
 """The model zoo's serving slice in the PyTorch port against the JAX
 package, on the CPU, on the JAX package's own weights (`params_from_jax`):
 prefill logits and the prefill cache, teacher-forced decode, and the
-port's prefill + decode against its own full forward — for qwen2-7b-smoke
-(attn_impl="pallas" on both sides: the JAX K4 in interpret mode, the port's
-K4 plain version) and rwkv6-7b-smoke (rwkv_wkv_impl="pallas" in the port,
-"ref" in JAX, whose K5 kernel no longer runs under the installed jax).
+port's prefill + decode against its own full forward — for the attention
+archs' smoke configs (qwen2-7b, stablelm-3b, yi-6b, qwen1.5-110b and the
+MoE granite-moe-3b-a800m; attn_impl="pallas" on both sides: the JAX K4 in
+interpret mode, the port's K4 plain version), stablelm-3b-smoke widened to
+K4's head dim 80 (d_model 320, 4 heads; the smoke config's is 64), and
+rwkv6-7b-smoke (rwkv_wkv_impl="pallas" in the port, "ref" in JAX, whose K5
+kernel no longer runs under the installed jax).
 
 Tolerance: 4e-2 of the scale (max |diff| / max |want|), the JAX package's
 own serving tolerance (tests/test_serving.py).
@@ -25,12 +28,33 @@ from repro_torch.configs import get_config
 from repro_torch.models import transformer as TT
 
 TOL = 4e-2
-CASES = {"qwen2-7b-smoke": ({"attn_impl": "pallas"}, {"attn_impl": "pallas"}),
-         "rwkv6-7b-smoke": ({}, {"rwkv_wkv_impl": "pallas"})}
+PALLAS = ({"attn_impl": "pallas"}, {"attn_impl": "pallas"})
+D80 = {"d_model": 320, "n_heads": 4, "n_kv_heads": 2, "d_head": 80}
+# case -> (arch, JAX overrides, port overrides)
+CASES = {"qwen2-7b-smoke": ("qwen2-7b-smoke",) + PALLAS,
+         "rwkv6-7b-smoke": ("rwkv6-7b-smoke", {}, {"rwkv_wkv_impl": "pallas"}),
+         "stablelm-3b-smoke": ("stablelm-3b-smoke",) + PALLAS,
+         "yi-6b-smoke": ("yi-6b-smoke",) + PALLAS,
+         "qwen1.5-110b-smoke": ("qwen1.5-110b-smoke",) + PALLAS,
+         "granite-moe-3b-a800m-smoke": ("granite-moe-3b-a800m-smoke",) + PALLAS,
+         "stablelm-3b-smoke-d80": ("stablelm-3b-smoke", dict(PALLAS[0], **D80),
+                                   dict(PALLAS[1], **D80))}
+NEW = ["stablelm-3b-smoke", "yi-6b-smoke", "qwen1.5-110b-smoke", "granite-moe-3b-a800m-smoke"]
 
 
-def _setup(arch, seed=11):
-    jkw, tkw = CASES[arch]
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: beside other test
+    workers, torch's default (one thread per core each) oversubscribes the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _setup(case, seed=11):
+    arch, jkw, tkw = CASES[case]
     jcfg = dataclasses.replace(jax_get_config(arch), **jkw)
     tcfg = dataclasses.replace(get_config(arch), **tkw)
     jp_np = jax_llm_params(jcfg, seed)
@@ -103,7 +127,8 @@ def test_teacher_forced_decode_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch,window", [("qwen2-7b-smoke", 0), ("rwkv6-7b-smoke", 0),
-                                         ("qwen2-7b-smoke", 16)])
+                                         ("qwen2-7b-smoke", 16)]
+                         + [(a, 0) for a in NEW] + [("granite-moe-3b-a800m-smoke", 16)])
 def test_prefill_decode_matches_full(arch, window):
     """The port's prefill + ring-buffer decode equals its own full forward
     (the port's mirror of tests/test_serving.py); with a 16-token window,

@@ -1,21 +1,30 @@
 """The model zoo's training slice in the PyTorch port against the JAX
 package, on the CPU: the token stream and the Stackelberg cohort weights
 (bitwise), the optimizers, `lm_loss` and its gradients, `make_train_step`
-and `train_loop` traces, and checkpoints both ways, on qwen2-7b-smoke and
-rwkv6-7b-smoke with the JAX package's `init_params` draws
+and `train_loop` traces, and checkpoints both ways, on qwen2-7b-smoke,
+rwkv6-7b-smoke and granite-moe-3b-a800m-smoke (whose loss adds
+router_aux_coef times the MoE layers' load-balance aux, held to JAX's
+aux), `lm_loss` and its gradients also on stablelm-3b-, yi-6b- and
+qwen1.5-110b-smoke, with the JAX package's `init_params` draws
 (`params_from_jax`).
 
 Tolerances, with the gaps measured on an x86-64 CPU, one thread:
   * optimizers, f32 tree, three updates: rtol 1e-6 and atol 1e-9 on the
     updates and the states (max rel: adam 1.2e-7, adamw 1.5e-7, clip+sgd
     2.4e-7, sgd and momentum 0), Adafactor rtol 1e-5 (3.9e-7);
-  * lm_loss: 5e-3 absolute (qwen2 2.6e-4; rwkv6 bf16 1.0e-3, f32 4.8e-7);
-  * global grad norm: 2e-2 relative (qwen2 3.9e-5; rwkv6 f32 2.2e-4);
+  * lm_loss: 5e-3 absolute (qwen2 2.6e-4; rwkv6 bf16 1.0e-3, f32 4.8e-7;
+    granite 2.6e-4; stablelm 8.5e-5, yi 9.2e-5, qwen1.5 2.6e-4);
+  * global grad norm: 2e-2 relative (qwen2 3.9e-5; rwkv6 f32 2.2e-4;
+    granite 6.5e-5; stablelm 1.3e-4, yi 4.3e-4, qwen1.5 3.9e-5);
   * each gradient leaf, relative Frobenius error: 5e-2 (qwen2 1.8e-2;
-    rwkv6 f32 2.2e-4);
+    rwkv6 f32 2.2e-4; granite 1.9e-2; stablelm, yi, qwen1.5 1.3-1.8e-2);
+  * granite's MoE aux: 1e-3 relative of JAX's (4.4e-4: the router's
+    inputs come through bf16 layers that round differently in the two
+    packages), and 0 for the dense archs;
   * the 3-step traces of make_train_step and train_loop(fl=True), the
-    same gates on every step (loss: qwen2 2.5e-4, rwkv6 f32 9.5e-7; grad
-    norm: qwen2 3.8e-4, rwkv6 f32 3.3e-5).
+    same gates on every step (loss: qwen2 2.5e-4, rwkv6 f32 9.5e-7,
+    granite 1.9e-3; grad norm: qwen2 3.8e-4, rwkv6 f32 3.3e-5, granite
+    6.9e-3).
 
 qwen2-7b-smoke runs on the JAX draws as they are, bf16 weights.  rwkv6's
 gradient at these draws is ill-conditioned in bf16: the per-head RMS
@@ -65,7 +74,10 @@ from repro_torch.train import optimizer as TO
 from repro_torch.train.train_step import make_train_step
 from repro_torch.train.tree import jax_leaves, tree_leaves, tree_unflatten
 
-ARCHS = ["qwen2-7b-smoke", "rwkv6-7b-smoke"]
+ARCHS = ["qwen2-7b-smoke", "rwkv6-7b-smoke", "granite-moe-3b-a800m-smoke"]
+# lm_loss and its gradients also on the dense archs that share qwen2's layer kind
+LOSS_ARCHS = ARCHS + ["stablelm-3b-smoke", "yi-6b-smoke", "qwen1.5-110b-smoke"]
+MOE_ARCHS = ("granite-moe-3b-a800m-smoke",)
 F32_ARCHS = ("rwkv6-7b-smoke",)      # compared on f32 copies of the draws (docstring)
 LOSS_ATOL, GNORM_RTOL, LEAF_RTOL = 5e-3, 2e-2, 5e-2
 OPT_RTOL, OPT_ATOL, ADAFACTOR_RTOL = 1e-6, 1e-9, 1e-5
@@ -136,11 +148,14 @@ def _lm_batch(vocab, b=4, s=32, w=(1.5, 0.0, 2.0, 0.5), seed=0):
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:], "fl_weights": np.asarray(w, np.float32)}
 
 
-def _port_value_and_grad(cfg, params, batch, remat=False):
+def _port_value_and_grad(cfg, params, batch, remat=False, extras=None):
+    """(loss, grads) of the port's lm_loss; its aux goes into `extras`."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    loss, _ = TT.lm_loss(cfg, tree_unflatten(params, leaves), tb, remat=remat)
+    loss, ex = TT.lm_loss(cfg, tree_unflatten(params, leaves), tb, remat=remat)
     grads = torch.autograd.grad(loss, leaves)
+    if extras is not None:
+        extras["aux"] = float(ex["aux"].detach())
     return float(loss.detach()), tree_unflatten(params, grads)
 
 
@@ -148,13 +163,19 @@ _JAX_GRADS: dict = {}
 
 
 def _jax_value_and_grad(jcfg, p_np, batch):
+    """(loss, grads) of the JAX package's lm_loss; its aux is kept in
+    _JAX_AUX under the same key."""
     key = (jcfg.name, str(jax.tree_util.tree_leaves(p_np)[0].dtype))
     if key not in _JAX_GRADS:
         fn = jax.jit(jax.value_and_grad(lambda p, b: JT.lm_loss(jcfg, p, b), has_aux=True))
-        (loss, _), grads = fn(jax.tree_util.tree_map(jnp.asarray, p_np),
-                              {k: jnp.asarray(v) for k, v in batch.items()})
+        (loss, extras), grads = fn(jax.tree_util.tree_map(jnp.asarray, p_np),
+                                   {k: jnp.asarray(v) for k, v in batch.items()})
         _JAX_GRADS[key] = (float(loss), grads)
+        _JAX_AUX[key] = float(extras["aux"])
     return _JAX_GRADS[key]
+
+
+_JAX_AUX: dict = {}
 
 
 def _gnorm(flat) -> float:
@@ -317,16 +338,25 @@ def test_flat_dict_adam_is_unchanged():
 # lm_loss and its gradients
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LOSS_ARCHS)
 def test_lm_loss_and_grads_match_jax(arch):
     """Weighted NLL (fl_weights with a zero) and its gradient against
     jax.value_and_grad on the same draws: loss 5e-3 absolute, global grad
-    norm 2e-2 relative, every leaf's relative Frobenius error <= 5e-2."""
+    norm 2e-2 relative, every leaf's relative Frobenius error <= 5e-2; the
+    MoE aux non-zero and within 1e-3 relative of JAX's (bf16 layers
+    upstream of the router), 0 without MoE layers."""
     jcfg, tcfg, p_np = _params(arch)
     batch = _lm_batch(jcfg.vocab)
     jloss, jgrads = _jax_value_and_grad(jcfg, p_np, batch)
-    loss, grads = _port_value_and_grad(tcfg, TT.params_from_jax(tcfg, p_np), batch)
+    extras = {}
+    loss, grads = _port_value_and_grad(tcfg, TT.params_from_jax(tcfg, p_np), batch,
+                                       extras=extras)
     assert abs(loss - jloss) <= LOSS_ATOL
+    jaux = _JAX_AUX[(jcfg.name, str(jax.tree_util.tree_leaves(p_np)[0].dtype))]
+    if arch in MOE_ARCHS:
+        assert extras["aux"] > 0 and abs(extras["aux"] - jaux) <= 1e-3 * jaux
+    else:
+        assert extras["aux"] == jaux == 0.0
     g, w = _port_flat(grads), _jax_flat(jgrads)
     assert [p for p, _ in g] == [p for p, _ in w]
     assert abs(_gnorm(g) - _gnorm(w)) <= GNORM_RTOL * _gnorm(w)
@@ -439,7 +469,7 @@ def _run_steps(tcfg, params, batches, opt=None, remat=False):
     for b in batches:
         params, state, m = step(params, state, b)
         trace.append((float(m["loss"]), float(m["grad_norm"])))
-        assert float(m["aux"]) == 0.0
+        assert (float(m["aux"]) > 0) == (tcfg.name in MOE_ARCHS)
     return params, state, trace
 
 
