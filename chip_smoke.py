@@ -9,11 +9,12 @@ against its plain PyTorch version on the card, drives the paper simulation
 against the same runs on the CPU, runs a `run_many` group of 16 cells as one
 batch on each device engine (every cell bitwise its solo run), runs the
 sweep harness (`run_sweep`) and
-the sustained service (`SustainedService`) on them, serves six models of the model zoo
+the sustained service (`SustainedService`) on them, serves eight models of the model zoo
 (`serve_loop`) at full width through K4 and K5 (qwen2-7b, rwkv6-7b, the MoE
 granite-moe-3b-a800m, stablelm-3b at head dim 80 and yi-6b at full depth,
-qwen1.5-110b at 16 of its 80 layers), and trains qwen2-7b and rwkv6-7b
-(`train_loop`) at full width with the depth cut.  Phases, in order:
+qwen1.5-110b at 16 of its 80 layers, the MLA deepseek-v3-671b at 5 of 61
+and the Mamba hybrid jamba-v0.1-52b at 16 of 32), and trains qwen2-7b and
+rwkv6-7b (`train_loop`) at full width with the depth cut.  Phases, in order:
 
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. kernel build (one nvcc per source, all four started together; plain C
@@ -132,7 +133,25 @@ qwen1.5-110b at 16 of its 80 layers), and trains qwen2-7b and rwkv6-7b
      granite also a warm run under sync debug (no host sync in the model's
      code) and a profiled run (idle share, the MoE's share of device time
      and its launches per step); the phase's wall time;
- 13. the training path: train_loop(fl=True) — the Stackelberg planner's
+ 13. MLA and Mamba: one full-width MLA layer of deepseek-v3-671b (prefill
+     B 1 x S 512, one naive and one absorbed decode step) and one
+     full-width Mamba layer of jamba-v0.1-52b (prefill B 1 x S 512, one
+     decode step) on the card against the port's CPU path from the same
+     weights and inputs (2e-2 of the scale, bf16); then, each freed before
+     the next loads, serve_loop as in phase 11 (kernel path, batch 4,
+     prompt 512, 32 new tokens, counters set to 0 just before and read
+     just after) for deepseek-v3-671b at 5 of its 61 layers (3 dense + 2
+     MoE), served twice from the same weights, naive and absorbed MLA
+     decode (K4 exactly 0: MLA attends through the plain path), and
+     jamba-v0.1-52b at 16 of its 32 layers (K4 exactly 2, its attention
+     layers); parameter count, memory after init and at peak, prefill
+     tok/s, decode ms/step; prefill logits against "ref" routing-aware as
+     phase 12 (for the hybrid, on the tokens whose whole prefix was routed
+     alike, since the Mamba scan carries every earlier token); a warm run
+     of each under sync debug (no host sync in the decode loop) and an
+     8-token profiled run (idle share, kernels per prefill and per decode
+     step, per MoE and per Mamba call); the phase's wall time;
+ 14. the training path: train_loop(fl=True) — the Stackelberg planner's
      cohort weights in the loss, AdamW, train_loop's batch 8 x seq 128,
      lr 3e-4 — at full width with the depth cut (qwen2-7b at 4 layers for
      20 steps, rwkv6-7b at 2 for 8), random weights from a seed, the launch
@@ -148,7 +167,7 @@ qwen1.5-110b at 16 of its 80 layers), and trains qwen2-7b and rwkv6-7b
      against remat=False on the card; examples/torch_train_100m.py
      --steps 10 --ckpt-every 5 into a temporary directory, its checkpoint
      restored bitwise; every number beside the card's name and power limit;
- 14. the kernel list as one JSON line (K4's launches per served arch,
+ 15. the kernel list as one JSON line (K4's launches per served arch,
      `serve_launches`, and its D 80 check, `d80`; with K1-K3's launches on the
      hierarchy's, the batched groups', the sweep's and the service's paths:
      `hier_launches`, `batch_launches`, `sweep_launches`,
@@ -203,6 +222,7 @@ from repro_torch.kernels.fedavg_agg import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.serve import serve_loop  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
@@ -1683,8 +1703,11 @@ def moe_logits_check(arch, cfg, ref_cfg, params, batch) -> tuple[float, float]:
     (2) the logits within 4e-2 of the scale on the rows routed alike at
     every layer; (3) the whole tensor's error beside it; (4) the whole
     tensor within 4e-2 against "ref" routed as the kernel path routed
-    (`RoutingRecorder(replay=...)`).  Returns (rows' error, replayed whole
-    error)."""
+    (`RoutingRecorder(replay=...)`).  For a Mamba hybrid, (2) holds the
+    tokens whose whole prefix was routed alike (the scan carries an earlier
+    token routed elsewhere into every later state), and the rows routed
+    alike are printed beside the witness's, ungated.  Returns (rows' error,
+    replayed whole error)."""
     with RoutingRecorder() as got_routes:
         got = forward(cfg, params, batch)[0]
     with RoutingRecorder() as want_routes:
@@ -1695,21 +1718,36 @@ def moe_logits_check(arch, cfg, ref_cfg, params, batch) -> tuple[float, float]:
     attention_mod.flash_attention = flash_attention_plain
     try:
         with RoutingRecorder() as plain_routes:
-            forward(cfg, params, batch)
+            plain = forward(cfg, params, batch)[0]
     finally:
         attention_mod.flash_attention = real_k4
-    assert len(got_routes) == len(want_routes) == len(plain_routes) == cfg.n_layers
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert len(got_routes) == len(want_routes) == len(plain_routes) == n_moe
     b, s = batch["tokens"].shape
     shares, rows_agree = route_shares(got_routes, want_routes, b, s, cfg.top_k)
-    witness, _ = route_shares(plain_routes, want_routes, b, s, cfg.top_k)
+    witness, plain_agree = route_shares(plain_routes, want_routes, b, s, cfg.top_k)
     route_any = min(witness) - ROUTE_MARGIN
     g, w = got.float().reshape(b * s, -1), want.float().reshape(b * s, -1)
-    r = replayed.float().reshape(b * s, -1)
-    finite = all(bool(torch.isfinite(t).all()) for t in (g, w, r))
+    r, pl = replayed.float().reshape(b * s, -1), plain.float().reshape(b * s, -1)
+    del got, want, replayed, plain
+    finite = all(bool(torch.isfinite(t).all()) for t in (g, w, r, pl))
     scale = float(w.abs().max())
     whole = float((g - w).abs().max()) / scale
-    rows = float((g[rows_agree] - w[rows_agree]).abs().max()) / scale
+
+    def err_on(x, mask):
+        return float((x[mask] - w[mask]).abs().max()) / scale if bool(mask.any()) else float("nan")
+
+    def prefix_of(mask):
+        return torch.cummin(mask.reshape(b, s).int(), dim=1).values.bool().reshape(-1)
+
+    rows, plain_rows = err_on(g, rows_agree), err_on(pl, plain_agree)
     same_routes = float((g - r).abs().max()) / float(r.abs().max())
+    # A Mamba scan carries every earlier token of its sequence into a
+    # token's state, so for a hybrid a token counts as routed alike only
+    # when its whole prefix was (at every layer).
+    scan = any(k.mixer == "mamba" for st in tf_mod.stage_plan(cfg) for k in st.pattern)
+    prefix, plain_prefix = prefix_of(rows_agree), prefix_of(plain_agree)
+    prefix_err, plain_prefix_err = err_on(g, prefix), err_on(pl, plain_prefix)
     for name, sh in (("plain K4 (witness)", witness), ("kernel path", shares)):
         line(f"  routing agreement per layer, {name} vs ref (share of (token, slot) choices "
              f"shared): first {sh[0]:.4f}, min {min(sh):.4f}, mean {sum(sh) / len(sh):.4f} "
@@ -1718,9 +1756,19 @@ def moe_logits_check(arch, cfg, ref_cfg, params, batch) -> tuple[float, float]:
          f"witness's min {min(witness):.4f} less {ROUTE_MARGIN}); the witness at every layer "
          f"{ROUTE_FLOOR}")
     line(f"  prefill logits, kernel path vs ref on the card: rows routed alike at every layer "
-         f"{int(rows_agree.sum())}/{b * s}, their rel_err={rows:.3e} (limit 4e-2); whole tensor "
-         f"rel_err={whole:.3e}; ref routed as the kernel path: rel_err={same_routes:.3e} "
-         f"(limit 4e-2); finite={finite}; max|logit|={scale:.3f}")
+         f"{int(rows_agree.sum())}/{b * s}, their rel_err={rows:.3e}"
+         + ("" if scan else " (limit 4e-2)")
+         + f"; whole tensor rel_err={whole:.3e}; ref routed as the kernel path: "
+         f"rel_err={same_routes:.3e} (limit 4e-2); finite={finite}; max|logit|={scale:.3f}")
+    line(f"  tokens whose whole prefix was routed alike at every layer {int(prefix.sum())}/"
+         f"{b * s}, their rel_err={prefix_err:.3e}"
+         + (" (limit 4e-2, the Mamba scan's rows)" if scan else ""))
+    line(f"  plain K4 (witness) vs ref: rows routed alike at every layer "
+         f"{int(plain_agree.sum())}/{b * s}, their rel_err={plain_rows:.3e}; tokens whose whole "
+         f"prefix was {int(plain_prefix.sum())}/{b * s}, their rel_err={plain_prefix_err:.3e} "
+         "(printed beside the kernel path's: no kernel in it)")
+    if scan:
+        rows = prefix_err
     if not (finite and shares[0] >= ROUTE_FIRST and witness[0] >= ROUTE_FIRST
             and min(witness) >= ROUTE_FLOOR and min(shares) >= route_any
             and rows <= 4e-2 and same_routes <= 4e-2):
@@ -1731,110 +1779,174 @@ def moe_logits_check(arch, cfg, ref_cfg, params, batch) -> tuple[float, float]:
     return rows, same_routes
 
 
+# The profiler ranges of a serving run (`profiled_ranges`): the prefill step,
+# each decode step, each MoE FFN call and each Mamba mixer call (named by
+# its sequence length: prefill T 512, decode T 1).
+STEP_RANGES = ("prefill", "decode_step")
+
+
+def is_range(key: str) -> bool:
+    return key in STEP_RANGES or key == "moe_apply" or key.startswith("mamba T=")
+
+
 def device_kernels(prof) -> list:
     """The profile's device events by name, without the device-side copies
     of user ranges (`record_function`), which span their kernels."""
     return [e for e in prof.key_averages() if e.self_device_time_total > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA and e.key != "moe_apply"]
+            and e.device_type == torch.autograd.DeviceType.CUDA and not is_range(e.key)]
 
 
-def moe_profile_share(prof, steps: int) -> None:
-    """The MoE FFN's share of the profiled run's device time and its
-    launches per step, from the `moe_apply` ranges (`profiled_moe`)."""
-    def kernels_under(ev) -> tuple[int, float]:
-        n = len(getattr(ev, "kernels", []) or [])
-        us = sum(k.duration for k in (getattr(ev, "kernels", []) or []))
-        for c in ev.cpu_children:
-            cn, cus = kernels_under(c)
-            n, us = n + cn, us + cus
-        return n, us
+def kernels_under(ev) -> tuple[int, float]:
+    """(kernels, their device us) launched inside a CPU event, children
+    included."""
+    n = len(getattr(ev, "kernels", []) or [])
+    us = sum(k.duration for k in (getattr(ev, "kernels", []) or []))
+    for c in ev.cpu_children:
+        cn, cus = kernels_under(c)
+        n, us = n + cn, us + cus
+    return n, us
 
-    ranges = [e for e in prof.events() if e.name == "moe_apply"
-              and e.device_type == torch.autograd.DeviceType.CPU]
-    n = sum(kernels_under(e)[0] for e in ranges)
-    us = sum(kernels_under(e)[1] for e in ranges)
+
+def range_shares(prof) -> dict:
+    """Per range name of `profiled_ranges`: its calls, the kernels launched
+    inside them and their device time, printed with its share of the
+    profiled run's device time; returns {name: (calls, kernels, us)}."""
+    by_name: dict = {}
+    for e in prof.events():
+        if is_range(e.name) and e.device_type == torch.autograd.DeviceType.CPU:
+            calls, n, us = by_name.get(e.name, (0, 0, 0.0))
+            kn, kus = kernels_under(e)
+            by_name[e.name] = (calls + 1, n + kn, us + kus)
     busy = sum(e.self_device_time_total for e in device_kernels(prof)) or float("nan")
-    if n == 0:
-        line(f"  MoE share of device time: not measured ({len(ranges)} moe_apply ranges, no "
-             "kernel linked to them in this trace)")
-        return
-    line(f"  MoE FFN ({len(ranges)} moe_apply calls): device_ms={us / 1e3:.2f} share of device "
-         f"time {us / busy:.4f}; kernels {n} ({n / len(ranges):.1f} per moe_apply call, "
-         f"~{n / steps:.0f} per step)")
+    labels = {"moe_apply": "MoE FFN", "prefill": "prefill step", "decode_step": "decode step"}
+    for name, (calls, n, us) in by_name.items():
+        label = labels.get(name, "Mamba mixer")
+        if n == 0:
+            line(f"  {label} share of device time: not measured ({calls} {name} ranges, no "
+                 "kernel linked to them in this trace)")
+            continue
+        line(f"  {label} ({calls} {name} calls): device_ms={us / 1e3:.2f} share of device "
+             f"time {us / busy:.4f}; kernels {n} ({n / calls:.1f} per {name} call)")
+    return by_name
 
 
-class profiled_moe:
-    """Inside `with`, every `moe_apply` of the model runs under a profiler
-    range named "moe_apply"."""
+class profiled_ranges:
+    """Inside `with`, the serving run's prefill step, decode steps, MoE FFN
+    calls and Mamba mixer calls each run under a profiler range."""
 
     def __enter__(self):
         from torch.profiler import record_function
-        self.real = tf_mod.moe_apply
 
-        def ranged(*args, **kw):
-            with record_function("moe_apply"):
-                return self.real(*args, **kw)
+        def ranged(fn, name_of):
+            def wrapper(*args, **kw):
+                with record_function(name_of(*args)):
+                    return fn(*args, **kw)
+            return wrapper
 
-        tf_mod.moe_apply = ranged
+        self.real = (tf_mod.moe_apply, tf_mod.mamba_forward, serve_mod.make_prefill_step,
+                     serve_mod.make_serve_step)
+        moe, mamba, prefill, step = self.real
+        tf_mod.moe_apply = ranged(moe, lambda *a: "moe_apply")
+        tf_mod.mamba_forward = ranged(mamba, lambda p, cfg, x, *rest: f"mamba T={x.shape[1]}")
+        serve_mod.make_prefill_step = lambda *a, **kw: ranged(prefill(*a, **kw),
+                                                             lambda *_: "prefill")
+        serve_mod.make_serve_step = lambda *a, **kw: ranged(step(*a, **kw),
+                                                           lambda *_: "decode_step")
 
     def __exit__(self, *exc) -> None:
-        tf_mod.moe_apply = self.real
+        (tf_mod.moe_apply, tf_mod.mamba_forward, serve_mod.make_prefill_step,
+         serve_mod.make_serve_step) = self.real
 
 
 def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
-                full: bool = True) -> dict:
+                full: bool = True, variants: tuple = ()) -> dict:
     """Serve `arch` at full width on the kernel path, at full depth or cut
     to `layers`: random weights from the seed, the launch counters set to 0
     just before serve_loop and read just after; `kernel` must have launched
-    exactly `expect` times.  Then prefill logits on the kernel path against
-    the "ref" path on the same weights and prompt (4e-2 of the scale, the
-    JAX package's serving tolerance; an MoE arch by `moe_logits_check`).
-    With `full`, a warm second run under torch's sync debug mode (every
-    host sync, by source line; none may come from the model's code, which
-    the decode loop runs) and a third, of PROFILE_TOKENS new tokens, under
-    torch.profiler (the card's busy time and idle share; an MoE arch's
-    share of it)."""
+    exactly `expect` times and no other kernel at all.  Then prefill logits
+    on the kernel path against the "ref" path on the same weights and
+    prompt (4e-2 of the scale, the JAX package's serving tolerance; an MoE
+    arch by `moe_logits_check`; not where the run launched no kernel, as
+    the two paths then run the same code).  With `full`, a warm second run under
+    torch's sync debug mode (every host sync, by source line; none may come
+    from the model's code, which the decode loop runs) and a third, of
+    PROFILE_TOKENS new tokens, under torch.profiler (the card's busy time
+    and idle share; kernels per prefill and per decode step; an MoE arch's
+    and a Mamba arch's share of it).  `variants`, (label, config fields),
+    are served after that from the same weights, each with its counters
+    and, with `full`, its own warm run under sync debug mode (deepseek's
+    absorbed MLA decode)."""
     base = get_config(arch)
     if layers:
         base = dataclasses.replace(base, n_layers=layers)
     cfg = dataclasses.replace(base, attn_impl="pallas", rwkv_wkv_impl="pallas")
     ref_cfg = dataclasses.replace(base, attn_impl="ref", rwkv_wkv_impl="ref")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(SERVE["seed"]))
     torch.cuda.synchronize()
     n_params = param_count(params)
     line(f"serve {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers): init_params "
          f"{time.perf_counter() - t0:.2f}s; params={n_params}; memory allocated "
-         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; {CARD}")
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, max_memory_allocated during init "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
 
-    for fn in COUNTERS.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    first = serve_loop(cfg, device=DEV, params=params, **SERVE)
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in COUNTERS.items()}
-    line(f"main path serve {arch} (kernel path) B={SERVE['batch']} prompt={SERVE['prompt_len']} "
-         f"new_tokens={SERVE['new_tokens']}: launches "
-         + " ".join(f"{k}={v}" for k, v in launches.items())
-         + f"; first run wall_s={wall:.3f} prefill_s={first.prefill_s:.4f} "
-         f"({first.prefill_tok_s:.0f} tok/s) decode_s={first.decode_s:.4f} "
-         f"({first.decode_tok_s:.1f} tok/s, {first.decode_s / SERVE['new_tokens'] * 1e3:.3f} "
-         f"ms/step)")
-    if launches[kernel] != expect:
-        raise AssertionError(f"serve {arch}: {kernel} launched {launches[kernel]} times, "
-                             f"expected {expect}")
-    others = [k for k, v in launches.items() if v and k != kernel]
-    if others:
-        raise AssertionError(f"serve {arch}: unexpected kernels launched: {others}")
+    def served(run_cfg, label: str):
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = serve_loop(run_cfg, device=DEV, params=params, **SERVE)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in COUNTERS.items()}
+        line(f"main path serve {label} (kernel path) B={SERVE['batch']} "
+             f"prompt={SERVE['prompt_len']} new_tokens={SERVE['new_tokens']}: launches "
+             + " ".join(f"{k}={v}" for k, v in launches.items())
+             + f"; first run wall_s={wall:.3f} prefill_s={res.prefill_s:.4f} "
+             f"({res.prefill_tok_s:.0f} tok/s) decode_s={res.decode_s:.4f} "
+             f"({res.decode_tok_s:.1f} tok/s, {res.decode_s / SERVE['new_tokens'] * 1e3:.3f} "
+             f"ms/step); max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+             f"GiB; {CARD}")
+        if launches[kernel] != expect:
+            raise AssertionError(f"serve {label}: {kernel} launched {launches[kernel]} times, "
+                                 f"expected {expect}")
+        others = [k for k, v in launches.items() if v and k != kernel]
+        if others:
+            raise AssertionError(f"serve {label}: unexpected kernels launched: {others}")
+        toks = res.tokens
+        if not (toks.shape == (SERVE["batch"], SERVE["new_tokens"] + 1)
+                and ((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"serve {label}: generated tokens out of range / wrong shape")
+        return res, launches
+
+    def warm_run(run_cfg, label: str, first):
+        warm, by_line = sync_counted(lambda: serve_loop(run_cfg, device=DEV, params=params,
+                                                        log_every=SERVE["new_tokens"], **SERVE))
+        syncs = sum(by_line.values())
+        in_model = [k for k in by_line if not k.startswith("serve.py:")]
+        line(f"  warm run {label}: prefill_s={warm.prefill_s:.4f} ({warm.prefill_tok_s:.0f} "
+             f"tok/s) decode_s={warm.decode_s:.4f} ({warm.decode_tok_s:.1f} tok/s, "
+             f"{warm.decode_s / SERVE['new_tokens'] * 1e3:.3f} ms/step); same tokens as the "
+             f"first run: {bool(np.array_equal(warm.tokens, first.tokens))}; {syncs} "
+             "synchronizing calls: "
+             + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(6))
+             + f"; in the model's code (the decode loop's): {len(in_model)}")
+        if in_model:
+            raise AssertionError(f"serve {label}: host syncs in the model's code: {in_model}")
+        return warm
+
+    first, launches = served(cfg, arch)
     toks = first.tokens
-    if not (toks.shape == (SERVE["batch"], SERVE["new_tokens"] + 1)
-            and ((toks >= 0) & (toks < cfg.vocab)).all()):
-        raise AssertionError(f"serve {arch}: generated tokens out of range / wrong shape")
-
     prompt = synthetic_token_batch(np.random.default_rng(SERVE["seed"]), SERVE["batch"],
                                    SERVE["prompt_len"], cfg.vocab)["tokens"]
     batch = {"tokens": torch.from_numpy(prompt).to(DEV)}
-    if cfg.n_experts:
+    if not any(launches.values()):
+        # No kernel ran, so the kernel path and "ref" run the same code
+        # (deepseek's MLA never reaches K4): the full-width layer against
+        # the CPU (`full_width_layers`) is this arch's check.
+        err = None
+        line(f"  prefill logits, kernel path vs ref: not compared, no kernel launched on "
+             f"{arch}'s path, so the two paths run the same code")
+    elif cfg.n_experts:
         err, _ = moe_logits_check(arch, cfg, ref_cfg, params, batch)
     else:
         got = forward(cfg, params, batch)[0]
@@ -1849,33 +1961,38 @@ def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
         del got, want
         if not (finite and err <= 4e-2):
             raise AssertionError(f"serve {arch}: prefill logits off the ref path ({err:.3e})")
-    out = dict(launches=launches, first=first, warm=None, err=err, params=n_params)
-    if not full:
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
-        return out
+    out = dict(launches=launches, first=first, warm=None, err=err, params=n_params,
+               variants={})
+    if full:
+        out["warm"] = warm_run(cfg, arch, first)
+        out["profile"] = profile_serve(cfg, params)
+    for label, kw in variants:
+        run_cfg = dataclasses.replace(cfg, **kw)
+        res, v_launches = served(run_cfg, f"{arch} {label}")
+        same = float((res.tokens == toks).mean())
+        line(f"  {label} against the first run's tokens: {same:.3f} equal; decode "
+             f"{res.decode_s / SERVE['new_tokens'] * 1e3:.3f} against "
+             f"{first.decode_s / SERVE['new_tokens'] * 1e3:.3f} ms/step")
+        out["variants"][label] = dict(first=res, launches=v_launches,
+                                      warm=warm_run(run_cfg, f"{arch} {label}", res)
+                                      if full else None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
-    warm, by_line = sync_counted(lambda: serve_loop(cfg, device=DEV, params=params,
-                                                    log_every=SERVE["new_tokens"], **SERVE))
-    syncs = sum(by_line.values())
-    in_model = [k for k in by_line if not k.startswith("serve.py:")]
-    line(f"  warm run: prefill_s={warm.prefill_s:.4f} ({warm.prefill_tok_s:.0f} tok/s) "
-         f"decode_s={warm.decode_s:.4f} ({warm.decode_tok_s:.1f} tok/s, "
-         f"{warm.decode_s / SERVE['new_tokens'] * 1e3:.3f} ms/step); same tokens as the first "
-         f"run: {bool(np.array_equal(warm.tokens, toks))}; {syncs} synchronizing calls: "
-         + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(6))
-         + f"; in the model's code (the decode loop's): {len(in_model)}")
-    if in_model:
-        raise AssertionError(f"serve {arch}: host syncs in the model's code: {in_model}")
-    out["warm"] = warm
 
+def profile_serve(cfg, params) -> dict:
+    """A run of PROFILE_TOKENS new tokens under torch.profiler: the card's
+    busy time and idle share, the kernels by time, and per range
+    (`profiled_ranges`) its kernels and device time; returns the kernels
+    per prefill and per decode step."""
     from torch.profiler import ProfilerActivity, profile
     # The profiled run decodes fewer tokens than SERVE: reading a trace back
     # costs ~40 s per ~90 000 kernels (a 32-token qwen2-7b run).
     prof_serve = dict(SERVE, new_tokens=PROFILE_TOKENS)
-    with profiled_moe(), profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
+    with profiled_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prof_run = serve_loop(cfg, device=DEV, params=params,
                               log_every=prof_serve["new_tokens"], **prof_serve)
@@ -1891,13 +2008,14 @@ def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
          f"kernel_launches={n_launch} (~{n_launch / steps:.0f} per step)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         line(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    if cfg.n_experts:
-        moe_profile_share(prof, steps)
+    ranges = range_shares(prof)
+    per = {name: ranges[name][1] / ranges[name][0] for name in STEP_RANGES if name in ranges}
+    line(f"  kernels per prefill {per.get('prefill', float('nan')):.0f}, per decode step "
+         f"{per.get('decode_step', float('nan')):.1f} (warm-up step included)")
     line(f"  profile read back in {time.perf_counter() - t0:.1f}s")
-    del params, prof
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+    del prof
+    return dict(idle=1 - busy_ms / 1e3 / prof_wall, launches=n_launch, per=per,
+                ranges={k: v[:2] for k, v in ranges.items()})
 
 
 # The zoo phase: the four archs this slice serves, at batch 4, prompt 512,
@@ -1923,6 +2041,112 @@ def zoo_phase() -> dict:
         out[arch]["head_dim"] = cfg.head_dim
         line(f"zoo {arch}: wall_s={time.perf_counter() - t_arch:.1f}")
     line(f"zoo phase wall_s={time.perf_counter() - t0:.1f} on {CARD}")
+    return out
+
+
+# The MLA and Mamba phase: deepseek-v3-671b at 5 of its 61 layers (the 3
+# dense and 2 MoE layers: 27.5 B parameters, 55.1 GB in bf16; a third MoE
+# layer adds 23 GB) served with the naive and the absorbed MLA decode from
+# the same weights, then jamba-v0.1-52b at 16 of its 32 layers (2 periods
+# of 8: 26.1 B, 52.1 GB), each freed before the next loads: (arch, layers,
+# K4 launches expected, variants).  MLA never reaches K4 (its q/k width 192
+# and v width 128; the JAX package's mla_forward runs `_full_attn` too);
+# jamba's attention layers (layer 4 of each period) launch it once each.
+MLA_MAMBA = (("deepseek-v3-671b", 5, 0, (("absorbed", {"mla_absorb": True}),)),
+             ("jamba-v0.1-52b", 16, 2, ()))
+LAYER_TOL = 2e-2       # bf16 layer, card against CPU, of the scale
+
+
+def layer_vs_cpu(label: str, fn_card, fn_cpu) -> None:
+    """Run one layer's outputs on the card and on the CPU from the same
+    weights and inputs; each output within LAYER_TOL of the scale."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn_card()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fn_cpu()
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for name in want:
+        g, w = got[name].float().cpu(), want[name].float()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label} {name}: not finite on the card")
+        errs[name] = float((g - w).abs().max() / w.abs().max())
+    line(f"{label}, card vs cpu (bf16): " + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+         + f" (limit {LAYER_TOL}); card {card_s:.3f}s (first call), cpu {cpu_s:.2f}s; {CARD}")
+    if max(errs.values()) > LAYER_TOL:
+        raise AssertionError(f"{label}: card off the CPU ({errs})")
+
+
+def full_width_layers() -> None:
+    """One MLA layer of deepseek-v3-671b (prefill B 1 x S 512, then one
+    naive and one absorbed decode step at position 512) and one Mamba layer
+    of jamba-v0.1-52b (prefill B 1 x S 512, then one decode step) at full
+    width on the card against the port's own CPU path, same weights (drawn
+    on the card from the seed, copied to the CPU) and inputs."""
+    from repro_torch.models import attention as attn, ssm
+    ds, jb = get_config("deepseek-v3-671b"), get_config("jamba-v0.1-52b")
+    s = SERVE["prompt_len"]
+
+    def copy(tree, dev):
+        return tree_map(lambda t: t.to(dev), tree)
+
+    p_mla = attn.mla_init(torch.Generator(DEV).manual_seed(1), ds)
+    x = torch.randn(1, s + 1, ds.d_model, generator=torch.Generator().manual_seed(2)).bfloat16()
+    pos = torch.tensor(s, dtype=torch.int32)
+
+    def mla(p, dev):
+        out = {}
+        y, (c_kv, k_pe) = attn.mla_forward(p, ds, x[:, :s].to(dev), return_kv=True)
+        out.update(prefill_y=y, c_kv=c_kv, k_pe=k_pe)
+        for mode in ("naive", "absorbed"):
+            cfg = dataclasses.replace(ds, mla_absorb=mode == "absorbed")
+            cache = attn.init_mla_cache(cfg, 1, s + 1, dev)
+            cache["c_kv"][:, :s], cache["k_pe"][:, :s] = c_kv, k_pe
+            cache["pos"][:s] = torch.arange(s, dtype=torch.int32, device=dev)
+            cache["idx"].fill_(s)
+            out[f"{mode}_decode_y"], cache = attn.mla_decode(p, cfg, x[:, s:].to(dev), cache,
+                                                             pos.to(dev))
+            out[f"{mode}_c_kv"] = cache["c_kv"]
+        return out
+
+    layer_vs_cpu(f"full-width MLA layer (deepseek-v3-671b, 128 heads, B 1 x S {s}, then "
+                 "naive and absorbed decode)", lambda: mla(p_mla, DEV),
+                 lambda: mla(copy(p_mla, "cpu"), "cpu"))
+    del p_mla
+    p_mamba = ssm.mamba_init(torch.Generator(DEV).manual_seed(3), jb)
+    xm = torch.randn(1, s + 1, jb.d_model, generator=torch.Generator().manual_seed(4)).bfloat16()
+
+    def mamba(p, dev):
+        y, st = ssm.mamba_forward(p, jb, xm[:, :s].to(dev))
+        y1, st1 = ssm.mamba_decode(p, jb, xm[:, s:].to(dev), st)
+        return dict(prefill_y=y, ssm=st["ssm"], conv=st["conv"], decode_y=y1,
+                    decode_ssm=st1["ssm"])
+
+    layer_vs_cpu(f"full-width Mamba layer (jamba-v0.1-52b, d_inner 8192, N 16, B 1 x S {s}, "
+                 "then one decode step)", lambda: mamba(p_mamba, DEV),
+                 lambda: mamba(copy(p_mamba, "cpu"), "cpu"))
+    del p_mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mla_mamba_phase() -> dict:
+    t0 = time.perf_counter()
+    full_width_layers()
+    out = {}
+    for arch, layers, expect, variants in MLA_MAMBA:
+        t_arch = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        line(f"{arch}: memory allocated before init {torch.cuda.memory_allocated() / 2**30:.2f}"
+             " GiB")
+        out[arch] = serve_phase(arch, "flash_attention", expect, layers=layers,
+                                variants=variants)
+        line(f"{arch}: wall_s={time.perf_counter() - t_arch:.1f}")
+    line(f"MLA and Mamba phase wall_s={time.perf_counter() - t0:.1f} on {CARD}")
     return out
 
 
@@ -2335,12 +2559,16 @@ def main() -> None:
     phase_mark(12, t_all)
     zoo = zoo_phase()
 
-    # ---- 13. the training path ------------------------------------------------
+    # ---- 13. MLA and Mamba: deepseek-v3-671b and jamba-v0.1-52b -------------------
     phase_mark(13, t_all)
+    mla_mamba = mla_mamba_phase()
+
+    # ---- 14. the training path ------------------------------------------------
+    phase_mark(14, t_all)
     train = train_phase()
 
-    # ---- 14. kernel list ----------------------------------------------------
-    phase_mark(14, t_all)
+    # ---- 15. kernel list ----------------------------------------------------
+    phase_mark(15, t_all)
     kernels = []
     hier_launches = {"polyblock_fused": hs_launches["polyblock_fused"],
                      "polyblock_project": hstep_launches["polyblock_project"],
@@ -2369,7 +2597,8 @@ def main() -> None:
         kernels[-1]["train_launches"] = {arch: n[name] for arch, n in train.items()}
         if name == "flash_attention":
             kernels[-1]["serve_launches"] = dict(
-                {"qwen2-7b": launches}, **{a: r["launches"][name] for a, r in zoo.items()})
+                {"qwen2-7b": launches}, **{a: r["launches"][name] for a, r in zoo.items()},
+                **{a: r["launches"][name] for a, r in mla_mamba.items()})
             kernels[-1]["d80"] = {k: k4_d80[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                          "bound_ms", "bound_by", "library_ms")}
         if "lanes" in res:

@@ -1,9 +1,13 @@
 """Config registry of the port's model zoo: the architectures whose layer
 kinds the port runs (dense GQA: qwen2-7b, stablelm-3b, yi-6b,
-qwen1.5-110b; GQA + MoE: granite-moe-3b-a800m; RWKV-6: rwkv6-7b), and their
-reduced smoke variants via the `-smoke` suffix (`ArchConfig.reduced()`)."""
+qwen1.5-110b; GQA + MoE: granite-moe-3b-a800m; RWKV-6: rwkv6-7b; MLA + MoE
+with the MTP head: deepseek-v3-671b; Mamba + GQA + MoE: jamba-v0.1-52b),
+and their reduced smoke variants via the `-smoke` suffix
+(`ArchConfig.reduced()`)."""
 from .base import INPUT_SHAPES, ArchConfig, InputShape
+from .deepseek_v3_671b import CONFIG as deepseek_v3_671b
 from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
+from .jamba_v0_1_52b import CONFIG as jamba_v0_1_52b
 from .qwen1_5_110b import CONFIG as qwen1_5_110b
 from .qwen2_7b import CONFIG as qwen2_7b
 from .rwkv6_7b import CONFIG as rwkv6_7b
@@ -12,11 +16,11 @@ from .yi_6b import CONFIG as yi_6b
 
 ARCHS: dict[str, ArchConfig] = {
     c.name: c for c in (qwen2_7b, rwkv6_7b, stablelm_3b, yi_6b, qwen1_5_110b,
-                        granite_moe_3b_a800m)}
+                        granite_moe_3b_a800m, deepseek_v3_671b, jamba_v0_1_52b)}
 
-# The JAX package's other architectures: their families (MLA, hybrid/Mamba,
-# audio, VLM) are still to port.
-STILL_TO_PORT = ("deepseek-v3-671b", "whisper-base", "jamba-v0.1-52b", "qwen2-vl-2b")
+# The JAX package's other architectures: their families (audio, VLM) are
+# still to port.
+STILL_TO_PORT = ("whisper-base", "qwen2-vl-2b")
 
 
 def get_config(name: str) -> ArchConfig:

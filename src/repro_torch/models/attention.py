@@ -1,6 +1,7 @@
-"""Grouped-query attention (PyTorch copy of the GQA part of the JAX
-package's `models/attention.py`): QKV bias, RoPE, sliding window, chunked
-softmax for long prefill, and the ring-buffer decode cache.
+"""Grouped-query attention and deepseek-style MLA (PyTorch copy of the GQA
+and MLA parts of the JAX package's `models/attention.py`): QKV bias, RoPE,
+sliding window, chunked softmax for long prefill, the ring-buffer decode
+cache, and MLA's low-rank latent KV cache with its decoupled RoPE key.
 
 Grouped heads never materialize the repeated K/V: queries are reshaped to
 (B, S, Hkv, G, Dh) and contracted against (B, S, Hkv, Dh) directly.
@@ -11,16 +12,21 @@ Caches (decode path) are ring buffers:
 K is stored *with RoPE applied at its true position*, so decode never
 re-rotates the cache.  Sliding-window configs simply allocate C = window.
 
-Unlike the JAX package's functional cache, `gqa_decode` writes the new
-token's K/V, position and write index into the cache IN PLACE (the cache
-is the decode step's largest state; a copy per step would move all of it).
-A caller that wants to keep the old cache passes a clone.
+MLA caches the latent instead: {"c_kv": (B, C, kv_lora_rank), "k_pe": (B,
+C, qk_rope_dim) (rotated), "pos", "idx"}.
+
+Unlike the JAX package's functional cache, `gqa_decode` and `mla_decode`
+write the new token's entries, position and write index into the cache IN
+PLACE (the cache is the decode step's largest state; a copy per step would
+move all of it).  A caller that wants to keep the old cache passes a clone.
 
 `attn_impl="pallas"` runs prefill attention through the flash-attention
 wrapper (K4: the CUDA kernel on the card, its plain version for CPU
 tensors); `"ref"` keeps the JAX package's plain path (`_full_attn`).
 Decode attention over the ring is plain torch ops in both, as in the JAX
-package.
+package.  MLA runs `_full_attn` whatever `attn_impl` says, as the JAX
+package's `mla_forward` does (its q/k width 192 and v width 128 are not a
+shape K4 takes).
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from .layers import DTYPE, apply_rope, dense, dense_init
 
-__all__ = ["gqa_init", "gqa_forward", "gqa_decode", "init_kv_cache"]
+__all__ = ["gqa_init", "gqa_forward", "gqa_decode", "init_kv_cache", "mla_init",
+           "mla_forward", "mla_decode", "init_mla_cache"]
 
 NEG_INF = -1e30
 
@@ -136,6 +143,23 @@ def init_kv_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
     }
 
 
+def _ring_write(cache, entries: dict, cur_pos, window: int):
+    """Write `entries` (name -> (B, 1, ...)) at slot idx % C of the ring (its
+    sequence axis 1) and cur_pos at that slot of "pos", advance idx, all in
+    place; returns the (C,) mask of the slots a query at cur_pos sees."""
+    c = cache["pos"].shape[0]
+    slot = (cache["idx"] % c).reshape(1).long()
+    for name, value in entries.items():
+        cache[name].index_copy_(1, slot, value)
+    cache["pos"].index_copy_(0, slot, cur_pos.reshape(1).to(torch.int32))
+    cache["idx"].add_(1)
+    pos = cache["pos"]
+    valid = (pos >= 0) & (pos <= cur_pos)
+    if window > 0:
+        valid &= pos > cur_pos - window
+    return valid
+
+
 def gqa_decode(p, cfg: ArchConfig, x, cache, cur_pos):
     """One-token decode: x (B, 1, d); cur_pos a () int32 tensor, the global
     position, on x's device (no host read).  Writes slot idx % C of the
@@ -146,21 +170,116 @@ def gqa_decode(p, cfg: ArchConfig, x, cache, cur_pos):
     g = cfg.n_heads // hkv
     positions = cur_pos.reshape(1, 1).expand(b, 1)
     q, k, v = _project_qkv(p, cfg, x, positions)
-
-    c = cache["k"].shape[1]
-    slot = (cache["idx"] % c).reshape(1).long()
-    cache["k"].index_copy_(1, slot, k)
-    cache["v"].index_copy_(1, slot, v)
-    cache["pos"].index_copy_(0, slot, cur_pos.reshape(1).to(torch.int32))
-    cache["idx"].add_(1)
-
-    new_pos = cache["pos"]
-    valid = (new_pos >= 0) & (new_pos <= cur_pos)
-    if cfg.sliding_window > 0:
-        valid &= new_pos > cur_pos - cfg.sliding_window
+    valid = _ring_write(cache, {"k": k, "v": v}, cur_pos, cfg.sliding_window)
     mask = valid[None, None, None, None, :]                    # (1,1,1,1,C)
 
     qg = q.reshape(b, 1, hkv, g, dh)
     out = _sdpa(qg, cache["k"], cache["v"], mask, dh**-0.5)
     y = dense(p["wo"], out.reshape(b, 1, cfg.n_heads * dh))
     return y, cache
+
+
+# --------------------------------------------------------------------------
+# MLA (deepseek-v3): low-rank latent KV, decoupled RoPE key.
+# --------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ArchConfig):
+    h = cfg.n_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "q_down": dense_init(gen, cfg.d_model, cfg.q_lora_rank),
+        "q_up": dense_init(gen, cfg.q_lora_rank, h * qk),
+        "kv_down": dense_init(gen, cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_dim),
+        "kv_up": dense_init(gen, cfg.kv_lora_rank, h * (cfg.qk_nope_dim + cfg.v_head_dim)),
+        "wo": dense_init(gen, h * cfg.v_head_dim, cfg.d_model),
+    }
+
+
+def _mla_q(p, cfg: ArchConfig, xq, positions):
+    """Queries (B, Sq, H, dn + dr), the last dr columns rotated at
+    `positions`."""
+    b, sq, _ = xq.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = dense(p["q_up"], dense(p["q_down"], xq)).reshape(b, sq, cfg.n_heads, dn + dr)
+    return torch.cat([q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)], -1)
+
+
+def _mla_kv_from_latent(p, cfg: ArchConfig, c_kv, k_pe):
+    """Up-project the latent (key side): k (B, Sk, H, dn + dr) with the
+    rotated k_pe broadcast over the heads, v (B, Sk, H, dv)."""
+    b, sk, _ = c_kv.shape
+    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kv = dense(p["kv_up"], c_kv).reshape(b, sk, h, dn + dv)
+    k = torch.cat([kv[..., :dn], k_pe[:, :, None, :].expand(b, sk, h, dr)], -1)
+    return k, kv[..., dn:]
+
+
+def _mla_latent(p, cfg: ArchConfig, x, positions):
+    """(c_kv (B, S, r), k_pe (B, S, dr) rotated at `positions`)."""
+    down = dense(p["kv_down"], x)
+    r = cfg.kv_lora_rank
+    k_pe = apply_rope(down[..., None, r:], positions, cfg.rope_theta)[:, :, 0, :]
+    return down[..., :r], k_pe
+
+
+def mla_forward(p, cfg: ArchConfig, x, *, positions=None, chunk: int = 0,
+                return_kv: bool = False):
+    """Training / prefill MLA (causal, optional sliding window), through
+    `_full_attn` with one query head per key head.  With return_kv=True
+    also returns the latent (c_kv, k_pe) that seeds the decode cache."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    c_kv, k_pe = _mla_latent(p, cfg, x, positions)
+    k, v = _mla_kv_from_latent(p, cfg, c_kv, k_pe)
+    q = _mla_q(p, cfg, x, positions)
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    out = _full_attn(q[:, :, :, None, :], k, v, scale, cfg.sliding_window, chunk)[:, :, :, 0]
+    y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
+    if return_kv:
+        return y, (c_kv, k_pe)
+    return y
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
+    """The latent (kv_lora + rope) per token, not per-head K/V."""
+    return {
+        "c_kv": torch.zeros(batch, cache_len, cfg.kv_lora_rank, dtype=DTYPE, device=device),
+        "k_pe": torch.zeros(batch, cache_len, cfg.qk_rope_dim, dtype=DTYPE, device=device),
+        "pos": torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+        "idx": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos):
+    """One-token MLA decode: x (B, 1, d), cur_pos a () int32 tensor on x's
+    device.  Writes the token's latent at slot idx % C in place, advances
+    idx, and returns (y, cache).  Two modes, as in the JAX package:
+
+    * naive: up-project the whole latent cache to per-head K/V, then
+      attention over the ring;
+    * absorbed (cfg.mla_absorb): fold kv_up into the query and output
+      projections (f32 einsums), so attention runs in the latent space and
+      no per-head K/V exists.  The same math in another order."""
+    b = x.shape[0]
+    dn, dr, h, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.n_heads, cfg.v_head_dim
+    positions = cur_pos.reshape(1, 1).expand(b, 1)
+    c_new, k_pe_new = _mla_latent(p, cfg, x, positions)
+    valid = _ring_write(cache, {"c_kv": c_new, "k_pe": k_pe_new}, cur_pos, cfg.sliding_window)
+    c_kv, k_pe = cache["c_kv"], cache["k_pe"]
+    q = _mla_q(p, cfg, x, positions)
+    scale = (dn + dr) ** -0.5
+    if cfg.mla_absorb:
+        w_up = p["kv_up"]["w"].reshape(cfg.kv_lora_rank, h, dn + dv).float()
+        w_k, w_v = w_up[..., :dn], w_up[..., dn:]
+        q_abs = torch.einsum("bqhd,rhd->bqhr", q[..., :dn].float(), w_k)
+        logits = torch.einsum("bqhr,bcr->bhqc", q_abs, c_kv.float())
+        logits = logits + torch.einsum("bqhd,bcd->bhqc", q[..., dn:].float(), k_pe.float())
+        logits = torch.where(valid, logits * scale, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        o_lat = torch.einsum("bhqc,bcr->bqhr", probs, c_kv.float())
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_v).to(x.dtype)
+    else:
+        k, v = _mla_kv_from_latent(p, cfg, c_kv, k_pe)
+        out = _sdpa(q[:, :, :, None, :], k, v, valid, scale)[:, :, :, 0]
+    return dense(p["wo"], out.reshape(b, 1, h * dv)), cache

@@ -1,5 +1,5 @@
 """Model-zoo building blocks (PyTorch copy of the JAX package's
-`models/layers.py`, the parts the dense-GQA and RWKV-6 families use).
+`models/layers.py`, the parts the ported families use).
 
 Parameter convention as in the JAX package: every weight matrix is stored
 (fan_in, fan_out) in bf16, norms in f32; compute runs in bf16 with f32
@@ -8,11 +8,14 @@ JAX tree maps onto them leaf by leaf (`transformer.params_from_jax`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 __all__ = [
     "DTYPE",
+    "normal_bf16",
     "dense_init",
     "dense",
     "rmsnorm_init",
@@ -24,6 +27,22 @@ __all__ = [
 ]
 
 DTYPE = torch.bfloat16
+# Draws are made in slices of about DRAW_SLICE_ELEMS elements along their
+# first axis, so that the f32 temporary stays small beside the model on the
+# card (deepseek-v3's (256, 7168, 2048) expert stack would be 15 GB in f32).
+DRAW_SLICE_ELEMS = 1 << 28
+
+
+def normal_bf16(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
+    """Normal(0, 1) * scale drawn in f32 on `gen`'s device, stored bf16."""
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=DTYPE, device=gen.device)
+    step = max(1, DRAW_SLICE_ELEMS // max(1, math.prod(shape[1:])))
+    for i in range(0, shape[0], step):
+        part = torch.randn((min(step, shape[0] - i),) + shape[1:], generator=gen,
+                           device=gen.device)
+        out[i:i + part.shape[0]].copy_(part.mul_(scale))
+    return out
 
 
 def dense_init(gen: torch.Generator, n_in: int, n_out: int, *, bias: bool = False,
@@ -31,8 +50,7 @@ def dense_init(gen: torch.Generator, n_in: int, n_out: int, *, bias: bool = Fals
     """Normal(0, 1) * scale in f32, stored bf16; scale defaults to
     sqrt(2 / (n_in + n_out)), as in the JAX package."""
     scale = (2.0 / (n_in + n_out)) ** 0.5 if scale is None else scale
-    w = torch.randn(n_in, n_out, generator=gen, device=gen.device) * scale
-    p = {"w": w.to(DTYPE)}
+    p = {"w": normal_bf16(gen, (n_in, n_out), scale)}
     if bias:
         p["b"] = torch.zeros(n_out, dtype=DTYPE, device=gen.device)
     return p

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .layers import DTYPE, dense_init, swiglu, swiglu_init
+from .layers import dense_init, normal_bf16, swiglu, swiglu_init
 
 __all__ = ["moe_init", "moe_apply", "pad_experts", "CAPACITY_FACTOR"]
 
@@ -58,15 +58,13 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig, *, ep_size: int = 1):
     one SwiGLU of width ff * n_shared_experts."""
     _check_ep(ep_size)
     e_pad = pad_experts(cfg.n_experts, ep_size)
-    ff, d, dev = cfg.ffn_expert, cfg.d_model, gen.device
+    ff, d = cfg.ffn_expert, cfg.d_model
     scale = (2.0 / (d + ff)) ** 0.5
 
-    def experts(shape):
-        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(DTYPE)
-
     p: dict[str, Any] = {"router": dense_init(gen, d, cfg.n_experts, scale=0.02),
-                         "gate": experts((e_pad, d, ff)), "up": experts((e_pad, d, ff)),
-                         "down": experts((e_pad, ff, d))}
+                         "gate": normal_bf16(gen, (e_pad, d, ff), scale),
+                         "up": normal_bf16(gen, (e_pad, d, ff), scale),
+                         "down": normal_bf16(gen, (e_pad, ff, d), scale)}
     if cfg.n_shared_experts > 0:
         p["shared"] = swiglu_init(gen, d, ff * cfg.n_shared_experts)
     return p

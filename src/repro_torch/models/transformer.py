@@ -1,10 +1,13 @@
 """Model-zoo assembly (PyTorch copy of the JAX package's
-`models/transformer.py`), for the three layer kinds the port runs so far:
+`models/transformer.py`), for the layer kinds the port runs:
 `LayerKind("attn", "dense")` (GQA + SwiGLU: qwen2-7b, stablelm-3b, yi-6b,
 qwen1.5-110b), `LayerKind("attn", "moe")` (GQA + the MoE FFN of
-`models/moe.py`: granite-moe-3b-a800m) and `LayerKind("rwkv", "rwkv_cm")`
-(RWKV-6 time-mix + channel-mix: rwkv6-7b).  Any other mixer or FFN raises
-NotImplementedError.
+`models/moe.py`: granite-moe-3b-a800m), `LayerKind("rwkv", "rwkv_cm")`
+(RWKV-6 time-mix + channel-mix: rwkv6-7b), `LayerKind("mla", "dense" |
+"moe")` (MLA with a dense prefix, then MoE: deepseek-v3-671b, with its MTP
+head) and `LayerKind("mamba", "dense" | "moe")` beside `("attn", "dense")`
+(the jamba hybrid's period of 8).  Any other kind, an encoder-decoder or
+M-RoPE raises NotImplementedError.
 
 The stage plan is the JAX package's: layers are grouped into stages, each
 a periodic pattern of sublayer kinds repeated `repeats` times.  Where the
@@ -16,11 +19,15 @@ runs a Python loop over the layers:
 
 The decode caches keep the JAX package's stage-stacked layout, e.g. for an
 attention group {"k": (repeats, B, C, Hkv, Dh), "v": ..., "pos":
-(repeats, C), "idx": (repeats,)}, so they compare leaf for leaf; each
-layer reads and writes its own slice in place (`decode_step`).
+(repeats, C), "idx": (repeats,)}, for an MLA group {"c_kv": (repeats, B,
+C, r), "k_pe": ..., "pos", "idx"}, for a Mamba group {"mamba": {"ssm":
+(repeats, B, di, N), "conv": (repeats, B, kw - 1, di)}}, so they compare
+leaf for leaf; each layer reads and writes its own slice in place
+(`decode_step`).
 
 Modes:
-  forward(..., mode="train")   -> (logits, aux)     lm_loss trains on it
+  forward(..., mode="train")   -> (logits, aux), or (logits, aux,
+                                  mtp_logits) with cfg.mtp; lm_loss trains on it
   forward(..., mode="prefill") -> (logits, aux, cache)  also seeds the caches
   decode_step(...)             -> (logits, cache)       one token, ring caches
 
@@ -37,11 +44,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv6
-from .attention import gqa_decode, gqa_forward, gqa_init, init_kv_cache
-from .layers import DTYPE, dense, dense_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .attention import (gqa_decode, gqa_forward, gqa_init, init_kv_cache, init_mla_cache,
+                        mla_decode, mla_forward, mla_init)
+from .layers import (DTYPE, dense, dense_init, normal_bf16, rmsnorm, rmsnorm_init, swiglu,
+                     swiglu_init)
 from .moe import moe_apply, moe_init
-from .ssm import (init_rwkv6_state, rwkv6_channel_mix, rwkv6_init, rwkv6_time_mix,
-                  wkv6_scan_ref)
+from .ssm import (init_mamba_state, init_rwkv6_state, mamba_forward, mamba_init,
+                  rwkv6_channel_mix, rwkv6_init, rwkv6_time_mix, wkv6_scan_ref)
 
 __all__ = [
     "LayerKind",
@@ -90,7 +99,9 @@ class Stage:
 
 
 PORTED_KINDS = (LayerKind("attn", "dense"), LayerKind("attn", "moe"),
-                LayerKind("rwkv", "rwkv_cm"))
+                LayerKind("rwkv", "rwkv_cm"), LayerKind("mla", "dense"),
+                LayerKind("mla", "moe"), LayerKind("mamba", "dense"),
+                LayerKind("mamba", "moe"))
 
 
 def _kind_of(cfg: ArchConfig, i: int, *, decoder: bool) -> LayerKind:
@@ -141,8 +152,8 @@ def _ported_plan(cfg: ArchConfig) -> list[Stage]:
                     f"{cfg.name}: layer kind {kind.tag!r} is still to port to PyTorch "
                     f"(ROADMAP.md, Queue 1 'LLM zoo'); the port runs "
                     f"{[k.tag for k in PORTED_KINDS]}")
-    if cfg.is_encoder_decoder or cfg.mtp or cfg.use_mrope:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder, MTP and M-RoPE are "
+    if cfg.is_encoder_decoder or cfg.use_mrope:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder and M-RoPE are "
                                   "still to port (ROADMAP.md, Queue 1 'LLM zoo')")
     return stages
 
@@ -155,6 +166,10 @@ def _init_sublayer(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind):
     p: dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, gen.device)}
     if kind.mixer == "attn":
         p["attn"] = gqa_init(gen, cfg)
+    elif kind.mixer == "mla":
+        p["attn"] = mla_init(gen, cfg)
+    elif kind.mixer == "mamba":
+        p["mamba"] = mamba_init(gen, cfg)
     else:
         p["rwkv"] = rwkv6_init(gen, cfg)
     p["ln2"] = rmsnorm_init(cfg.d_model, gen.device)
@@ -168,20 +183,22 @@ def _init_sublayer(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind):
 def init_params(cfg: ArchConfig, gen: torch.Generator):
     """Random parameters on `gen`'s device, drawn from `gen` with the JAX
     package's distributions (normal * scale stored bf16, f32 norms, RWKV
-    w0 = -6 and u = 0; experts unpadded, as the JAX package's ep_size 1).
-    The two frameworks draw different numbers from one seed: tests hand the
-    JAX package's draws over with `params_from_jax`."""
+    w0 = -6 and u = 0; experts unpadded, as the JAX package's ep_size 1;
+    with cfg.mtp the top-level `mtp_ln` and `mtp_head`).  The two
+    frameworks draw different numbers from one seed: tests hand the JAX
+    package's draws over with `params_from_jax`."""
     stages = _ported_plan(cfg)
-    embed = torch.randn(cfg.vocab, cfg.d_model, generator=gen, device=gen.device) * 0.02
     p: dict[str, Any] = {
-        "embed": {"w": embed.to(DTYPE)},
+        "embed": {"w": normal_bf16(gen, (cfg.vocab, cfg.d_model), 0.02)},
         "final_ln": rmsnorm_init(cfg.d_model, gen.device),
         "lm_head": dense_init(gen, cfg.d_model, cfg.vocab, scale=0.02),
     }
-    del embed
     for si, st in enumerate(stages):
         for li, kind in enumerate(st.pattern):
             p[f"s{si}_l{li}"] = [_init_sublayer(gen, cfg, kind) for _ in range(st.repeats)]
+    if cfg.mtp:
+        p["mtp_ln"] = rmsnorm_init(cfg.d_model, gen.device)
+        p["mtp_head"] = dense_init(gen, cfg.d_model, cfg.vocab, scale=0.02)
     return p
 
 
@@ -204,7 +221,8 @@ def params_from_jax(cfg: ArchConfig, jax_params, device="cpu"):
     """The port's parameters from the JAX package's `init_params` tree (its
     leaves as numpy arrays, or anything np.asarray takes): each stacked
     `s{si}_l{li}` group is unstacked along its leading `repeats` axis into
-    a list of per-layer dicts."""
+    a list of per-layer dicts; every other entry (embed, final_ln, lm_head,
+    the MTP head's mtp_ln and mtp_head) is copied as it is."""
     stages = _ported_plan(cfg)
     out: dict[str, Any] = {}
     for name, sub in jax_params.items():
@@ -245,6 +263,17 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, positions, chunk: int, want_cache
             cache = {"k": k_, "v": v_}
         else:
             h = gqa_forward(p["attn"], cfg, h_in, positions=positions, chunk=chunk)
+    elif kind.mixer == "mla":
+        if want_cache:
+            h, (ckv, kpe) = mla_forward(p["attn"], cfg, h_in, positions=positions, chunk=chunk,
+                                        return_kv=True)
+            cache = {"c_kv": ckv, "k_pe": kpe}
+        else:
+            h = mla_forward(p["attn"], cfg, h_in, positions=positions, chunk=chunk)
+    elif kind.mixer == "mamba":
+        h, st = mamba_forward(p["mamba"], cfg, h_in)
+        if want_cache:
+            cache = {"mamba": st}
     else:
         st = init_rwkv6_state(cfg, x.shape[0], x.device)
         h, st = rwkv6_time_mix(p["rwkv"], cfg, h_in, st, wkv_impl=_wkv_impl(cfg))
@@ -271,7 +300,9 @@ def _sublayer_train(cfg, kind: LayerKind, p, x, positions, chunk: int):
 
 def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headroom: int = 0,
             remat: bool = False):
-    """mode: "train" -> (logits, aux); "prefill" -> (logits, aux, cache).
+    """mode: "train" -> (logits, aux), with cfg.mtp (logits, aux,
+    mtp_logits), the MTP head on the final normed hidden state; "prefill"
+    -> (logits, aux, cache).
 
     batch["tokens"]: (B, S) integer tensor on the parameters' device.
     cache_headroom: extra decode slots to allocate in the prefill cache
@@ -304,6 +335,9 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
     h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
     logits = dense(params["lm_head"], h)
     if mode == "train":
+        if cfg.mtp:
+            return logits, aux, dense(params["mtp_head"],
+                                      rmsnorm(params["mtp_ln"], h, cfg.norm_eps))
         return logits, aux
     return logits, aux, _assemble_prefill_cache(cfg, stages, all_caches, s, cache_headroom)
 
@@ -313,9 +347,13 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False):
     folded into the loss, so one backward pass gives the weighted FedAvg
     gradient.  batch["fl_weights"] (B,) f32 carries alpha_n * beta_n * S_n
     per device-cohort (1s outside the FL context; rows of weight 0 add
-    nothing).  Returns (loss + router_aux_coef * aux, {"aux": aux}); aux is
-    the MoE layers' summed load-balance loss (0 without MoE layers)."""
-    logits, aux = forward(cfg, params, batch, mode="train", remat=remat)
+    nothing).  With cfg.mtp the MTP head's NLL of the token after next
+    (its logits at t against labels at t + 1) adds mtp_weight times its
+    weighted mean.  Returns (loss + router_aux_coef * aux, {"aux": aux});
+    aux is the MoE layers' summed load-balance loss (0 without MoE
+    layers)."""
+    out = forward(cfg, params, batch, mode="train", remat=remat)
+    logits, aux = out[0], out[1]
     labels = batch["labels"].long()
     w = batch.get("fl_weights")
     if w is None:
@@ -324,6 +362,10 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False):
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]            # (B, S)
     wsum = torch.clamp(w.sum(), min=1e-9)
     loss = (nll.mean(dim=-1) * w).sum() / wsum
+    if cfg.mtp:
+        lp2 = torch.log_softmax(out[2][:, :-1].float(), dim=-1)
+        nll2 = -torch.gather(lp2, -1, labels[:, 1:, None])[..., 0]
+        loss = loss + cfg.mtp_weight * (nll2.mean(dim=-1) * w).sum() / wsum
     return loss + cfg.router_aux_coef * aux, {"aux": aux}
 
 
@@ -348,6 +390,10 @@ def _empty_sublayer_cache(cfg: ArchConfig, kind: LayerKind, batch: int, cache_le
                           device):
     if kind.mixer == "attn":
         c: dict[str, Any] = init_kv_cache(cfg, batch, cache_len, device)
+    elif kind.mixer == "mla":
+        c = init_mla_cache(cfg, batch, cache_len, device)
+    elif kind.mixer == "mamba":
+        c = {"mamba": init_mamba_state(cfg, batch, device)}
     else:
         c = {"rwkv": init_rwkv6_state(cfg, batch, device)}
     if kind.ffn == "rwkv_cm":
@@ -402,14 +448,17 @@ def _assemble_prefill_cache(cfg, stages, all_caches, s, headroom):
         for li, kind in enumerate(st.pattern):
             got = all_caches[si][li]
             stack = lambda f: torch.stack([f(g) for g in got])   # noqa: E731
-            if kind.mixer == "attn":
-                device = got[0]["k"].device
+            if kind.mixer in ("attn", "mla"):
+                names = ("k", "v") if kind.mixer == "attn" else ("c_kv", "k_pe")
+                device = got[0][names[0]].device
                 c: dict[str, Any] = {
-                    "k": _ring_from_prefill(stack(lambda g: g["k"]), s, clen, 2),
-                    "v": _ring_from_prefill(stack(lambda g: g["v"]), s, clen, 2),
-                    "pos": _ring_positions(s, clen, st.repeats, device),
-                    "idx": torch.full((st.repeats,), s, dtype=torch.int32, device=device),
-                }
+                    name: _ring_from_prefill(stack(lambda g: g[name]), s, clen, 2)
+                    for name in names}
+                c["pos"] = _ring_positions(s, clen, st.repeats, device)
+                c["idx"] = torch.full((st.repeats,), s, dtype=torch.int32, device=device)
+            elif kind.mixer == "mamba":
+                c = {"mamba": {"ssm": stack(lambda g: g["mamba"]["ssm"]),
+                               "conv": stack(lambda g: g["mamba"]["conv"])}}
             else:
                 c = {"rwkv": {"wkv": stack(lambda g: g["rwkv"]["wkv"]),
                               "prev_tok": stack(lambda g: g["rwkv"]["prev_tok"])}}
@@ -430,6 +479,14 @@ def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos):
     if kind.mixer == "attn":
         view = {name: c[name][i] for name in ("k", "v", "pos", "idx")}
         h, _ = gqa_decode(p["attn"], cfg, h_in, view, cur_pos)
+    elif kind.mixer == "mla":
+        view = {name: c[name][i] for name in ("c_kv", "k_pe", "pos", "idx")}
+        h, _ = mla_decode(p["attn"], cfg, h_in, view, cur_pos)
+    elif kind.mixer == "mamba":
+        st = {"ssm": c["mamba"]["ssm"][i], "conv": c["mamba"]["conv"][i]}
+        h, new = mamba_forward(p["mamba"], cfg, h_in, st)
+        st["ssm"].copy_(new["ssm"])
+        st["conv"].copy_(new["conv"])
     else:
         st = {"wkv": c["rwkv"]["wkv"][i], "prev_tok": c["rwkv"]["prev_tok"][i]}
         h, new = rwkv6_time_mix(p["rwkv"], cfg, h_in, st, wkv_impl=_wkv_impl(cfg))

@@ -8,6 +8,7 @@ imports no JAX, so it runs on a GPU machine without it:
 """
 import dataclasses
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -824,3 +825,59 @@ def test_train_loop_reads_the_host_once_per_step(dev):
     syncs = _syncs(lambda: train_loop("qwen2-7b-smoke", steps=3, fl=True, device=dev))
     assert len(syncs) == 3 and len(set(syncs)) == 1, syncs
     assert "launch/train.py" in syncs[0], syncs
+
+
+@pytest.mark.parametrize("mixer", ["mla", "mla-absorbed", "mamba"])
+def test_mla_and_mamba_layers_on_the_card_match_the_cpu(dev, mixer):
+    """One MLA layer (deepseek-v3-671b-smoke; decode naive and absorbed) and
+    one Mamba layer (jamba-v0.1-52b-smoke) at smoke width, bf16, on the
+    card against the CPU from the same weights and inputs: prefill (S 64)
+    and one decode step after it, the output and the new cache or state
+    within 2e-2 of the scale (bf16 GEMMs summed in different orders)."""
+    from repro_torch.models import attention, ssm
+    arch = "jamba-v0.1-52b-smoke" if mixer == "mamba" else "deepseek-v3-671b-smoke"
+    cfg = dataclasses.replace(get_config(arch), mla_absorb=mixer == "mla-absorbed")
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 65, cfg.d_model, generator=gen).bfloat16()
+    pos = torch.tensor(64, dtype=torch.int32)
+    outs = {}
+    for where in ("cpu", dev):
+        if mixer == "mamba":
+            p = _to(ssm.mamba_init(torch.Generator().manual_seed(1), cfg), where)
+            y, st = ssm.mamba_forward(p, cfg, x[:, :64].to(where))
+            y1, st1 = ssm.mamba_decode(p, cfg, x[:, 64:].to(where), st)
+            outs[str(where)] = [y, st["ssm"], st["conv"], y1, st1["ssm"], st1["conv"]]
+        else:
+            p = _to(attention.mla_init(torch.Generator().manual_seed(1), cfg), where)
+            y, (c_kv, k_pe) = attention.mla_forward(p, cfg, x[:, :64].to(where), return_kv=True)
+            cache = attention.init_mla_cache(cfg, 2, 80, where)
+            cache["c_kv"][:, :64], cache["k_pe"][:, :64] = c_kv, k_pe
+            cache["pos"][:64] = torch.arange(64, dtype=torch.int32)
+            cache["idx"].fill_(64)
+            y1, cache = attention.mla_decode(p, cfg, x[:, 64:].to(where), cache, pos.to(where))
+            outs[str(where)] = [y, c_kv, k_pe, y1, cache["c_kv"], cache["k_pe"]]
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        assert got.dtype == want.dtype and bool(torch.isfinite(got.float()).all())
+        assert _rel_max(got.float().cpu(), want.float()) < 2e-2
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b-smoke", "jamba-v0.1-52b-smoke"])
+def test_serve_loop_new_archs_on_the_card_without_host_syncs(dev, arch):
+    """serve_loop on the card for the MLA arch (K4 never: MLA attends
+    through the plain path, as in the JAX package) and the Mamba hybrid (K4
+    once per attention layer: 1 of jamba-smoke's 8), kernel path; a second,
+    warm run under torch's sync debug mode makes no synchronizing call
+    outside serve.py (its timing syncs and the final read), so none in the
+    decode loop; the greedy tokens of the two runs equal."""
+    from repro_torch.launch import serve as serve_mod
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    params = _to(init_params(cfg, torch.Generator().manual_seed(0)), dev)
+    flash_attention.launches = 0
+    kw = dict(batch=2, prompt_len=32, new_tokens=4, device=dev, params=params)
+    first = serve_loop(cfg, **kw)
+    assert flash_attention.launches == (1 if cfg.family == "hybrid" else 0)
+    res = {}
+    syncs = _syncs(lambda: res.setdefault("warm", serve_loop(cfg, **kw)))
+    here = Path(serve_mod.__file__).resolve()
+    assert all(Path(s.rsplit(":", 1)[0]).resolve() == here for s in syncs), syncs
+    assert np.array_equal(res["warm"].tokens, first.tokens)

@@ -154,10 +154,9 @@ def test_params_from_jax_and_init_params_match_the_jax_tree(arch):
 
 
 def test_config_registry():
-    assert sorted(ARCHS) == ["granite-moe-3b-a800m", "qwen1.5-110b", "qwen2-7b", "rwkv6-7b",
-                             "stablelm-3b", "yi-6b"]
-    assert sorted(STILL_TO_PORT) == ["deepseek-v3-671b", "jamba-v0.1-52b", "qwen2-vl-2b",
-                                     "whisper-base"]
+    assert sorted(ARCHS) == ["deepseek-v3-671b", "granite-moe-3b-a800m", "jamba-v0.1-52b",
+                             "qwen1.5-110b", "qwen2-7b", "rwkv6-7b", "stablelm-3b", "yi-6b"]
+    assert sorted(STILL_TO_PORT) == ["qwen2-vl-2b", "whisper-base"]
     for name in ARCHS:
         assert get_config(name) == ARCHS[name]
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jax_get_config(name))
@@ -171,7 +170,10 @@ def test_config_registry():
         get_config("gpt-5")
 
 
-def test_unported_layer_kinds_raise():
-    cfg = dataclasses.replace(get_config("qwen2-7b-smoke"), use_mla=True)
+@pytest.mark.parametrize("still_to_port", ["use_mrope", "is_encoder_decoder"])
+def test_unported_layer_kinds_raise(still_to_port):
+    """M-RoPE (qwen2-vl) and an encoder-decoder (whisper, whose decoder
+    layers carry cross-attention) are still to port."""
+    cfg = dataclasses.replace(get_config("qwen2-7b-smoke"), **{still_to_port: True})
     with pytest.raises(NotImplementedError, match="still to port"):
         init_params(cfg, torch.Generator().manual_seed(0))

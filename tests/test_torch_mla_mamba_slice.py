@@ -1,0 +1,374 @@
+"""deepseek-v3-671b (MLA, a dense prefix, MoE with a shared expert, the MTP
+head) and jamba-v0.1-52b (Mamba + GQA, MoE on odd layers) in the PyTorch
+port against the JAX package, on the CPU, on the JAX package's own
+`init_params` draws (`params_from_jax`): the stage plan, prefill logits,
+aux and every cache leaf, four teacher-forced decode steps (deepseek in
+both MLA decode modes), `serve_loop`'s greedy tokens, and `lm_loss` with
+the MTP term and its gradients.  Configs: deepseek-v3-671b-smoke
+(stages 1 x mla-dense, 1 x mla-moe), jamba-v0.1-52b-smoke (one period of
+8, repeats 1), the same at 16 layers (the period repeated twice: the first
+served plan with a period longer than 1 and repeats > 1), and jamba with
+attn_impl="pallas" (the JAX K4 in interpret mode against the port's plain
+K4 version).
+
+Both models route tokens to experts, and routing is discontinuous: bf16
+weights that round an ulp apart in the two packages can send a token to
+another expert.  So the slice is held on f32 copies of the draws in both
+packages, where the routes agree, within 1e-4 of the scale (max |diff| /
+max |want|; aux 1e-5 relative; measured on an x86-64 CPU, one thread:
+prefill 1.5e-6 deepseek, 5.2-7.7e-6 jamba; four decode steps 1.1-1.4e-6
+deepseek, 4.4-7.0e-6 jamba); in bf16 the logits are held only on the
+rows routed alike at every MoE layer, each package's routes recorded as
+it runs, to the serving tolerance 4e-2 (deepseek 1.1-1.2e-2), except
+jamba as the port runs it.
+The port's F.silu rounds once where XLA's op-by-op bf16 `jax.nn.silu`
+rounds each operation (1-2 ulp apart in ~30% of units, PR 21's finding);
+in Mamba that SiLU feeds dt, B and C, and the scan compounds it: jamba's
+prefill rows routed alike sit 4.4-7.0e-2 of the scale from JAX's (seeds
+11-13), and 1.5-1.9e-2 with an XLA-rounded SiLU patched into the port;
+the decode steps carry the SSM state on (0.21 at the second step as it
+runs, within 4e-2 with the patch).  So jamba is held to 4e-2 with that
+patch in prefill and decode, and as it runs its prefill to
+JAMBA_FSILU_TOL (1e-1), and its decode as it runs to the same on the
+rows whose every token so far was routed alike (3.2-4.5e-2), besides f32.
+Ring positions and write indices are held exactly.  `lm_loss` on f32
+copies: loss 1e-4 absolute (0 and 0), global grad norm 1e-4 relative
+(1.8e-8, 1.4e-7), each leaf's relative Frobenius error 1e-3 (2.7e-6,
+6.6e-6).
+"""
+from _torch_oracle import f32, jax_llm_params, rel_max  # noqa: I001  (alias first)
+
+import dataclasses
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.launch.serve import serve_loop as jax_serve_loop
+from repro.models import moe as JM
+from repro.models import transformer as JT
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as serve_mod
+from repro_torch.models import layers as TL
+from repro_torch.models import moe as TM
+from repro_torch.models import ssm as TS
+from repro_torch.models import transformer as TT
+from repro_torch.train.tree import jax_leaves, tree_leaves, tree_unflatten
+
+F32_TOL, AUX_RTOL, TOL, JAMBA_FSILU_TOL = 1e-4, 1e-5, 4e-2, 1e-1
+LOSS_ATOL, GNORM_RTOL, LEAF_RTOL = 1e-4, 1e-4, 1e-3
+DS, JAMBA = "deepseek-v3-671b-smoke", "jamba-v0.1-52b-smoke"
+# case -> (arch, overrides on both sides)
+CASES = {"deepseek": (DS, {}),
+         "deepseek-absorbed": (DS, {"mla_absorb": True}),
+         "jamba": (JAMBA, {}),
+         "jamba-16": (JAMBA, {"n_layers": 16}),
+         "jamba-pallas": (JAMBA, {"attn_impl": "pallas"})}
+PLANS = {DS: [(["mla-dense"], 1), (["mla-moe"], 1)],
+         JAMBA: [(["mamba-dense", "mamba-moe", "mamba-dense", "mamba-moe", "attn-dense",
+                   "mamba-moe", "mamba-dense", "mamba-moe"], 1)]}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _setup(case, dtype="f32", seed=11):
+    arch, kw = CASES[case]
+    jcfg = dataclasses.replace(jax_get_config(arch), **kw)
+    tcfg = dataclasses.replace(get_config(arch), **kw)
+    jp_np = jax_llm_params(jcfg, seed)
+    if dtype == "f32":
+        jp_np = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jp_np)
+    return jcfg, tcfg, jax.tree_util.tree_map(jnp.asarray, jp_np), TT.params_from_jax(tcfg, jp_np)
+
+
+def _tokens(vocab, b, n, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (b, n)).astype(np.int32)
+
+
+def _port_leaf(cache, path):
+    for p in path:
+        cache = cache[p.key]
+    return cache
+
+
+def _check_cache(tcache, jcache, tol):
+    leaves = jax.tree_util.tree_flatten_with_path(jcache)[0]
+    assert len(leaves) == len(jax.tree_util.tree_leaves(tcache))
+    for path, want in leaves:
+        got = _port_leaf(tcache, path)
+        assert tuple(got.shape) == want.shape, path
+        assert str(got.dtype).split(".")[-1] == want.dtype.name, path
+        if want.dtype == jnp.int32:                     # ring positions, write index
+            assert np.array_equal(got.numpy(), np.asarray(want)), path
+        else:
+            assert rel_max(got, want) < tol, path
+
+
+@pytest.mark.parametrize("case", ["deepseek", "jamba", "jamba-16"])
+def test_stage_plan_and_param_count_match_jax(case):
+    jcfg, tcfg, jp, tp = _setup(case)
+    plan = [([k.tag for k in st.pattern], st.repeats) for st in TT.stage_plan(tcfg)]
+    assert plan == [([k.tag for k in st.pattern], st.repeats) for st in JT.stage_plan(jcfg)]
+    want = PLANS[CASES[case][0]]
+    if case == "jamba-16":
+        want = [(want[0][0], 2)]
+    assert plan == want
+    assert TT.param_count(tp) == JT.param_count(jp)
+    assert ("mtp_head" in tp) == tcfg.mtp == (case == "deepseek")
+    assert len(tp["s0_l0"]) == plan[0][1]
+
+
+@pytest.mark.parametrize("case", ["deepseek", "jamba", "jamba-16", "jamba-pallas"])
+def test_prefill_matches_jax(case):
+    """Prefill logits, aux and every cache leaf (MLA's latent rings,
+    jamba's attention rings and Mamba states) on f32 copies: 1e-4 of the
+    scale, aux 1e-5 relative."""
+    jcfg, tcfg, jp, tp = _setup(case)
+    b, s, nd = 2, 24, 4
+    toks = _tokens(jcfg.vocab, b, s)
+    jl, jaux, jcache = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)}, mode="prefill",
+                                  cache_headroom=nd)
+    tl, taux, tcache = TT.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)},
+                                  mode="prefill", cache_headroom=nd)
+    assert tl.dtype == torch.float32 and tuple(tl.shape) == jl.shape
+    assert rel_max(tl, jl) < F32_TOL
+    assert float(taux) > 0 and abs(float(taux) - float(jaux)) <= AUX_RTOL * float(jaux)
+    _check_cache(tcache, jcache, F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_teacher_forced_decode_matches_jax(case):
+    """Four decode steps of the same tokens (JAX's greedy choices) from each
+    package's prefill cache, on f32 copies: logits of every step and, after
+    them, every cache leaf within 1e-4 of the scale; deepseek in each MLA
+    mode against the JAX package's same mode."""
+    jcfg, tcfg, jp, tp = _setup(case)
+    b, s, nd = 2, 20, 4
+    toks = _tokens(jcfg.vocab, b, s, seed=1)
+    jl, _, jcache = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)}, mode="prefill",
+                               cache_headroom=nd)
+    _, _, tcache = TT.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)}, mode="prefill",
+                              cache_headroom=nd)
+    jdecode = jax.jit(lambda p, bt, c: JT.decode_step(jcfg, p, bt, c))
+    tok = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)[:, None]
+    for d in range(nd):
+        jg, jcache = jdecode(jp, {"token": jnp.asarray(tok),
+                                  "pos": jnp.asarray(s + d, jnp.int32)}, jcache)
+        tg, tcache = TT.decode_step(tcfg, tp, {"token": torch.from_numpy(tok),
+                                               "pos": torch.tensor(s + d, dtype=torch.int32)},
+                                    tcache)
+        assert rel_max(tg, jg) < F32_TOL, d
+        tok = np.asarray(jnp.argmax(jg[:, -1], -1)).astype(np.int32)[:, None]
+    _check_cache(tcache, jcache, F32_TOL)
+
+
+# --------------------------------------------------------------------------
+# bf16: the rows routed alike
+# --------------------------------------------------------------------------
+
+def _record_routes(monkeypatch):
+    """Each package's expert choices per MoE call, in call order, as (T, k)
+    sorted expert ids: (jax list, port list)."""
+    jax_routes, port_routes = [], []
+    real_jax, real_port = JM._local_moe, TM._route
+
+    def jax_recording(x2d, router_w, gate, up, down, cfg, capacity, e_offset):
+        probs = jax.nn.softmax(x2d.astype(jnp.float32) @ router_w.astype(jnp.float32), -1)
+        jax_routes.append(np.sort(np.asarray(jax.lax.top_k(probs, cfg.top_k)[1]), -1))
+        return real_jax(x2d, router_w, gate, up, down, cfg, capacity, e_offset)
+
+    def port_recording(x2d, router_w, k):
+        out = real_port(x2d, router_w, k)
+        port_routes.append(np.sort(out[2].numpy(), -1))
+        return out
+
+    monkeypatch.setattr(JM, "_local_moe", jax_recording)
+    monkeypatch.setattr(TM, "_route", port_recording)
+    return jax_routes, port_routes
+
+
+def _alike(jax_routes, port_routes, b, t):
+    """(b, t) mask of the tokens routed alike at every recorded MoE call."""
+    assert len(jax_routes) == len(port_routes) > 0
+    same = np.ones(b * t, bool)
+    for j, p in zip(jax_routes, port_routes):
+        same &= (j == p).all(-1)
+    jax_routes.clear()
+    port_routes.clear()
+    return same.reshape(b, t)
+
+
+def _xla_silu(x):
+    """SiLU as XLA expands bf16 `jax.nn.silu`: x * 1 / (1 + exp(-x)), each
+    operation rounded to x's dtype."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+@pytest.mark.parametrize("case,silu", [("deepseek", "F.silu"), ("deepseek-absorbed", "F.silu"),
+                                       ("jamba", "F.silu"), ("jamba", "xla"),
+                                       ("jamba-pallas", "F.silu"), ("jamba-pallas", "xla")])
+def test_bf16_logits_match_jax_on_rows_routed_alike(case, silu, monkeypatch):
+    """The draws as they are (bf16), both packages eager: prefill logits and
+    three teacher-forced decode steps on the rows routed alike at every MoE
+    layer (most of them), within 4e-2 of the scale; jamba as the port runs
+    it (F.silu) its prefill within JAMBA_FSILU_TOL (module docstring)."""
+    jcfg, tcfg, jp, tp = _setup(case, dtype="bf16")
+    jax_routes, port_routes = _record_routes(monkeypatch)
+    if silu == "xla":
+        for mod in (TL, TS, TM):
+            monkeypatch.setattr(mod, "F", types.SimpleNamespace(silu=_xla_silu,
+                                                                softplus=mod.F.softplus))
+    tol = JAMBA_FSILU_TOL if (jcfg.family == "hybrid" and silu == "F.silu") else TOL
+    b, s, nd = 2, 20, 3
+    toks = _tokens(jcfg.vocab, b, s, seed=2)
+    jl, _, jcache = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)}, mode="prefill",
+                               cache_headroom=nd)
+    tl, _, tcache = TT.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)}, mode="prefill",
+                               cache_headroom=nd)
+    assert tl.dtype == torch.bfloat16
+    rows = _alike(jax_routes, port_routes, b, s)
+    assert rows.mean() > 0.5, rows.mean()
+    assert rel_max(f32(tl)[rows], f32(jl)[rows]) < tol
+    if tol != TOL:
+        return
+    tok = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)[:, None]
+    for d in range(nd):
+        jg, jcache = JT.decode_step(jcfg, jp, {"token": jnp.asarray(tok),
+                                               "pos": jnp.asarray(s + d, jnp.int32)}, jcache)
+        tg, tcache = TT.decode_step(tcfg, tp, {"token": torch.from_numpy(tok),
+                                               "pos": torch.tensor(s + d, dtype=torch.int32)},
+                                    tcache)
+        rows = _alike(jax_routes, port_routes, b, 1)
+        if rows.any():
+            assert rel_max(f32(tg)[rows], f32(jg)[rows]) < tol, d
+        tok = np.asarray(jnp.argmax(jg[:, -1], -1)).astype(np.int32)[:, None]
+
+
+@pytest.mark.parametrize("case", ["jamba", "jamba-pallas"])
+def test_bf16_hybrid_decode_as_it_runs_matches_jax_on_histories_routed_alike(case,
+                                                                             monkeypatch):
+    """jamba as the port runs it (F.silu), bf16, both packages eager: three
+    teacher-forced decode steps after the prefill, held on the rows whose
+    every token so far (prompt and decoded) was routed alike at every MoE
+    layer, since the scan carries a token routed elsewhere into every later
+    state; within JAMBA_FSILU_TOL of the scale (on an x86-64 CPU, one
+    thread: 3.2-4.5e-2 here, on the one row of four so held; at most
+    5.7e-2 over weight seeds 11-13 and prompt seeds 2-3).  At least one row
+    stays held at every step."""
+    jcfg, tcfg, jp, tp = _setup(case, dtype="bf16")
+    jax_routes, port_routes = _record_routes(monkeypatch)
+    b, s, nd = 4, 20, 3
+    toks = _tokens(jcfg.vocab, b, s, seed=3)
+    jl, _, jcache = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)}, mode="prefill",
+                               cache_headroom=nd)
+    _, _, tcache = TT.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)}, mode="prefill",
+                              cache_headroom=nd)
+    held = _alike(jax_routes, port_routes, b, s).all(1)
+    tok = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)[:, None]
+    for d in range(nd):
+        jg, jcache = JT.decode_step(jcfg, jp, {"token": jnp.asarray(tok),
+                                               "pos": jnp.asarray(s + d, jnp.int32)}, jcache)
+        tg, tcache = TT.decode_step(tcfg, tp, {"token": torch.from_numpy(tok),
+                                               "pos": torch.tensor(s + d, dtype=torch.int32)},
+                                    tcache)
+        held &= _alike(jax_routes, port_routes, b, 1)[:, 0]
+        assert held.any(), d
+        err = rel_max(f32(tg)[held], f32(jg)[held])
+        assert err < JAMBA_FSILU_TOL, d
+        tok = np.asarray(jnp.argmax(jg[:, -1], -1)).astype(np.int32)[:, None]
+
+
+# --------------------------------------------------------------------------
+# serve_loop and the CLI
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,impl", [(DS, "ref"), (JAMBA, "ref"), (JAMBA, "pallas")])
+def test_serve_loop_matches_jax_serve_loop(arch, impl):
+    """Greedy tokens equal to the JAX package's serve_loop (its "ref" paths)
+    on the same weights, up to the first step where JAX's top-2 logit
+    margin is under 2 x 4e-2 x max |logit|; from there the generations may
+    part (jamba-smoke's two rows part at such steps, the first and the
+    third decoded token)."""
+    batch, prompt_len, new_tokens, seed = 2, 16, 5, 5
+    want = jax_serve_loop(arch, batch=batch, prompt_len=prompt_len, new_tokens=new_tokens,
+                          seed=seed)
+    cfg = dataclasses.replace(get_config(arch), attn_impl=impl)
+    jp = jax_llm_params(jax_get_config(arch), seed)
+    got = serve_mod.serve_loop(cfg, batch=batch, prompt_len=prompt_len, new_tokens=new_tokens,
+                               seed=seed, device="cpu", params=TT.params_from_jax(cfg, jp))
+    assert got.tokens.shape == want.shape and got.tokens.dtype == np.int32
+    prompt = serve_mod.synthetic_token_batch(np.random.default_rng(seed), batch, prompt_len,
+                                             cfg.vocab)["tokens"]
+    seq = np.concatenate([prompt, want[:, :-1]], axis=1)
+    logits = f32(JT.forward(jax_get_config(arch), jp, {"tokens": jnp.asarray(seq)})[0])
+    logits = logits[:, prompt_len - 1:]
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    margin_tol = 2 * TOL * np.abs(logits).max()
+    for row in range(batch):
+        differ = np.nonzero(got.tokens[row] != want[row])[0]
+        if differ.size:
+            assert margin[row, differ[0]] < margin_tol, (row, differ[0], margin[row, differ[0]])
+
+
+@pytest.mark.parametrize("arch", [DS, JAMBA])
+def test_serve_cli_runs_the_new_archs_on_the_cpu(arch, capsys):
+    serve_mod.main(["--arch", arch, "--batch", "2", "--prompt-len", "8", "--new-tokens", "2",
+                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}" in out and "device=cpu" in out and "steady-state decode" in out
+
+
+# --------------------------------------------------------------------------
+# lm_loss with the MTP term
+# --------------------------------------------------------------------------
+
+def _jpath(path) -> tuple[str, ...]:
+    return tuple(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+
+@pytest.mark.parametrize("arch", [DS, JAMBA])
+def test_lm_loss_and_grads_match_jax(arch):
+    """The weighted NLL (fl_weights with a zero), plus for deepseek
+    mtp_weight x the MTP head's NLL of the token after next, and its
+    gradient against jax.value_and_grad on f32 copies of the same draws:
+    loss 1e-4 absolute, global grad norm 1e-4 relative, each leaf's
+    relative Frobenius error 1e-3; the MTP head's leaves get a gradient."""
+    jcfg, tcfg = jax_get_config(arch), get_config(arch)
+    p_np = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                  jax_llm_params(jcfg, 3))
+    toks = _tokens(jcfg.vocab, 4, 17)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "fl_weights": np.asarray([1.5, 0.0, 2.0, 0.5], np.float32)}
+    fn = jax.jit(jax.value_and_grad(lambda p, b: JT.lm_loss(jcfg, p, b), has_aux=True))
+    (jloss, jex), jgrads = fn(jax.tree_util.tree_map(jnp.asarray, p_np),
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+    params = TT.params_from_jax(tcfg, p_np)
+    out = TT.forward(tcfg, params, {"tokens": torch.from_numpy(batch["tokens"])})
+    assert len(out) == (3 if tcfg.mtp else 2)
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, ex = TT.lm_loss(tcfg, tree_unflatten(params, leaves),
+                          {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
+    assert abs(float(loss.detach()) - float(jloss)) <= LOSS_ATOL
+    assert abs(float(ex["aux"].detach()) - float(jex["aux"])) <= AUX_RTOL * float(jex["aux"])
+    g = [(p, f32(torch.stack(v) if isinstance(v, list) else v)) for p, v in jax_leaves(grads)]
+    w = [(_jpath(p), f32(v)) for p, v in jax.tree_util.tree_flatten_with_path(jgrads)[0]]
+    assert [p for p, _ in g] == [p for p, _ in w]
+    norm = lambda flat: float(np.sqrt(sum((a ** 2).sum() for _, a in flat)))  # noqa: E731
+    assert abs(norm(g) - norm(w)) <= GNORM_RTOL * norm(w)
+    for (path, a), (_, b) in zip(g, w):
+        assert a.shape == b.shape, path
+        assert np.linalg.norm(a - b) <= LEAF_RTOL * np.linalg.norm(b), path
+    if tcfg.mtp:
+        assert np.linalg.norm(dict(g)[("mtp_head", "w")]) > 0

@@ -352,12 +352,13 @@ class _MetaGen(torch.Generator):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "stablelm-3b", "yi-6b",
-                                  "qwen1.5-110b"])
+                                  "qwen1.5-110b", "deepseek-v3-671b", "jamba-v0.1-52b"])
 @pytest.mark.parametrize("size", ["full", "smoke"])
 def test_param_count_matches_jax_from_shapes(arch, size):
     """param_count of the port's tree equals the JAX package's, both from
     shapes alone: jax.eval_shape of its init_params, the port's init_params
-    on the meta device (qwen1.5-110b: 111 B parameters, never allocated)."""
+    on the meta device (qwen1.5-110b: 111 B parameters, deepseek-v3-671b:
+    671 952 965 632 with its MTP head, never allocated)."""
     name = arch if size == "full" else arch + "-smoke"
     jcfg, tcfg = jax_get_config(name), get_config(name)
     shapes = jax.eval_shape(lambda k: JT.init_params(jcfg, k), jax.random.PRNGKey(0))
@@ -367,3 +368,5 @@ def test_param_count_matches_jax_from_shapes(arch, size):
     TT._tree_map(lambda t: devices.add(t.device.type), tp)
     assert devices == {"meta"}
     assert TT.param_count(tp) == want
+    if name == "deepseek-v3-671b":
+        assert want == 671_952_965_632
