@@ -9,12 +9,14 @@ against its plain PyTorch version on the card, drives the paper simulation
 against the same runs on the CPU, runs a `run_many` group of 16 cells as one
 batch on each device engine (every cell bitwise its solo run), runs the
 sweep harness (`run_sweep`) and
-the sustained service (`SustainedService`) on them, serves eight models of the model zoo
-(`serve_loop`) at full width through K4 and K5 (qwen2-7b, rwkv6-7b, the MoE
+the sustained service (`SustainedService`) on them, serves all ten models of the
+model zoo (`serve_loop`) at full width through K4 and K5 (qwen2-7b, rwkv6-7b, the MoE
 granite-moe-3b-a800m, stablelm-3b at head dim 80 and yi-6b at full depth,
-qwen1.5-110b at 16 of its 80 layers, the MLA deepseek-v3-671b at 5 of 61
-and the Mamba hybrid jamba-v0.1-52b at 16 of 32), and trains qwen2-7b and
-rwkv6-7b (`train_loop`) at full width with the depth cut.  Phases, in order:
+qwen1.5-110b at 16 of its 80 layers, the MLA deepseek-v3-671b at 5 of 61,
+the Mamba hybrid jamba-v0.1-52b at 8 of 32, and at full depth the audio
+encoder-decoder whisper-base and the VLM qwen2-vl-2b), and trains qwen2-7b
+and rwkv6-7b (`train_loop`) at full width with the depth cut.  Phases, in
+order:
 
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. kernel build (one nvcc per source, all four started together; plain C
@@ -115,7 +117,7 @@ rwkv6-7b (`train_loop`) at full width with the depth cut.  Phases, in order:
      exactly 28, K5 exactly 1 088); prefill logits within 4e-2 of the
      "ref" path on the same weights on the card, tokens in range, logits
      finite; a second, warm run under torch's sync debug mode (no host
-     sync inside the decode loop) and a third, of 8 new tokens, under
+     sync inside the decode loop) and a third, of 4 new tokens, under
      torch.profiler;
  12. four more archs of the zoo, each freed before the next loads, the
      largest last: serve_loop as in phase 11 (kernel path, batch 4, prompt
@@ -143,15 +145,33 @@ rwkv6-7b (`train_loop`) at full width with the depth cut.  Phases, in order:
      just after) for deepseek-v3-671b at 5 of its 61 layers (3 dense + 2
      MoE), served twice from the same weights, naive and absorbed MLA
      decode (K4 exactly 0: MLA attends through the plain path), and
-     jamba-v0.1-52b at 16 of its 32 layers (K4 exactly 2, its attention
-     layers); parameter count, memory after init and at peak, prefill
+     jamba-v0.1-52b at 8 of its 32 layers (one period; K4 exactly 1, its
+     attention layer); parameter count, memory after init and at peak, prefill
      tok/s, decode ms/step; prefill logits against "ref" routing-aware as
      phase 12 (for the hybrid, on the tokens whose whole prefix was routed
      alike, since the Mamba scan carries every earlier token); a warm run
-     of each under sync debug (no host sync in the decode loop) and an
-     8-token profiled run (idle share, kernels per prefill and per decode
+     of each under sync debug (no host sync in the decode loop) and a
+     4-token profiled run (idle share, kernels per prefill and per decode
      step, per MoE and per Mamba call); the phase's wall time;
- 14. the training path: train_loop(fl=True) — the Stackelberg planner's
+ 14. the audio and VLM families: K4 against its plain version at their
+     prefill shapes, whisper-base's decoder (B 4, S 512, 8/8 heads, D 64)
+     and qwen2-vl-2b's (12/2 heads, D 128), bf16 and f32, each with its
+     time, bound and SDPA's; one full-width whisper-base decoder sublayer
+     (self-attention through K4, then cross-attention over 1 500 encoder
+     frames; prefill B 4 x S 512 and one decode step), one whisper-base
+     encoder layer (B 4 x 1 500 frames, non-causal) and one qwen2-vl-2b
+     attention layer on a 3-D M-RoPE grid (prefill and one decode step) on
+     the card against the port's CPU path from the same weights and inputs
+     (2e-2 of the scale, bf16); then serve_loop as in phase 11 (kernel
+     path, batch 4, prompt 512, 32 new tokens, counters set to 0 just
+     before and read just after) for whisper-base (6 encoder + 6 decoder
+     layers, stub zero frames; K4 exactly 6, the decoder's self-attention)
+     and qwen2-vl-2b (28 layers, stub zero patches and arange M-RoPE; K4
+     exactly 28); prefill logits against "ref" on seeded random frames, or
+     random patch embeddings (scale 0.02) on a 3-D grid; a warm run of
+     each under sync debug (no host sync in the decode loop) and a
+     4-token profiled run; the phase's wall time;
+ 15. the training path: train_loop(fl=True) — the Stackelberg planner's
      cohort weights in the loss, AdamW, train_loop's batch 8 x seq 128,
      lr 3e-4 — at full width with the depth cut (qwen2-7b at 4 layers for
      20 steps, rwkv6-7b at 2 for 8), random weights from a seed, the launch
@@ -167,13 +187,15 @@ rwkv6-7b (`train_loop`) at full width with the depth cut.  Phases, in order:
      against remat=False on the card; examples/torch_train_100m.py
      --steps 10 --ckpt-every 5 into a temporary directory, its checkpoint
      restored bitwise; every number beside the card's name and power limit;
- 15. the kernel list as one JSON line (K4's launches per served arch,
-     `serve_launches`, and its D 80 check, `d80`; with K1-K3's launches on the
-     hierarchy's, the batched groups', the sweep's and the service's paths:
-     `hier_launches`, `batch_launches`, `sweep_launches`,
-     `service_launches`; every kernel's launches on the training path,
-     `train_launches`; K1's bound at the hierarchy's and a service
-     segment's pairs, `at`; K3's cell axis at 1, 16 and 32 cells, `cells`).
+ 16. the kernel list as one JSON line (K4's launches per served arch,
+     `serve_launches`, its D 80 check, `d80`, and its checks at
+     whisper-base's and qwen2-vl-2b's shapes, `whisper_d64` and
+     `qwen2_vl_d128`; with K1-K3's launches on the hierarchy's, the
+     batched groups', the sweep's and the service's paths: `hier_launches`,
+     `batch_launches`, `sweep_launches`, `service_launches`; every kernel's
+     launches on the training path, `train_launches`; K1's bound at the
+     hierarchy's and a service segment's pairs, `at`; K3's cell axis at 1,
+     16 and 32 cells, `cells`).
 
 Any failure raises; the last line is the device JSON only when every phase
 passed.  Exits non-zero without a CUDA device or without the repository's
@@ -186,6 +208,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -232,6 +255,7 @@ from repro_torch.train.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf_mod  # noqa: E402
+from repro_torch.models.layers import mrope_grid  # noqa: E402
 from repro_torch.models.transformer import forward, init_params, param_count  # noqa: E402
 from repro_torch.models.small import get_small_model  # noqa: E402
 from repro_torch.scenarios import ScenarioStream  # noqa: E402
@@ -1622,7 +1646,10 @@ def service_pairs(cfg: ServiceConfig):
 # ---------------------------------------------------------------------------
 
 SERVE = dict(batch=4, prompt_len=512, new_tokens=32, seed=0)
-PROFILE_TOKENS = 8
+# Decode tokens of a profiled serving run: each profile is read back at
+# ~0.7-1.8 ms a kernel on a slow host, so 4 (~2 500 kernels a qwen2-7b
+# step) keep the script under its cap.
+PROFILE_TOKENS = 4
 
 
 class RoutingRecorder:
@@ -1858,6 +1885,25 @@ class profiled_ranges:
          serve_mod.make_serve_step) = self.real
 
 
+def check_frontend(cfg) -> dict:
+    """The audio and VLM families' inputs for the prefill logits check, on
+    the card, from a seed: encoder frames (B, encoder_seq, d) of unit
+    scale, or patch embeddings (B, n_patches, d) of scale 0.02 with the
+    prompt's 3-D M-RoPE grid (`mrope_grid`).  serve_loop's own stubs (zero
+    frames or patches, M-RoPE arange on all three streams, where M-RoPE is
+    RoPE) would not exercise these paths."""
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    gen = torch.Generator(DEV).manual_seed(SERVE["seed"] + 1)
+    if cfg.family == "audio":
+        return {"enc_frames": torch.randn(b, cfg.encoder_seq, cfg.d_model, generator=gen,
+                                          device=DEV).bfloat16()}
+    if cfg.family == "vlm":
+        return {"image_embeds": (0.02 * torch.randn(b, cfg.n_patches, cfg.d_model,
+                                                    generator=gen, device=DEV)).bfloat16(),
+                "mrope_pos": mrope_grid(b, s, cfg.n_patches, DEV)}
+    return {}
+
+
 def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
                 full: bool = True, variants: tuple = ()) -> dict:
     """Serve `arch` at full width on the kernel path, at full depth or cut
@@ -1867,7 +1913,8 @@ def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
     on the kernel path against the "ref" path on the same weights and
     prompt (4e-2 of the scale, the JAX package's serving tolerance; an MoE
     arch by `moe_logits_check`; not where the run launched no kernel, as
-    the two paths then run the same code).  With `full`, a warm second run under
+    the two paths then run the same code; the audio and VLM families on
+    `check_frontend`'s inputs).  With `full`, a warm second run under
     torch's sync debug mode (every host sync, by source line; none may come
     from the model's code, which the decode loop runs) and a third, of
     PROFILE_TOKENS new tokens, under torch.profiler (the card's busy time
@@ -1938,7 +1985,7 @@ def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
     toks = first.tokens
     prompt = synthetic_token_batch(np.random.default_rng(SERVE["seed"]), SERVE["batch"],
                                    SERVE["prompt_len"], cfg.vocab)["tokens"]
-    batch = {"tokens": torch.from_numpy(prompt).to(DEV)}
+    batch = {"tokens": torch.from_numpy(prompt).to(DEV), **check_frontend(cfg)}
     if not any(launches.values()):
         # No kernel ran, so the kernel path and "ref" run the same code
         # (deepseek's MLA never reaches K4): the full-width layer against
@@ -1988,8 +2035,7 @@ def profile_serve(cfg, params) -> dict:
     (`profiled_ranges`) its kernels and device time; returns the kernels
     per prefill and per decode step."""
     from torch.profiler import ProfilerActivity, profile
-    # The profiled run decodes fewer tokens than SERVE: reading a trace back
-    # costs ~40 s per ~90 000 kernels (a 32-token qwen2-7b run).
+    # The profiled run decodes fewer tokens than SERVE (PROFILE_TOKENS).
     prof_serve = dict(SERVE, new_tokens=PROFILE_TOKENS)
     with profiled_ranges(), profile(activities=[ProfilerActivity.CPU,
                                                 ProfilerActivity.CUDA]) as prof:
@@ -2047,13 +2093,15 @@ def zoo_phase() -> dict:
 # The MLA and Mamba phase: deepseek-v3-671b at 5 of its 61 layers (the 3
 # dense and 2 MoE layers: 27.5 B parameters, 55.1 GB in bf16; a third MoE
 # layer adds 23 GB) served with the naive and the absorbed MLA decode from
-# the same weights, then jamba-v0.1-52b at 16 of its 32 layers (2 periods
-# of 8: 26.1 B, 52.1 GB), each freed before the next loads: (arch, layers,
-# K4 launches expected, variants).  MLA never reaches K4 (its q/k width 192
-# and v width 128; the JAX package's mla_forward runs `_full_attn` too);
-# jamba's attention layers (layer 4 of each period) launch it once each.
+# the same weights, then jamba-v0.1-52b at 8 of its 32 layers (one period
+# of 8: 13.3 B, 26.6 GB; 16 layers took ~84 s of a slow host's run, its
+# 23 090-kernel prefill trace the most), each freed before the next loads:
+# (arch, layers, K4 launches expected, variants).  MLA never reaches K4
+# (its q/k width 192 and v width 128; the JAX package's mla_forward runs
+# `_full_attn` too); jamba's attention layer (layer 4 of the period)
+# launches it once.
 MLA_MAMBA = (("deepseek-v3-671b", 5, 0, (("absorbed", {"mla_absorb": True}),)),
-             ("jamba-v0.1-52b", 16, 2, ()))
+             ("jamba-v0.1-52b", 8, 1, ()))
 LAYER_TOL = 2e-2       # bf16 layer, card against CPU, of the scale
 
 
@@ -2148,6 +2196,110 @@ def mla_mamba_phase() -> dict:
         line(f"{arch}: wall_s={time.perf_counter() - t_arch:.1f}")
     line(f"MLA and Mamba phase wall_s={time.perf_counter() - t0:.1f} on {CARD}")
     return out
+
+
+# The audio and VLM phase: whisper-base (6 encoder + 6 decoder layers; K4
+# on the decoder's 6 self-attentions, the encoder's non-causal attention
+# and the cross-attentions through the plain path, as in the JAX package)
+# and qwen2-vl-2b (28 layers, K4 on each), both at full depth: (arch, K4
+# launches expected).  Both are small (0.11 B and 1.78 B parameters).
+AUDIO_VLM = (("whisper-base", 6), ("qwen2-vl-2b", 28))
+
+
+def audio_vlm_layers() -> None:
+    """One whisper-base decoder sublayer (self-attention with the kernel
+    path's K4, cross-attention over 1 500 encoder frames, SwiGLU; prefill
+    B 4 x S 512, then one decode step at position 512), one whisper-base
+    encoder layer (B 4 x 1 500 frames) and one qwen2-vl-2b attention layer
+    on the 3-D M-RoPE grid (prefill B 4 x S 512 with the 16 x 16 patch
+    grid, then one decode step) at full width on the card against the
+    port's own CPU path, same weights (drawn on the card from the seed,
+    copied to the CPU) and inputs."""
+    from repro_torch.models import attention as attn
+    wh = dataclasses.replace(get_config("whisper-base"), attn_impl="pallas")
+    vl = dataclasses.replace(get_config("qwen2-vl-2b"), attn_impl="pallas")
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    cpu_gen = torch.Generator().manual_seed(6)
+
+    def copy(tree, dev):
+        return tree_map(lambda t: t.to(dev), tree)
+
+    kind = tf_mod.LayerKind("attn", "dense", cross=True)
+    p_dec = tf_mod._init_sublayer(torch.Generator(DEV).manual_seed(5), wh, kind)
+    x = torch.randn(b, s + 1, wh.d_model, generator=cpu_gen).bfloat16()
+    enc = torch.randn(b, wh.encoder_seq, wh.d_model, generator=cpu_gen).bfloat16()
+
+    def decoder(p, dev):
+        ex = tf_mod._Extras(positions=torch.arange(s, dtype=torch.int32, device=dev)[None],
+                            enc_out=enc.to(dev))
+        y, _, got = tf_mod._sublayer_full(wh, kind, p, x[:, :s].to(dev), ex, True)
+        cache = attn.init_kv_cache(wh, b, s + 1, dev)
+        cache = {name: t[None] for name, t in cache.items()}
+        cache["k"][0, :, :s], cache["v"][0, :, :s] = got["k"], got["v"]
+        cache["pos"][0, :s] = torch.arange(s, dtype=torch.int32, device=dev)
+        cache["idx"].fill_(s)
+        y1 = tf_mod._sublayer_decode(wh, kind, p, x[:, s:].to(dev), cache, 0,
+                                     torch.tensor(s, dtype=torch.int32, device=dev), ex)
+        return dict(prefill_y=y, k=got["k"], v=got["v"], decode_y=y1, decode_k=cache["k"][0])
+
+    layer_vs_cpu(f"full-width whisper-base decoder sublayer (K4 self-attention, then "
+                 f"cross-attention over {wh.encoder_seq} frames; B {b} x S {s}, then one "
+                 "decode step)", lambda: decoder(p_dec, DEV),
+                 lambda: decoder(copy(p_dec, "cpu"), "cpu"))
+    del p_dec
+    p_enc = tf_mod._init_sublayer(torch.Generator(DEV).manual_seed(7), wh, tf_mod.ENCODER_KIND)
+    layer_vs_cpu(f"full-width whisper-base encoder layer (non-causal, B {b} x "
+                 f"{wh.encoder_seq} frames)",
+                 lambda: dict(y=tf_mod._encoder_layer(wh, p_enc, enc.to(DEV))),
+                 lambda: dict(y=tf_mod._encoder_layer(wh, copy(p_enc, "cpu"), enc)))
+    del p_enc
+    p_vl = attn.gqa_init(torch.Generator(DEV).manual_seed(8), vl)
+    xv = torch.randn(b, s + 1, vl.d_model, generator=cpu_gen).bfloat16()
+    grid = mrope_grid(b, s + 1, vl.n_patches)
+
+    def mrope_layer(p, dev):
+        y, (k, v) = attn.gqa_forward(p, vl, xv[:, :s].to(dev), mrope_pos=grid[:, :s].to(dev),
+                                     return_kv=True)
+        cache = attn.init_kv_cache(vl, b, s + 1, dev)
+        cache["k"][:, :s], cache["v"][:, :s] = k, v
+        cache["pos"][:s] = torch.arange(s, dtype=torch.int32, device=dev)
+        cache["idx"].fill_(s)
+        y1, cache = attn.gqa_decode(p, vl, xv[:, s:].to(dev), cache,
+                                    torch.tensor(s, dtype=torch.int32, device=dev),
+                                    mrope_pos=grid[:, s:].to(dev))
+        return dict(prefill_y=y, k=k, v=v, decode_y=y1, decode_k=cache["k"])
+
+    layer_vs_cpu(f"full-width qwen2-vl-2b attention layer (K4, M-RoPE on the "
+                 f"{math.isqrt(vl.n_patches)} x {math.isqrt(vl.n_patches)} patch grid; B {b} x "
+                 f"S {s}, then one decode step)", lambda: mrope_layer(p_vl, DEV),
+                 lambda: mrope_layer(copy(p_vl, "cpu"), "cpu"))
+    del p_vl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def audio_vlm_phase() -> dict:
+    """K4 at the two families' prefill shapes, their full-width layers
+    against the CPU, then each arch served (`serve_phase`, full); returns
+    {"k4": {label: check_k4's bf16 result}, "serve": {arch: serve_phase}}."""
+    t0 = time.perf_counter()
+    k4 = {}
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    for label, arch in (("whisper_d64", "whisper-base"), ("qwen2_vl_d128", "qwen2-vl-2b")):
+        cfg = get_config(arch)
+        shape = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0)
+        k4[label] = check_k4(*shape, torch.bfloat16, f"{arch} prefill on {CARD}", reps=20)
+        check_k4(*shape, torch.float32, f"{arch} prefill", reps=10)
+    audio_vlm_layers()
+    out = {}
+    for arch, expect in AUDIO_VLM:
+        t_arch = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = serve_phase(arch, "flash_attention", expect)
+        line(f"{arch}: wall_s={time.perf_counter() - t_arch:.1f}")
+    line(f"audio and VLM phase wall_s={time.perf_counter() - t0:.1f} on {CARD}")
+    return {"k4": k4, "serve": out}
 
 
 # The training phase: train_loop's defaults (batch 8, seq 128, lr 3e-4) with
@@ -2563,12 +2715,16 @@ def main() -> None:
     phase_mark(13, t_all)
     mla_mamba = mla_mamba_phase()
 
-    # ---- 14. the training path ------------------------------------------------
+    # ---- 14. the audio and VLM families: whisper-base and qwen2-vl-2b -----------
     phase_mark(14, t_all)
+    audio_vlm = audio_vlm_phase()
+
+    # ---- 15. the training path ------------------------------------------------
+    phase_mark(15, t_all)
     train = train_phase()
 
-    # ---- 15. kernel list ----------------------------------------------------
-    phase_mark(15, t_all)
+    # ---- 16. kernel list ----------------------------------------------------
+    phase_mark(16, t_all)
     kernels = []
     hier_launches = {"polyblock_fused": hs_launches["polyblock_fused"],
                      "polyblock_project": hstep_launches["polyblock_project"],
@@ -2598,9 +2754,12 @@ def main() -> None:
         if name == "flash_attention":
             kernels[-1]["serve_launches"] = dict(
                 {"qwen2-7b": launches}, **{a: r["launches"][name] for a, r in zoo.items()},
-                **{a: r["launches"][name] for a, r in mla_mamba.items()})
-            kernels[-1]["d80"] = {k: k4_d80[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                         "bound_ms", "bound_by", "library_ms")}
+                **{a: r["launches"][name] for a, r in mla_mamba.items()},
+                **{a: r["launches"][name] for a, r in audio_vlm["serve"].items()})
+            keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            kernels[-1]["d80"] = {k: k4_d80[k] for k in keys}
+            for label, res_k4 in audio_vlm["k4"].items():
+                kernels[-1][label] = {k: res_k4[k] for k in keys}
         if "lanes" in res:
             kernels[-1]["lanes"] = res["lanes"]
         if name == "polyblock_fused":

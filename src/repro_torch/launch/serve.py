@@ -8,6 +8,12 @@ runs on the current CUDA device (and raises without one; `--device cpu`
 runs the plain versions on the CPU), with the config's own `attn_impl` /
 `rwkv_wkv_impl`.  `serve_loop` also takes an `ArchConfig`, which is how a
 caller selects the kernel path ("pallas"), and `device="cpu"`.
+
+The audio and VLM families get the stub frontends of the JAX package's
+`serve_loop` (`stub_frontend`): zero encoder frames (B, encoder_seq, d),
+or zero patch embeddings (B, n_patches, d) with M-RoPE positions arange(S)
+on all three streams, and position p on all three for the decode step at
+p.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from ..device import resolve_device
 from ..models.transformer import clone_cache, init_params, param_count
 from ..train.serve_step import make_prefill_step, make_serve_step
 
-__all__ = ["ServeResult", "serve_loop", "main"]
+__all__ = ["ServeResult", "serve_loop", "stub_frontend", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +49,26 @@ class ServeResult:
     @property
     def decode_tok_s(self) -> float:
         return self.batch * self.new_tokens / self.decode_s
+
+
+def stub_frontend(cfg: ArchConfig, batch: int, seq: int, device) -> dict:
+    """The stubbed modality inputs of a (batch, seq) token batch, as the JAX
+    package's `serve_loop` and `train_loop` build them: for the VLM family bf16
+    zero `image_embeds` (B, n_patches, d) and `mrope_pos` = arange(seq) on
+    all three streams (B, seq, 3) int32; for the audio family bf16 zero
+    `enc_frames` (B, encoder_seq, d); else nothing.  (A VLM sequence
+    shorter than n_patches cannot hold the patches: the forward pass
+    raises ValueError.)"""
+    out: dict = {}
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.zeros(batch, cfg.n_patches, cfg.d_model,
+                                          dtype=torch.bfloat16, device=device)
+        out["mrope_pos"] = torch.arange(seq, dtype=torch.int32, device=device)[
+            None, :, None].expand(batch, seq, 3)
+    if cfg.family == "audio":
+        out["enc_frames"] = torch.zeros(batch, cfg.encoder_seq, cfg.d_model,
+                                        dtype=torch.bfloat16, device=device)
+    return out
 
 
 def serve_loop(arch_or_cfg: str | ArchConfig, *, batch: int = 4, prompt_len: int = 64,
@@ -69,11 +95,20 @@ def serve_loop(arch_or_cfg: str | ArchConfig, *, batch: int = 4, prompt_len: int
 
     rng = np.random.default_rng(seed)
     toks = synthetic_token_batch(rng, batch, prompt_len, cfg.vocab)["tokens"]
-    req = {"tokens": torch.from_numpy(toks).to(dev)}
-    # Decode step d runs at position prompt_len + d; indexing this tensor
-    # with a Python int is a view, so no host-to-device copy per step.
+    req = {"tokens": torch.from_numpy(toks).to(dev),
+           **stub_frontend(cfg, batch, prompt_len, dev)}
+    # Decode step d runs at position prompt_len + d (M-RoPE: on all three
+    # streams); indexing these tensors with a Python int is a view, so no
+    # host-to-device copy per step.
     positions = torch.arange(prompt_len, prompt_len + new_tokens + 1, dtype=torch.int32,
                              device=dev)
+    mrope = positions[:, None, None, None].expand(-1, batch, 1, 3)
+
+    def step_batch(tok, d):
+        if cfg.family == "vlm":
+            return {"token": tok, "pos": positions[d], "mrope_pos": mrope[d]}
+        return {"token": tok, "pos": positions[d]}
+
     prefill = make_prefill_step(cfg, cache_headroom=new_tokens)
     serve = make_serve_step(cfg)
 
@@ -89,13 +124,13 @@ def serve_loop(arch_or_cfg: str | ArchConfig, *, batch: int = 4, prompt_len: int
     # Warm-up: one DISCARDED decode step, so the timed loop below measures
     # steady-state decode only.  It gets a clone of the cache, because
     # decode writes the ring slot, the write index and the states in place.
-    serve(params, {"token": tok, "pos": positions[0]}, clone_cache(cache))
+    serve(params, step_batch(tok, 0), clone_cache(cache))
     sync()
 
     generated = [tok]
     t0 = time.perf_counter()
     for d in range(new_tokens):
-        tok, logits, cache = serve(params, {"token": tok, "pos": positions[d]}, cache)
+        tok, logits, cache = serve(params, step_batch(tok, d), cache)
         generated.append(tok)
         if d % log_every == 0:
             print(f"  step {d:3d}/{new_tokens} dispatched")

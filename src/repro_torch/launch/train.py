@@ -9,7 +9,9 @@ loss (eq. 42) at every step.
 runs on the current CUDA device (and raises without one).  `train_loop`
 also takes an `ArchConfig` (a full-width config with its depth cut, say),
 `device="cpu"`, and `params` (from `init_params` or `params_from_jax`, on
-that device).
+that device).  The audio and VLM families train on the JAX package's stub
+frontends (`serve.stub_frontend`: zero frames or patch embeddings, M-RoPE
+arange); a VLM `seq` shorter than n_patches raises ValueError.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from ..device import resolve_device
 from ..models.transformer import init_params, param_count
 from ..train.optimizer import make_optimizer
 from ..train.train_step import make_train_step
+from .serve import stub_frontend
 
 __all__ = ["TrainResult", "fl_round_weights", "train_loop", "main"]
 
@@ -75,6 +78,8 @@ def train_loop(arch_or_cfg: str | ArchConfig, *, steps: int = 20, batch: int = 8
 
     rng = np.random.default_rng(seed)
     stream = synthetic_lm_stream(seed, batch, seq, cfg.vocab)
+    # The audio and VLM families' stubbed frontends, the same every step.
+    frontend = stub_frontend(cfg, batch, seq, dev)
 
     fl_state = None
     if fl:
@@ -93,7 +98,7 @@ def train_loop(arch_or_cfg: str | ArchConfig, *, steps: int = 20, batch: int = 8
         t0 = time.perf_counter()
         b = next(stream)
         example = {"tokens": _to_device(b["tokens"], dev),
-                   "labels": _to_device(b["labels"], dev)}
+                   "labels": _to_device(b["labels"], dev), **frontend}
         if fl:
             w, plan, lat = fl_round_weights(fl_state, beta, wcfg, rng, policy)
             total_latency += lat

@@ -1,7 +1,9 @@
-"""Grouped-query attention and deepseek-style MLA (PyTorch copy of the GQA
-and MLA parts of the JAX package's `models/attention.py`): QKV bias, RoPE,
-sliding window, chunked softmax for long prefill, the ring-buffer decode
-cache, and MLA's low-rank latent KV cache with its decoupled RoPE key.
+"""Grouped-query attention, deepseek-style MLA and whisper-style
+cross-attention (PyTorch copy of the JAX package's `models/attention.py`,
+less its multi-card `sharded_causal_attention`): QKV bias, RoPE and
+qwen2-VL's M-RoPE, sliding window, chunked softmax for long prefill,
+non-causal (encoder) attention, the ring-buffer decode cache, and MLA's
+low-rank latent KV cache with its decoupled RoPE key.
 
 Grouped heads never materialize the repeated K/V: queries are reshaped to
 (B, S, Hkv, G, Dh) and contracted against (B, S, Hkv, Dh) directly.
@@ -26,7 +28,9 @@ tensors); `"ref"` keeps the JAX package's plain path (`_full_attn`).
 Decode attention over the ring is plain torch ops in both, as in the JAX
 package.  MLA runs `_full_attn` whatever `attn_impl` says, as the JAX
 package's `mla_forward` does (its q/k width 192 and v width 128 are not a
-shape K4 takes).
+shape K4 takes); so do non-causal attention (`gqa_forward(causal=False)`,
+the audio encoder) and `cross_attn`, through the plain `_sdpa` with no
+mask, as in the JAX package, which never sends them to its flash kernel.
 """
 from __future__ import annotations
 
@@ -34,10 +38,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
-from .layers import DTYPE, apply_rope, dense, dense_init
+from .layers import DTYPE, apply_mrope, apply_rope, dense, dense_init
 
 __all__ = ["gqa_init", "gqa_forward", "gqa_decode", "init_kv_cache", "mla_init",
-           "mla_forward", "mla_decode", "init_mla_cache"]
+           "mla_forward", "mla_decode", "init_mla_cache", "cross_attn_init", "cross_attn"]
 
 NEG_INF = -1e30
 
@@ -102,30 +106,50 @@ def gqa_init(gen: torch.Generator, cfg: ArchConfig):
     }
 
 
-def _project_qkv(p, cfg: ArchConfig, x, positions):
+def _project_qkv(p, cfg: ArchConfig, x, positions, mrope_pos=None):
+    """q, k rotated by M-RoPE at `mrope_pos` (B, S, 3) when cfg.use_mrope
+    and it is given, else by RoPE at `positions`; v as projected."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     q = dense(p["wq"], x).reshape(b, s, cfg.n_heads, dh)
     k = dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, dh)
     v = dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, dh)
+    if cfg.use_mrope and mrope_pos is not None:
+        sections = _mrope_sections(dh)
+        return (apply_mrope(q, mrope_pos, cfg.rope_theta, sections),
+                apply_mrope(k, mrope_pos, cfg.rope_theta, sections), v)
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def gqa_forward(p, cfg: ArchConfig, x, *, positions=None, chunk: int = 0,
-                return_kv: bool = False):
-    """Training / prefill self-attention (causal, optional sliding window).
+def _mrope_sections(dh: int) -> tuple[int, int, int]:
+    """Split Dh/2 frequency pairs into (t, h, w) ~ (1/4, 3/8, 3/8)."""
+    half = dh // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def gqa_forward(p, cfg: ArchConfig, x, *, positions=None, mrope_pos=None, chunk: int = 0,
+                causal: bool = True, return_kv: bool = False):
+    """Training / prefill self-attention: causal with an optional sliding
+    window, or with causal=False unmasked (the audio encoder), through the
+    plain `_sdpa` whatever `attn_impl` says.  q and k are rotated by M-RoPE
+    at `mrope_pos` (B, S, 3) where cfg.use_mrope, else by RoPE at
+    `positions` (default arange(S)).
 
     With return_kv=True also returns the rotated (k, v) so the serving path
     can seed a decode cache from prefill."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, mrope_pos)
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    if cfg.attn_impl == "pallas":
+    qg = q.reshape(b, s, hkv, cfg.n_heads // hkv, dh)
+    if not causal:
+        out = _sdpa(qg, k, v, None, dh**-0.5)
+    elif cfg.attn_impl == "pallas":
         out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     else:
-        qg = q.reshape(b, s, hkv, cfg.n_heads // hkv, dh)
         out = _full_attn(qg, k, v, dh**-0.5, cfg.sliding_window, chunk)
     y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * dh))
     if return_kv:
@@ -160,16 +184,17 @@ def _ring_write(cache, entries: dict, cur_pos, window: int):
     return valid
 
 
-def gqa_decode(p, cfg: ArchConfig, x, cache, cur_pos):
+def gqa_decode(p, cfg: ArchConfig, x, cache, cur_pos, *, mrope_pos=None):
     """One-token decode: x (B, 1, d); cur_pos a () int32 tensor, the global
-    position, on x's device (no host read).  Writes slot idx % C of the
+    position, on x's device (no host read); with cfg.use_mrope, mrope_pos
+    (B, 1, 3) the token's M-RoPE position.  Writes slot idx % C of the
     cache in place, advances its idx, and returns (y, cache)."""
     b = x.shape[0]
     dh = cfg.head_dim
     hkv = cfg.n_kv_heads
     g = cfg.n_heads // hkv
     positions = cur_pos.reshape(1, 1).expand(b, 1)
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, mrope_pos)
     valid = _ring_write(cache, {"k": k, "v": v}, cur_pos, cfg.sliding_window)
     mask = valid[None, None, None, None, :]                    # (1,1,1,1,C)
 
@@ -283,3 +308,33 @@ def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos):
         k, v = _mla_kv_from_latent(p, cfg, c_kv, k_pe)
         out = _sdpa(q[:, :, :, None, :], k, v, valid, scale)[:, :, :, 0]
     return dense(p["wo"], out.reshape(b, 1, h * dv)), cache
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (whisper decoder -> encoder output)
+# --------------------------------------------------------------------------
+
+def cross_attn_init(gen: torch.Generator, cfg: ArchConfig):
+    dh = cfg.head_dim
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * dh, bias=cfg.qkv_bias),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh),
+        "wo": dense_init(gen, cfg.n_heads * dh, cfg.d_model),
+    }
+
+
+def cross_attn(p, cfg: ArchConfig, x, enc_out):
+    """x: (B, Sq, d) decoder stream; enc_out: (B, Se, d).  No mask, no RoPE
+    (whisper uses absolute positions on the encoder); K and V are projected
+    from enc_out at every call, decode steps included, as in the JAX
+    package."""
+    b, sq, _ = x.shape
+    se = enc_out.shape[1]
+    dh = cfg.head_dim
+    hkv = cfg.n_kv_heads
+    q = dense(p["wq"], x).reshape(b, sq, hkv, cfg.n_heads // hkv, dh)
+    k = dense(p["wk"], enc_out).reshape(b, se, hkv, dh)
+    v = dense(p["wv"], enc_out).reshape(b, se, hkv, dh)
+    out = _sdpa(q, k, v, None, dh**-0.5)
+    return dense(p["wo"], out.reshape(b, sq, cfg.n_heads * dh))

@@ -24,6 +24,8 @@ __all__ = [
     "swiglu",
     "rope_freqs",
     "apply_rope",
+    "apply_mrope",
+    "mrope_grid",
 ]
 
 DTYPE = torch.bfloat16
@@ -101,3 +103,47 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     cos = torch.cos(ang)[..., None, :]                           # (..., S, 1, Dh/2)
     sin = torch.sin(ang)[..., None, :]
     return _rot(x.float(), cos, sin).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """qwen2-VL multimodal RoPE: the head dim's frequency slots are split
+    into (temporal, height, width) sections, each rotated by its own
+    position stream, then as `apply_rope`.
+
+    x: (B, S, H, Dh); positions_3d: (B, S, 3) integer tensor.  `sections`
+    are in frequency pairs and sum to Dh // 2.  Each slot's angle is its
+    stream's position in f32 times its inverse frequency, as the JAX
+    package's gather does; slicing the streams takes no index tensor."""
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"apply_mrope: sections {tuple(sections)} do not sum to Dh/2 = "
+                         f"{dh // 2}")
+    inv = rope_freqs(dh, theta, x.device)                         # (Dh/2,)
+    pos = positions_3d.float()                                    # (B, S, 3)
+    ang, start = [], 0
+    for i, n in enumerate(sections):
+        ang.append(pos[..., i:i + 1] * inv[start:start + n])
+        start += n
+    ang = torch.cat(ang, dim=-1)                                  # (B, S, Dh/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    return _rot(x.float(), cos, sin).to(x.dtype)
+
+
+def mrope_grid(batch: int, seq: int, n_patches: int, device=None) -> torch.Tensor:
+    """(B, S, 3) int32 M-RoPE positions of a prompt that opens with a
+    square image of `n_patches` patches, laid out as Qwen2-VL's
+    `get_rope_index` does: patch (r, c) of the g x g grid at (t, h, w) =
+    (0, r, c), then text token i at g + i on all three streams (one past
+    the largest patch position).  Decode position p >= seq continues the
+    text at g + p - n_patches."""
+    g = math.isqrt(n_patches)
+    if g * g != n_patches or seq < n_patches:
+        raise ValueError(f"mrope_grid: n_patches={n_patches} must be a square no longer "
+                         f"than seq={seq}")
+    idx = torch.arange(n_patches, dtype=torch.int32, device=device)
+    patches = torch.stack([torch.zeros_like(idx), idx // g, idx % g], dim=-1)
+    text = torch.arange(g, g + seq - n_patches, dtype=torch.int32, device=device)
+    grid = torch.cat([patches, text[:, None].expand(-1, 3)], dim=0)
+    return grid[None].expand(batch, -1, -1).contiguous()

@@ -1,13 +1,23 @@
 """Model-zoo assembly (PyTorch copy of the JAX package's
-`models/transformer.py`), for the layer kinds the port runs:
+`models/transformer.py`), for the layer kinds of its ten archs:
 `LayerKind("attn", "dense")` (GQA + SwiGLU: qwen2-7b, stablelm-3b, yi-6b,
-qwen1.5-110b), `LayerKind("attn", "moe")` (GQA + the MoE FFN of
-`models/moe.py`: granite-moe-3b-a800m), `LayerKind("rwkv", "rwkv_cm")`
-(RWKV-6 time-mix + channel-mix: rwkv6-7b), `LayerKind("mla", "dense" |
-"moe")` (MLA with a dense prefix, then MoE: deepseek-v3-671b, with its MTP
-head) and `LayerKind("mamba", "dense" | "moe")` beside `("attn", "dense")`
-(the jamba hybrid's period of 8).  Any other kind, an encoder-decoder or
-M-RoPE raises NotImplementedError.
+qwen1.5-110b; with M-RoPE, qwen2-vl-2b), `LayerKind("attn", "moe")` (GQA +
+the MoE FFN of `models/moe.py`: granite-moe-3b-a800m),
+`LayerKind("rwkv", "rwkv_cm")` (RWKV-6 time-mix + channel-mix: rwkv6-7b),
+`LayerKind("mla", "dense" | "moe")` (MLA with a dense prefix, then MoE:
+deepseek-v3-671b, with its MTP head), `LayerKind("mamba", "dense" |
+"moe")` beside `("attn", "dense")` (the jamba hybrid's period of 8) and
+`LayerKind("attn", "dense", cross=True)` (whisper-base's decoder layers,
+each with a cross-attention to the encoder's output).  Any other kind
+raises NotImplementedError.
+
+The modality frontends are stubbed as in the JAX package: the audio
+family gets precomputed encoder frames batch["enc_frames"] (B, Se, d),
+which a non-causal encoder (`_encode_audio`: `n_encoder_layers` of GQA +
+SwiGLU, then `enc_final_ln`) turns into the encoder output every decoder
+layer cross-attends to; the VLM family gets patch embeddings
+batch["image_embeds"] (B, n_patches, d) spliced over the first n_patches
+token positions, and batch["mrope_pos"] (B, S, 3) M-RoPE positions.
 
 The stage plan is the JAX package's: layers are grouped into stages, each
 a periodic pattern of sublayer kinds repeated `repeats` times.  Where the
@@ -24,6 +34,11 @@ C, r), "k_pe": ..., "pos", "idx"}, for a Mamba group {"mamba": {"ssm":
 (repeats, B, di, N), "conv": (repeats, B, kw - 1, di)}}, so they compare
 leaf for leaf; each layer reads and writes its own slice in place
 (`decode_step`).
+
+The encoder keeps one parameter dict per layer too, params["encoder"]
+(n_encoder_layers entries), beside params["enc_final_ln"].  An
+encoder-decoder's cache carries the encoder output as cache["enc_out"],
+which decode reads and never writes.
 
 Modes:
   forward(..., mode="train")   -> (logits, aux), or (logits, aux,
@@ -44,8 +59,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv6
-from .attention import (gqa_decode, gqa_forward, gqa_init, init_kv_cache, init_mla_cache,
-                        mla_decode, mla_forward, mla_init)
+from .attention import (cross_attn, cross_attn_init, gqa_decode, gqa_forward, gqa_init,
+                        init_kv_cache, init_mla_cache, mla_decode, mla_forward, mla_init)
 from .layers import (DTYPE, dense, dense_init, normal_bf16, rmsnorm, rmsnorm_init, swiglu,
                      swiglu_init)
 from .moe import moe_apply, moe_init
@@ -101,7 +116,8 @@ class Stage:
 PORTED_KINDS = (LayerKind("attn", "dense"), LayerKind("attn", "moe"),
                 LayerKind("rwkv", "rwkv_cm"), LayerKind("mla", "dense"),
                 LayerKind("mla", "moe"), LayerKind("mamba", "dense"),
-                LayerKind("mamba", "moe"))
+                LayerKind("mamba", "moe"), LayerKind("attn", "dense", cross=True))
+ENCODER_KIND = LayerKind("attn", "dense")
 
 
 def _kind_of(cfg: ArchConfig, i: int, *, decoder: bool) -> LayerKind:
@@ -152,9 +168,6 @@ def _ported_plan(cfg: ArchConfig) -> list[Stage]:
                     f"{cfg.name}: layer kind {kind.tag!r} is still to port to PyTorch "
                     f"(ROADMAP.md, Queue 1 'LLM zoo'); the port runs "
                     f"{[k.tag for k in PORTED_KINDS]}")
-    if cfg.is_encoder_decoder or cfg.use_mrope:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder and M-RoPE are "
-                                  "still to port (ROADMAP.md, Queue 1 'LLM zoo')")
     return stages
 
 
@@ -172,6 +185,9 @@ def _init_sublayer(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind):
         p["mamba"] = mamba_init(gen, cfg)
     else:
         p["rwkv"] = rwkv6_init(gen, cfg)
+    if kind.cross:
+        p["ln_c"] = rmsnorm_init(cfg.d_model, gen.device)
+        p["cross"] = cross_attn_init(gen, cfg)
     p["ln2"] = rmsnorm_init(cfg.d_model, gen.device)
     if kind.ffn == "dense":
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.ffn_dense)
@@ -184,7 +200,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
     """Random parameters on `gen`'s device, drawn from `gen` with the JAX
     package's distributions (normal * scale stored bf16, f32 norms, RWKV
     w0 = -6 and u = 0; experts unpadded, as the JAX package's ep_size 1;
-    with cfg.mtp the top-level `mtp_ln` and `mtp_head`).  The two
+    with cfg.mtp the top-level `mtp_ln` and `mtp_head`; for an
+    encoder-decoder the `encoder` layers and `enc_final_ln`).  The two
     frameworks draw different numbers from one seed: tests hand the JAX
     package's draws over with `params_from_jax`."""
     stages = _ported_plan(cfg)
@@ -196,6 +213,10 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
     for si, st in enumerate(stages):
         for li, kind in enumerate(st.pattern):
             p[f"s{si}_l{li}"] = [_init_sublayer(gen, cfg, kind) for _ in range(st.repeats)]
+    if cfg.is_encoder_decoder:
+        p["encoder"] = [_init_sublayer(gen, cfg, ENCODER_KIND)
+                        for _ in range(cfg.n_encoder_layers)]
+        p["enc_final_ln"] = rmsnorm_init(cfg.d_model, gen.device)
     if cfg.mtp:
         p["mtp_ln"] = rmsnorm_init(cfg.d_model, gen.device)
         p["mtp_head"] = dense_init(gen, cfg.d_model, cfg.vocab, scale=0.02)
@@ -221,16 +242,17 @@ def params_from_jax(cfg: ArchConfig, jax_params, device="cpu"):
     """The port's parameters from the JAX package's `init_params` tree (its
     leaves as numpy arrays, or anything np.asarray takes): each stacked
     `s{si}_l{li}` group is unstacked along its leading `repeats` axis into
-    a list of per-layer dicts; every other entry (embed, final_ln, lm_head,
-    the MTP head's mtp_ln and mtp_head) is copied as it is."""
-    stages = _ported_plan(cfg)
+    a list of per-layer dicts, and so is the `encoder` (n_encoder_layers);
+    every other entry (embed, final_ln, lm_head, the MTP head's mtp_ln and
+    mtp_head, enc_final_ln) is copied as it is."""
+    groups = {f"s{si}_l{li}": st.repeats for si, st in enumerate(_ported_plan(cfg))
+              for li in range(len(st.pattern))}
+    groups["encoder"] = cfg.n_encoder_layers
     out: dict[str, Any] = {}
     for name, sub in jax_params.items():
-        if name.startswith("s") and "_l" in name:
-            si, li = (int(x) for x in name[1:].split("_l"))
-            reps = stages[si].repeats
+        if name in groups:
             out[name] = [_tree_map(lambda a: _leaf_to_torch(np.asarray(a)[i], device), sub)
-                         for i in range(reps)]
+                         for i in range(groups[name])]
         else:
             out[name] = _tree_map(lambda a: _leaf_to_torch(a, device), sub)
     return out
@@ -251,25 +273,37 @@ def param_count(params) -> int:
 # Full-sequence forward (train / prefill)
 # ==========================================================================
 
-def _sublayer_full(cfg, kind: LayerKind, p, x, positions, chunk: int, want_cache: bool):
+@dataclasses.dataclass(frozen=True)
+class _Extras:
+    """What every sublayer of one forward pass or decode step shares, as
+    the JAX package's `_Extras`: RoPE positions, M-RoPE positions (B, S, 3)
+    or None, the encoder's output (B, Se, d) or None, the "ref" chunk."""
+    positions: Any = None
+    mrope_pos: Any = None
+    enc_out: Any = None
+    chunk: int = 0
+
+
+def _sublayer_full(cfg, kind: LayerKind, p, x, ex: _Extras, want_cache: bool):
     """Returns (x, aux, cache contribution); aux is None without a MoE FFN."""
     cache: dict[str, Any] = {}
     aux = None
     h_in = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind.mixer == "attn":
         if want_cache:
-            h, (k_, v_) = gqa_forward(p["attn"], cfg, h_in, positions=positions, chunk=chunk,
-                                      return_kv=True)
+            h, (k_, v_) = gqa_forward(p["attn"], cfg, h_in, positions=ex.positions,
+                                      mrope_pos=ex.mrope_pos, chunk=ex.chunk, return_kv=True)
             cache = {"k": k_, "v": v_}
         else:
-            h = gqa_forward(p["attn"], cfg, h_in, positions=positions, chunk=chunk)
+            h = gqa_forward(p["attn"], cfg, h_in, positions=ex.positions,
+                            mrope_pos=ex.mrope_pos, chunk=ex.chunk)
     elif kind.mixer == "mla":
         if want_cache:
-            h, (ckv, kpe) = mla_forward(p["attn"], cfg, h_in, positions=positions, chunk=chunk,
-                                        return_kv=True)
+            h, (ckv, kpe) = mla_forward(p["attn"], cfg, h_in, positions=ex.positions,
+                                        chunk=ex.chunk, return_kv=True)
             cache = {"c_kv": ckv, "k_pe": kpe}
         else:
-            h = mla_forward(p["attn"], cfg, h_in, positions=positions, chunk=chunk)
+            h = mla_forward(p["attn"], cfg, h_in, positions=ex.positions, chunk=ex.chunk)
     elif kind.mixer == "mamba":
         h, st = mamba_forward(p["mamba"], cfg, h_in)
         if want_cache:
@@ -280,6 +314,8 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, positions, chunk: int, want_cache
         if want_cache:
             cache = {"rwkv": st}
     x = x + h
+    if kind.cross:
+        x = x + cross_attn(p["cross"], cfg, rmsnorm(p["ln_c"], x, cfg.norm_eps), ex.enc_out)
     if kind.ffn == "dense":
         x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
     elif kind.ffn == "moe":
@@ -294,8 +330,36 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, positions, chunk: int, want_cache
     return x, aux, cache
 
 
-def _sublayer_train(cfg, kind: LayerKind, p, x, positions, chunk: int):
-    return _sublayer_full(cfg, kind, p, x, positions, chunk, False)[:2]
+def _sublayer_train(cfg, kind: LayerKind, p, x, ex: _Extras):
+    return _sublayer_full(cfg, kind, p, x, ex, False)[:2]
+
+
+def _embed(cfg: ArchConfig, params, batch):
+    """Token embeddings; for the VLM family with batch["image_embeds"]
+    (B, n_patches, d), those over the first n_patches positions."""
+    h = params["embed"]["w"][batch["tokens"].long()]
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        if h.shape[1] < cfg.n_patches:
+            raise ValueError(f"{cfg.name}: a sequence of {h.shape[1]} tokens is shorter than "
+                             f"the image's n_patches={cfg.n_patches} patch embeddings")
+        h = torch.cat([batch["image_embeds"].to(h.dtype), h[:, cfg.n_patches:]], dim=1)
+    return h
+
+
+def _encoder_layer(cfg: ArchConfig, p, x):
+    """One pre-norm encoder layer: non-causal self-attention, then SwiGLU."""
+    x = x + gqa_forward(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps), causal=False)
+    return x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+
+def _encode_audio(cfg: ArchConfig, params, frames, *, remat: bool = False):
+    """Whisper-style encoder over the stubbed conv-frontend frames (B, Se,
+    d): its layers (RoPE at arange(Se), no mask), then enc_final_ln."""
+    x = frames.to(DTYPE)
+    for p in params["encoder"]:
+        x = (checkpoint(_encoder_layer, cfg, p, x, use_reentrant=False) if remat
+             else _encoder_layer(cfg, p, x))
+    return rmsnorm(params["enc_final_ln"], x, cfg.norm_eps)
 
 
 def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headroom: int = 0,
@@ -304,17 +368,26 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
     mtp_logits), the MTP head on the final normed hidden state; "prefill"
     -> (logits, aux, cache).
 
-    batch["tokens"]: (B, S) integer tensor on the parameters' device.
+    batch["tokens"]: (B, S) integer tensor on the parameters' device; the
+    audio family also takes batch["enc_frames"] (B, Se, d), the VLM family
+    batch["image_embeds"] (B, n_patches, d) and batch["mrope_pos"] (B, S,
+    3) (each optional: without them the tokens' embeddings and RoPE
+    stand).
     cache_headroom: extra decode slots to allocate in the prefill cache
     (full-attention configs need >= the number of tokens to decode).
     remat (train mode): keep only each sublayer's input for the backward
     pass and recompute the sublayer there (torch.utils.checkpoint)."""
     stages = _ported_plan(cfg)
     want_cache = mode == "prefill"
-    h = params["embed"]["w"][batch["tokens"].long()]
+    h = _embed(cfg, params, batch)
     b, s, _ = h.shape
-    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
-    chunk = ATTN_CHUNK if s > 2 * ATTN_CHUNK else 0
+    remat = remat and not want_cache
+    ex = _Extras(
+        positions=torch.arange(s, dtype=torch.int32, device=h.device)[None, :],
+        mrope_pos=batch.get("mrope_pos"),
+        enc_out=(_encode_audio(cfg, params, batch["enc_frames"], remat=remat)
+                 if cfg.is_encoder_decoder else None),
+        chunk=ATTN_CHUNK if s > 2 * ATTN_CHUNK else 0)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     all_caches = []
     for si, st in enumerate(stages):
@@ -322,12 +395,11 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
         got: list[list] = [[] for _ in st.pattern]
         for rep in range(st.repeats):
             for li, kind in enumerate(st.pattern):
-                if remat and not want_cache:
-                    h, a = checkpoint(_sublayer_train, cfg, kind, layers[li][rep], h,
-                                      positions, chunk, use_reentrant=False)
+                if remat:
+                    h, a = checkpoint(_sublayer_train, cfg, kind, layers[li][rep], h, ex,
+                                      use_reentrant=False)
                 else:
-                    h, a, c = _sublayer_full(cfg, kind, layers[li][rep], h, positions, chunk,
-                                             want_cache)
+                    h, a, c = _sublayer_full(cfg, kind, layers[li][rep], h, ex, want_cache)
                     got[li].append(c)
                 if a is not None:
                     aux = aux + a
@@ -339,7 +411,8 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
             return logits, aux, dense(params["mtp_head"],
                                       rmsnorm(params["mtp_ln"], h, cfg.norm_eps))
         return logits, aux
-    return logits, aux, _assemble_prefill_cache(cfg, stages, all_caches, s, cache_headroom)
+    return logits, aux, _assemble_prefill_cache(cfg, stages, all_caches, s, cache_headroom,
+                                                ex.enc_out)
 
 
 def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False):
@@ -401,15 +474,21 @@ def _empty_sublayer_cache(cfg: ArchConfig, kind: LayerKind, batch: int, cache_le
     return c
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device):
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device, *, enc_out=None):
     """Empty ring-buffer caches for every layer, stacked per stage pattern
-    slot."""
+    slot; an encoder-decoder's also holds its encoder output `enc_out`
+    (B, Se, d), which it needs."""
     clen = cache_len_for(cfg, seq_len)
     cache: dict[str, Any] = {}
     for si, st in enumerate(_ported_plan(cfg)):
         for li, kind in enumerate(st.pattern):
             one = _empty_sublayer_cache(cfg, kind, batch, clen, device)
             cache[f"s{si}_l{li}"] = _tree_map(lambda a: _stacked(a, st.repeats), one)
+    if cfg.is_encoder_decoder:
+        if enc_out is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder's decode cache needs the "
+                             "encoder output (enc_out=)")
+        cache["enc_out"] = enc_out
     return cache
 
 
@@ -440,8 +519,9 @@ def _ring_positions(s, clen, repeats, device):
     return _stacked(pos, repeats)
 
 
-def _assemble_prefill_cache(cfg, stages, all_caches, s, headroom):
-    """Convert prefill-collected K/V + states into decode ring caches."""
+def _assemble_prefill_cache(cfg, stages, all_caches, s, headroom, enc_out):
+    """Convert prefill-collected K/V + states into decode ring caches (and
+    keep an encoder-decoder's encoder output)."""
     clen = cache_len_for(cfg, s + headroom)
     cache: dict[str, Any] = {}
     for si, st in enumerate(stages):
@@ -465,6 +545,8 @@ def _assemble_prefill_cache(cfg, stages, all_caches, s, headroom):
             if kind.ffn == "rwkv_cm":
                 c["cm_prev"] = stack(lambda g: g["cm_prev"])
             cache[f"s{si}_l{li}"] = c
+    if cfg.is_encoder_decoder:
+        cache["enc_out"] = enc_out
     return cache
 
 
@@ -472,13 +554,13 @@ def _assemble_prefill_cache(cfg, stages, all_caches, s, headroom):
 # Decode
 # ==========================================================================
 
-def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos):
+def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos, ex: _Extras):
     """Layer i of its group; reads and writes slice i of the group's cache
     `c` in place."""
     h_in = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind.mixer == "attn":
         view = {name: c[name][i] for name in ("k", "v", "pos", "idx")}
-        h, _ = gqa_decode(p["attn"], cfg, h_in, view, cur_pos)
+        h, _ = gqa_decode(p["attn"], cfg, h_in, view, cur_pos, mrope_pos=ex.mrope_pos)
     elif kind.mixer == "mla":
         view = {name: c[name][i] for name in ("c_kv", "k_pe", "pos", "idx")}
         h, _ = mla_decode(p["attn"], cfg, h_in, view, cur_pos)
@@ -493,6 +575,8 @@ def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos):
         st["wkv"].copy_(new["wkv"])
         st["prev_tok"].copy_(new["prev_tok"])
     x = x + h
+    if kind.cross:
+        x = x + cross_attn(p["cross"], cfg, rmsnorm(p["ln_c"], x, cfg.norm_eps), ex.enc_out)
     if kind.ffn == "dense":
         x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
     elif kind.ffn == "moe":   # aux computed and dropped, as in the JAX package's decode
@@ -507,16 +591,19 @@ def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos):
 
 def decode_step(cfg: ArchConfig, params, batch, cache):
     """One-token decode. batch: {"token": (B, 1) integer tensor, "pos": ()
-    integer tensor, the global position, both on the parameters' device}.
-    Updates `cache` IN PLACE (ring writes, write index, recurrent states)
-    and returns (logits (B, 1, V), cache); pass `clone_cache(cache)` to keep
-    the old one."""
+    integer tensor, the global position, and with cfg.use_mrope
+    "mrope_pos": (B, 1, 3), all on the parameters' device}.
+    Updates `cache` IN PLACE (ring writes, write index, recurrent states;
+    an encoder-decoder's cache["enc_out"] is read by every cross-attention
+    and never written) and returns (logits (B, 1, V), cache); pass
+    `clone_cache(cache)` to keep the old one."""
     cur_pos = batch["pos"]
     h = params["embed"]["w"][batch["token"].long()]
+    ex = _Extras(mrope_pos=batch.get("mrope_pos"), enc_out=cache.get("enc_out"))
     for si, st in enumerate(_ported_plan(cfg)):
         for rep in range(st.repeats):
             for li, kind in enumerate(st.pattern):
                 h = _sublayer_decode(cfg, kind, params[f"s{si}_l{li}"][rep], h,
-                                     cache[f"s{si}_l{li}"], rep, cur_pos)
+                                     cache[f"s{si}_l{li}"], rep, cur_pos, ex)
     h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
     return dense(params["lm_head"], h), cache

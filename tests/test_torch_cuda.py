@@ -582,7 +582,9 @@ def _bf16_ulp(x):
     (1, 130, 260, 4, 4, 64, 100),        # G = 1, a window across a tile edge
     (4, 512, 512, 32, 32, 80, 0),        # stablelm-3b prefill at the serving shape (D = 80)
     (2, 100, 300, 8, 2, 80, 64),         # D = 80, right-aligned, window, ragged tiles
-    (1, 33, 70, 3, 3, 80, 17)])          # D = 80, heads past the first: no neighbour's columns
+    (1, 33, 70, 3, 3, 80, 17),           # D = 80, heads past the first: no neighbour's columns
+    (4, 512, 512, 8, 8, 64, 0),          # whisper-base's decoder prefill (8/8 heads, D = 64)
+    (4, 512, 512, 12, 2, 128, 0)])       # qwen2-vl-2b prefill (GQA group of 6, D = 128)
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, hq, hkv, d, window):
     """Both accumulate in f32 and cast once: f32 within 1e-5 (summation
     order, FMA), bf16 within one ulp plus that floor."""
@@ -881,3 +883,87 @@ def test_serve_loop_new_archs_on_the_card_without_host_syncs(dev, arch):
     here = Path(serve_mod.__file__).resolve()
     assert all(Path(s.rsplit(":", 1)[0]).resolve() == here for s in syncs), syncs
     assert np.array_equal(res["warm"].tokens, first.tokens)
+
+
+def _frontend(cfg, b, s, dev):
+    """The audio / VLM family's prefill inputs from a seed: random frames,
+    or random patch embeddings (scale 0.02) on a 3-D M-RoPE grid."""
+    from repro_torch.models.layers import mrope_grid
+    gen = torch.Generator().manual_seed(2)
+    if cfg.family == "audio":
+        return {"enc_frames": torch.randn(b, cfg.encoder_seq, cfg.d_model,
+                                          generator=gen).bfloat16().to(dev)}
+    return {"image_embeds": (0.02 * torch.randn(b, cfg.n_patches, cfg.d_model,
+                                                generator=gen)).bfloat16().to(dev),
+            "mrope_pos": mrope_grid(b, s, cfg.n_patches, dev)}
+
+
+@pytest.mark.parametrize("arch", ["whisper-base-smoke", "qwen2-vl-2b-smoke"])
+def test_serve_loop_audio_vlm_on_the_card_goes_through_k4_without_host_syncs(dev, arch):
+    """serve_loop on the card, kernel path: K4 once per decoder layer's
+    self-attention (the encoder and the cross-attentions attend through the
+    plain path); a warm run under torch's sync debug mode makes no
+    synchronizing call outside serve.py, and the same tokens; prefill
+    logits on random frames or patches on a 3-D grid within 4e-2 of the
+    CPU's on the same weights."""
+    from repro_torch.launch import serve as serve_mod
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = _to(params, dev)
+    flash_attention.launches = 0
+    kw = dict(batch=2, prompt_len=32, new_tokens=4, device=dev, params=on_card)
+    first = serve_loop(cfg, **kw)
+    assert flash_attention.launches == cfg.n_layers
+    res = {}
+    syncs = _syncs(lambda: res.setdefault("warm", serve_loop(cfg, **kw)))
+    here = Path(serve_mod.__file__).resolve()
+    assert all(Path(s.rsplit(":", 1)[0]).resolve() == here for s in syncs), syncs
+    assert np.array_equal(res["warm"].tokens, first.tokens)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(1))
+    extra = _frontend(cfg, 2, 32, "cpu")
+    got = forward(cfg, on_card, {"tokens": toks.to(dev), **_to(extra, dev)})[0]
+    want = forward(cfg, params, {"tokens": toks, **extra})[0]
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel_max(got.float().cpu(), want.float()) < 4e-2
+
+
+@pytest.mark.parametrize("layer", ["cross", "encoder", "mrope"])
+def test_audio_vlm_layers_on_the_card_match_the_cpu(dev, layer):
+    """At smoke width, bf16, card against CPU from the same weights and
+    inputs, within 2e-2 of the scale: whisper's cross-attention over 64
+    frames (prefill and decode queries), its non-causal encoder layer, and
+    qwen2-vl's attention layer through K4 on a 3-D M-RoPE grid with one
+    decode step after it."""
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.layers import mrope_grid
+    arch = "qwen2-vl-2b-smoke" if layer == "mrope" else "whisper-base-smoke"
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 65, cfg.d_model, generator=gen).bfloat16()
+    enc = torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=gen).bfloat16()
+    grid = mrope_grid(2, 65, cfg.n_patches)
+    outs = {}
+    for where in ("cpu", dev):
+        if layer == "cross":
+            p = _to(attention.cross_attn_init(torch.Generator().manual_seed(1), cfg), where)
+            outs[str(where)] = [attention.cross_attn(p, cfg, x[:, :64].to(where), enc.to(where)),
+                                attention.cross_attn(p, cfg, x[:, 64:].to(where), enc.to(where))]
+        elif layer == "encoder":
+            p = _to(transformer._init_sublayer(torch.Generator().manual_seed(1), cfg,
+                                               transformer.ENCODER_KIND), where)
+            outs[str(where)] = [transformer._encoder_layer(cfg, p, enc.to(where))]
+        else:
+            p = _to(attention.gqa_init(torch.Generator().manual_seed(1), cfg), where)
+            y, (k, v) = attention.gqa_forward(p, cfg, x[:, :64].to(where),
+                                              mrope_pos=grid[:, :64].to(where), return_kv=True)
+            cache = attention.init_kv_cache(cfg, 2, 80, where)
+            cache["k"][:, :64], cache["v"][:, :64] = k, v
+            cache["pos"][:64] = torch.arange(64, dtype=torch.int32)
+            cache["idx"].fill_(64)
+            y1, cache = attention.gqa_decode(p, cfg, x[:, 64:].to(where), cache,
+                                             torch.tensor(64, dtype=torch.int32, device=where),
+                                             mrope_pos=grid[:, 64:].to(where))
+            outs[str(where)] = [y, k, v, y1, cache["k"]]
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        assert got.dtype == want.dtype and bool(torch.isfinite(got.float()).all())
+        assert _rel_max(got.float().cpu(), want.float()) < 2e-2

@@ -18,11 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_config as jax_get_config
 from repro.models import attention as JA
 from repro.models import ssm as JS
 from repro.models.transformer import param_count as jax_param_count
-from repro_torch.configs import ARCHS, STILL_TO_PORT, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import wkv6
 from repro_torch.models import attention as TA
 from repro_torch.models import ssm as TS
@@ -154,26 +155,16 @@ def test_params_from_jax_and_init_params_match_the_jax_tree(arch):
 
 
 def test_config_registry():
+    """The JAX package's ten archs, each equal to its JAX config and smoke
+    variant."""
     assert sorted(ARCHS) == ["deepseek-v3-671b", "granite-moe-3b-a800m", "jamba-v0.1-52b",
-                             "qwen1.5-110b", "qwen2-7b", "rwkv6-7b", "stablelm-3b", "yi-6b"]
-    assert sorted(STILL_TO_PORT) == ["qwen2-vl-2b", "whisper-base"]
+                             "qwen1.5-110b", "qwen2-7b", "qwen2-vl-2b", "rwkv6-7b",
+                             "stablelm-3b", "whisper-base", "yi-6b"]
+    assert sorted(ARCHS) == sorted(JAX_ARCHS)
     for name in ARCHS:
         assert get_config(name) == ARCHS[name]
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jax_get_config(name))
         assert dataclasses.asdict(get_config(name + "-smoke")) == \
             dataclasses.asdict(jax_get_config(name + "-smoke"))
-    for name in STILL_TO_PORT:
-        jax_get_config(name)                                  # a real JAX arch
-        with pytest.raises(ValueError, match="still to port"):
-            get_config(name)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-5")
-
-
-@pytest.mark.parametrize("still_to_port", ["use_mrope", "is_encoder_decoder"])
-def test_unported_layer_kinds_raise(still_to_port):
-    """M-RoPE (qwen2-vl) and an encoder-decoder (whisper, whose decoder
-    layers carry cross-attention) are still to port."""
-    cfg = dataclasses.replace(get_config("qwen2-7b-smoke"), **{still_to_port: True})
-    with pytest.raises(NotImplementedError, match="still to port"):
-        init_params(cfg, torch.Generator().manual_seed(0))
