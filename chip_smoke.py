@@ -178,7 +178,8 @@ order:
      counters set to 0 just before each and read just after (none
      launches: training runs the "ref" paths), under torch's sync debug
      mode: parameter count, warm ms/step, tokens/s, model TFLOP/s
-     (6 * params * tokens / time) and its share of the bf16 peak,
+     (6 * params * tokens / time, and the cost model's `model_flops`
+     train_total / time) and its share of the bf16 peak,
      max_memory_allocated, host syncs per step and the loss trace, which
      must be finite and fall (mean of the last 3 below that of the first
      3); one make_train_step with sgd for qwen2-7b at full width, 1 layer,
@@ -187,7 +188,20 @@ order:
      against remat=False on the card; examples/torch_train_100m.py
      --steps 10 --ckpt-every 5 into a temporary directory, its checkpoint
      restored bitwise; every number beside the card's name and power limit;
- 16. the kernel list as one JSON line (K4's launches per served arch,
+ 16. the dry run against the card, with no card run of its own: the
+     port's meta-device prediction (`repro_torch.launch`: `param_shapes`,
+     `specs.cache_specs`, `dryrun.analyze`, `analytic`) of every arch
+     phases 11-14 served, at its served depth and shape, and of both
+     training runs of phase 15, held to what those phases measured:
+     parameter and cache bytes equal to the real tensors' exactly,
+     memory_allocated's growth over init_params (and, for training, over
+     init_params, AdamW's init and one step) within 1% + 64 MiB of the
+     predicted bytes; printed beside the card's name and power limit, not
+     gated: the predicted peak (arguments + temp) against
+     max_memory_allocated, the counted FLOPs against `model_flops`, and
+     qwen2-7b's warm prefill time as a share of `analytic_cost`'s bound;
+     the phase's wall time;
+ 17. the kernel list as one JSON line (K4's launches per served arch,
      `serve_launches`, its D 80 check, `d80`, and its checks at
      whisper-base's and qwen2-vl-2b's shapes, `whisper_d64` and
      `qwen2_vl_d128`; with K1-K3's launches on the hierarchy's, the
@@ -225,7 +239,7 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import InputShape, get_config  # noqa: E402
 from repro_torch.core import (PAPER_BASELINE_DS, RoundPolicy,  # noqa: E402
                               WirelessConfig, is_infeasible, total_energy)
 from repro_torch.core.leader_torch import host_int  # noqa: E402
@@ -245,7 +259,13 @@ from repro_torch.kernels.fedavg_agg import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch.analytic import (GPU_HW, H100, _f_eval_ops,  # noqa: E402
+                                         analytic_cost, bisect_step_ops, model_flops,
+                                         projection_ops, select_fixed_ops)
+from repro_torch.launch.specs import cache_specs  # noqa: E402
+from repro_torch.launch.step_analysis import tree_nbytes  # noqa: E402
 from repro_torch.launch.serve import serve_loop  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
@@ -266,19 +286,21 @@ from repro_torch.kernels.polyblock_project.ops import (  # noqa: E402
     polyblock_project, project_bisect, project_lanes)
 
 DEV = torch.device("cuda", 0)
-# Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet, dense):
-# float64 34 TFLOP/s and float32 67 TFLOP/s outside the tensor cores, bf16
-# 989 TFLOP/s on them; HBM3 3.35 TB/s.
-PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12, torch.bfloat16: 989e12}
-PEAK_BYTES = 3.35e12
-# Add-equivalent op counts of the JAX package's cost model
-# (launch/analytic.py: OP_WEIGHTS prices a division at 4 and a log1p at 12;
-# g_eval_ops, _f_eval_ops, projection_ops).
-G_EVAL = 2 + 9 + 4 * 1 + 1 + 12 * 1          # adds, muls, div, max, log1p
-F_EVAL = 2 + 4 + 4 * 2 + 2 + 12 * 1          # adds, muls, 2 divs, 2 max, log1p
-BISECT_STEP = 1 + 3 + G_EVAL + 1 + 2          # mid, scaled vertex, g, cmp, 2 selects
-PROJ_FIXED = (G_EVAL + 1) + (1 + 2)           # feasibility test; select + 2 muls
-SELECT_FIXED = 2 + 3 + 6 + 1                  # incumbent / retirement bookkeeping
+# Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet, dense),
+# from the port's cost model (launch/analytic.py): float64 34 TFLOP/s and
+# float32 67 TFLOP/s outside the tensor cores (GPU_HW), bf16 989 TFLOP/s on
+# them and HBM3 3.35 TB/s (H100).
+PEAK_OPS = {torch.float64: GPU_HW.flops_f64, torch.float32: GPU_HW.flops_f32,
+            torch.bfloat16: H100.peak_flops}
+PEAK_BYTES = H100.hbm_bw
+# Add-equivalent op counts of the cost model (OP_WEIGHTS prices a division
+# at 4 and a log1p at 12): one evaluation of the objective f, one halving
+# of the bisection, a projection's fixed part (the feasibility test, the
+# final select and scaling), a selection's fixed part.
+F_EVAL = _f_eval_ops().weighted()
+BISECT_STEP = bisect_step_ops().weighted()
+PROJ_FIXED = projection_ops("bisect", n_bisect=0).weighted()
+SELECT_FIXED = select_fixed_ops().weighted()
 EPS = 0.01
 # K2 launches of the 10-round ra_solver="step" run: the first projection of
 # (1, 1) and one children call per iteration of its slowest pair.
@@ -1929,10 +1951,14 @@ def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
     cfg = dataclasses.replace(base, attn_impl="pallas", rwkv_wkv_impl="pallas")
     ref_cfg = dataclasses.replace(base, attn_impl="ref", rwkv_wkv_impl="ref")
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(SERVE["seed"]))
     torch.cuda.synchronize()
     n_params = param_count(params)
+    # Read by the dry-run phase (`dryrun_phase`) against the meta prediction.
+    memory = dict(param_bytes=tree_nbytes(params),
+                  init_growth=torch.cuda.memory_allocated() - before)
     line(f"serve {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers): init_params "
          f"{time.perf_counter() - t0:.2f}s; params={n_params}; memory allocated "
          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, max_memory_allocated during init "
@@ -1941,9 +1967,12 @@ def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
     def served(run_cfg, label: str):
         for fn in COUNTERS.values():
             fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = serve_loop(run_cfg, device=DEV, params=params, **SERVE)
         wall = time.perf_counter() - t0
+        memory.setdefault("serve_peak", torch.cuda.max_memory_allocated())
+        memory.setdefault("cache_bytes", res.cache_bytes)
         launches = {name: fn.launches for name, fn in COUNTERS.items()}
         line(f"main path serve {label} (kernel path) B={SERVE['batch']} "
              f"prompt={SERVE['prompt_len']} new_tokens={SERVE['new_tokens']}: launches "
@@ -2009,7 +2038,7 @@ def serve_phase(arch: str, kernel: str, expect: int, *, layers: int = 0,
         if not (finite and err <= 4e-2):
             raise AssertionError(f"serve {arch}: prefill logits off the ref path ({err:.3e})")
     out = dict(launches=launches, first=first, warm=None, err=err, params=n_params,
-               variants={})
+               variants={}, memory=memory, layers=cfg.n_layers)
     if full:
         out["warm"] = warm_run(cfg, arch, first)
         out["profile"] = profile_serve(cfg, params)
@@ -2332,6 +2361,12 @@ def train_run(arch: str, layers: int, steps: int) -> dict:
     warm = res.step_s[2:]                      # the first two steps warm the card up
     step_ms = 1e3 * sum(warm) / len(warm)
     tflops = 6 * res.n_params * tokens / (step_ms / 1e3) / 1e12
+    # The cost model's count: 3x the forward's matmuls, attention and LM
+    # head included, embedding gathers not (6*P*tokens counts the embedding
+    # table's parameters as FLOPs and leaves attention out).
+    train_flops = model_flops(cfg, InputShape("train", TRAIN["seq"], TRAIN["batch"],
+                                              "train"))["train_total"]
+    model_tflops = train_flops / (step_ms / 1e3) / 1e12
     n_sync = sum(by_line.values())
     line(f"main path train {arch} (full width, {layers} layers, fl=True, AdamW) on {CARD}: "
          f"params={res.n_params} ({res.n_params / 1e9:.3f} B) B={TRAIN['batch']} "
@@ -2339,6 +2374,8 @@ def train_run(arch: str, layers: int, steps: int) -> dict:
          f"first {1e3 * res.step_s[0]:.1f}, second {1e3 * res.step_s[1]:.1f}) "
          f"tokens/s={tokens / (step_ms / 1e3):.0f} model TFLOP/s (6*P*tokens/time)="
          f"{tflops:.2f} = {tflops / (PEAK_OPS[torch.bfloat16] / 1e12):.4f} of the dense bf16 peak; "
+         f"model TFLOP/s (model_flops train_total={train_flops:.4e} / time)={model_tflops:.2f} "
+         f"= {model_tflops / (PEAK_OPS[torch.bfloat16] / 1e12):.4f} of the peak; "
          f"max_memory_allocated={peak / 2**30:.2f} GiB; wall_s={wall:.2f}")
     line(f"  host syncs: {n_sync} in {steps} steps ({n_sync / steps:.2f} per step): "
          + ", ".join(f"{k} x{v}" for k, v in by_line.most_common(6)))
@@ -2346,20 +2383,30 @@ def train_run(arch: str, layers: int, steps: int) -> dict:
     line("  grad-norm trace: " + " ".join(f"{x:.3f}" for x in res.grad_norms))
     line("  kernel launches on the training path: "
          + " ".join(f"{k}={v}" for k, v in launches.items()))
-    profile_step(cfg, arch)
+    memory = profile_step(cfg, arch)
+    memory.update(train_peak=peak, step_ms=step_ms, layers=layers)
     first, last = np.mean(res.losses[:3]), np.mean(res.losses[-3:])
     if not np.all(np.isfinite(res.losses)) or not last < first:
         raise AssertionError(f"train {arch}: losses not finite or not falling "
                              f"(first 3 mean {first:.4f}, last 3 mean {last:.4f})")
     if any(launches.values()):
         raise AssertionError(f"train {arch}: a kernel launched on the training path: {launches}")
-    return launches
+    return dict(launches=launches, memory=memory)
 
 
-def profile_step(cfg, arch: str) -> None:
+def profile_step(cfg, arch: str) -> dict:
     """Where a warm training step's time goes: one make_train_step (AdamW)
-    under torch.profiler, then AdamW's update alone on the same state."""
+    under torch.profiler, then AdamW's update alone on the same state.
+    Returns the memory the dry-run phase reads: the parameters' bytes, and
+    memory_allocated's growth over init_params and over init_params, the
+    optimizer's init and one step (the steady state: parameters, both
+    moments, the batch)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(TRAIN["seed"]))
+    memory = dict(param_bytes=tree_nbytes(params),
+                  init_growth=torch.cuda.memory_allocated() - before)
     opt = adamw(TRAIN["lr"])
     state = opt.init(params)
     step = make_train_step(cfg, opt, remat=False)
@@ -2367,7 +2414,10 @@ def profile_step(cfg, arch: str) -> None:
     batch = {"tokens": torch.from_numpy(b["tokens"]).to(DEV),
              "labels": torch.from_numpy(b["labels"]).to(DEV),
              "fl_weights": torch.ones(TRAIN["batch"], device=DEV)}
-    params, state, _ = step(params, state, batch)              # warm
+    params, state, metrics = step(params, state, batch)              # warm
+    torch.cuda.synchronize()
+    del metrics
+    memory["steady_growth"] = torch.cuda.memory_allocated() - before
     profile_call(f"train step {arch} (warm, AdamW) on {CARD}",
                  lambda: step(params, state, batch), focus=("gemm", "nvjet", "elementwise"))
     grads = tree_map(lambda p: torch.full_like(p, 1e-3, dtype=torch.float32), params)
@@ -2376,6 +2426,7 @@ def profile_step(cfg, arch: str) -> None:
     del params, state, grads
     gc.collect()
     torch.cuda.empty_cache()
+    return memory
 
 
 def card_vs_cpu_step(arch: str = "qwen2-7b") -> None:
@@ -2445,15 +2496,133 @@ def example_phase() -> None:
 
 
 def train_phase() -> dict:
-    """Phase 13; returns each run's launch counts by arch."""
-    launches = {arch: train_run(arch, layers, steps) for arch, layers, steps in TRAIN_RUNS}
+    """Phase 15; returns each run's launch counts and memory by arch."""
+    runs = {arch: train_run(arch, layers, steps) for arch, layers, steps in TRAIN_RUNS}
     gc.collect()
     torch.cuda.empty_cache()
     card_vs_cpu_step()
     gc.collect()
     torch.cuda.empty_cache()
     example_phase()
-    return launches
+    return runs
+
+
+# The dry-run phase: the meta-device prediction (`repro_torch.launch`) of
+# every served arch at its served depth and shape, and of both training
+# runs, held to what phases 11-15 measured on the card.  Memory growth is
+# held to the predicted bytes within 1% plus 64 MiB (the allocator's
+# rounding, cuBLAS's workspace); parameter and cache bytes exactly.
+GROWTH_RTOL, GROWTH_ATOL = 0.01, 64 * 2**20
+
+
+def served_cfg(arch: str, layers: int):
+    """The config phases 11-14 served, with K4's plain path (the meta run
+    counts the attention's matmuls there; the parameter and cache shapes
+    are the same) and K5 as served (its meta version gives the kernel's
+    outputs, no Python loop over the tokens)."""
+    return dataclasses.replace(get_config(arch), n_layers=layers, attn_impl="ref",
+                               rwkv_wkv_impl="pallas")
+
+
+def predict_serve(cfg) -> dict:
+    """Meta prediction of one serve_loop (SERVE): parameter and cache
+    bytes, the prefill's counted FLOPs, and the peak, the larger of the
+    prefill's (arguments + temp) and the warm-up decode step's (parameters,
+    the cache and its clone, the step's temp)."""
+    b, s, new = SERVE["batch"], SERVE["prompt_len"], SERVE["new_tokens"]
+    pre_shape = InputShape("serve", s, b, "prefill")
+    dec_shape = InputShape("serve", s + new, b, "decode")
+    params = tree_nbytes(tf_mod.param_shapes(cfg))
+    cache = tree_nbytes(cache_specs(cfg, dec_shape))
+    pre_args = tree_nbytes(dryrun.build_step(cfg, pre_shape, cache_headroom=new)[1])
+    pre = dryrun.analyze(cfg, pre_shape, cache_headroom=new)
+    dec = dryrun.analyze(cfg, dec_shape)
+    peak = max(pre_args + pre["temp_size_in_bytes"],
+               params + 2 * cache + dec["temp_size_in_bytes"])
+    return dict(param_bytes=params, cache_bytes=cache, flops=pre["flops"],
+                model_flops=model_flops(cfg, pre_shape)["forward"], peak=peak,
+                roofline=analytic_cost(cfg, pre_shape, H100))
+
+
+def predict_train(cfg) -> dict:
+    """Meta prediction of train_loop's step (TRAIN, AdamW, remat off):
+    parameter bytes, the steady state's arguments (parameters, both
+    moments, the batch), the step's counted FLOPs and its peak."""
+    shape = InputShape("train", TRAIN["seq"], TRAIN["batch"], "train")
+    kw = dict(opt=adamw(TRAIN["lr"]), remat=False)
+    args = tree_nbytes(dryrun.build_step(cfg, shape, **kw)[1])
+    step = dryrun.analyze(cfg, shape, **kw)
+    return dict(param_bytes=tree_nbytes(tf_mod.param_shapes(cfg)), args=args,
+                flops=step["flops"], model_flops=model_flops(cfg, shape)["train_total"],
+                peak=args + step["temp_size_in_bytes"])
+
+
+def within_growth(growth: int, predicted: int) -> bool:
+    return abs(growth - predicted) <= GROWTH_RTOL * predicted + GROWTH_ATOL
+
+
+def dryrun_phase(served: dict, train: dict) -> None:
+    """Phase 16: no card run of its own.  For each served arch (served:
+    {arch: serve_phase result}) the predicted parameter and cache bytes
+    must equal the real tensors' and memory_allocated's growth over
+    init_params must lie within GROWTH_RTOL + GROWTH_ATOL of the predicted
+    parameter bytes; for each training run (train: {arch: train_run
+    result}) the parameter bytes exactly, and the growth over init_params
+    and over one step (parameters, AdamW's moments, the batch) likewise.
+    Printed, not gated: the predicted peak against max_memory_allocated,
+    the counted FLOPs against model_flops, qwen2-7b's warm prefill against
+    analytic_cost's bound, every line beside the card's name and power
+    limit."""
+    t0 = time.perf_counter()
+    gib = 2**30
+    for arch, res in served.items():
+        mem = res["memory"]
+        pred = predict_serve(served_cfg(arch, res["layers"]))
+        ok = (pred["param_bytes"] == mem["param_bytes"]
+              and pred["cache_bytes"] == mem["cache_bytes"]
+              and within_growth(mem["init_growth"], pred["param_bytes"]))
+        line(f"dry run vs card, serve {arch} ({res['layers']} layers, B={SERVE['batch']} "
+             f"prompt={SERVE['prompt_len']} +{SERVE['new_tokens']}) on {CARD}: param bytes "
+             f"predicted {pred['param_bytes']} real {mem['param_bytes']}; cache bytes predicted "
+             f"{pred['cache_bytes']} real {mem['cache_bytes']}; memory_allocated growth over "
+             f"init_params {mem['init_growth']} ({(mem['init_growth'] - pred['param_bytes']) / 2**20:+.1f}"
+             f" MiB, limit 1% + 64 MiB); peak predicted {pred['peak'] / gib:.2f} GiB, "
+             f"max_memory_allocated {mem['serve_peak'] / gib:.2f} GiB "
+             f"({mem['serve_peak'] / pred['peak']:.3f}x); prefill counted flops "
+             f"{pred['flops']:.4e} model_flops {pred['model_flops']:.4e} "
+             f"({pred['flops'] / pred['model_flops']:.4f}x); pass={ok}")
+        if not ok:
+            raise AssertionError(f"dry run vs card, serve {arch}: prediction off the card")
+        if arch == "qwen2-7b":
+            roof, warm = pred["roofline"], res["warm"].prefill_s
+            bound = max(roof["compute_s"], roof["memory_s"])
+            line(f"  qwen2-7b prefill (warm run) {warm * 1e3:.3f} ms against analytic_cost "
+                 f"(H100): compute_s {roof['compute_s'] * 1e3:.3f} ms, memory_s "
+                 f"{roof['memory_s'] * 1e3:.3f} ms -> {bound / warm:.4f} of the bound; {CARD}")
+    for arch, res in train.items():
+        mem = res["memory"]
+        cfg = dataclasses.replace(get_config(arch), n_layers=mem["layers"])
+        pred = predict_train(cfg)
+        ok = (pred["param_bytes"] == mem["param_bytes"]
+              and within_growth(mem["init_growth"], pred["param_bytes"])
+              and within_growth(mem["steady_growth"], pred["args"]))
+        line(f"dry run vs card, train {arch} ({mem['layers']} layers, B={TRAIN['batch']} "
+             f"seq={TRAIN['seq']}, AdamW) on {CARD}: param bytes predicted "
+             f"{pred['param_bytes']} real {mem['param_bytes']}; growth over init_params "
+             f"{mem['init_growth']} ({(mem['init_growth'] - pred['param_bytes']) / 2**20:+.1f} "
+             f"MiB); parameters + optimizer state + batch predicted {pred['args']}, growth over "
+             f"init and one step {mem['steady_growth']} "
+             f"({(mem['steady_growth'] - pred['args']) / 2**20:+.1f} MiB, limit 1% + 64 MiB); "
+             f"peak predicted {pred['peak'] / gib:.2f} GiB, max_memory_allocated "
+             f"{mem['train_peak'] / gib:.2f} GiB ({mem['train_peak'] / pred['peak']:.3f}x); "
+             f"counted flops {pred['flops']:.4e} model_flops train_total "
+             f"{pred['model_flops']:.4e} ({pred['flops'] / pred['model_flops']:.4f}x), "
+             f"{pred['model_flops'] / (mem['step_ms'] / 1e3) / 1e12:.2f} model TFLOP/s at the "
+             f"warm step; pass={ok}")
+        if not ok:
+            raise AssertionError(f"dry run vs card, train {arch}: prediction off the card")
+    wall = time.perf_counter() - t0
+    line(f"dry-run phase wall_s={wall:.1f} (budget 30 s: {wall < 30}) on {CARD}")
 
 
 def ptxas_lines(lib: str, kernel: str) -> list[str]:
@@ -2723,8 +2892,13 @@ def main() -> None:
     phase_mark(15, t_all)
     train = train_phase()
 
-    # ---- 16. kernel list ----------------------------------------------------
+    # ---- 16. the dry run against the card ------------------------------------
     phase_mark(16, t_all)
+    dryrun_phase({"qwen2-7b": qwen_serve, "rwkv6-7b": rwkv_serve, **zoo, **mla_mamba,
+                  **audio_vlm["serve"]}, train)
+
+    # ---- 17. kernel list ----------------------------------------------------
+    phase_mark(17, t_all)
     kernels = []
     hier_launches = {"polyblock_fused": hs_launches["polyblock_fused"],
                      "polyblock_project": hstep_launches["polyblock_project"],
@@ -2750,7 +2924,7 @@ def main() -> None:
                             ms=res["ms"], plain_ms=res["plain_ms"],
                             bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                             library_ms=res["library_ms"]))
-        kernels[-1]["train_launches"] = {arch: n[name] for arch, n in train.items()}
+        kernels[-1]["train_launches"] = {arch: r["launches"][name] for arch, r in train.items()}
         if name == "flash_attention":
             kernels[-1]["serve_launches"] = dict(
                 {"qwen2-7b": launches}, **{a: r["launches"][name] for a, r in zoo.items()},

@@ -8,7 +8,10 @@
                 T >= 1 (prefill and the T = 1 decode step);
   wkv6_plain -- the plain torch version (`.ref`).
 
-A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+A CUDA tensor launches the kernel; a CPU tensor runs the plain version; a
+meta tensor (the dry run, `launch/dryrun.py`) gets the kernel's outputs as
+shapes, as a custom op's meta function gives them: nothing is computed or
+launched.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ def wkv6(r, k, v, w, u, state):
     record (an input requires grad): the kernel has no backward."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, state)
+    if r.device.type == "meta":
+        return torch.empty_like(r), torch.empty_like(state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
     check_no_grad("wkv6", r, k, v, w, u, state)

@@ -1,2 +1,6 @@
-"""Launchers of the model zoo: the serving driver (`serve.py`) and the
-training driver (`train.py`)."""
+"""Launchers of the model zoo: the serving driver (`serve.py`), the
+training driver (`train.py`), and the launch planning layer: the analytic
+cost model with the H100's constants (`analytic.py`), the inputs and
+caches as meta tensors (`specs.py`), a step's counted FLOPs and peak live
+bytes on the meta device (`step_analysis.py`) and the dry run over every
+arch and input shape (`dryrun.py`)."""

@@ -29,6 +29,7 @@ from ..data.pipeline import synthetic_token_batch
 from ..device import resolve_device
 from ..models.transformer import clone_cache, init_params, param_count
 from ..train.serve_step import make_prefill_step, make_serve_step
+from .step_analysis import tree_nbytes
 
 __all__ = ["ServeResult", "serve_loop", "stub_frontend", "main"]
 
@@ -41,6 +42,7 @@ class ServeResult:
     batch: int
     prompt_len: int
     new_tokens: int
+    cache_bytes: int = 0     # the prefill cache's summed bytes (its decode slots included)
 
     @property
     def prefill_tok_s(self) -> float:
@@ -115,6 +117,7 @@ def serve_loop(arch_or_cfg: str | ArchConfig, *, batch: int = 4, prompt_len: int
     sync()
     t0 = time.perf_counter()
     logits, cache = prefill(params, req)
+    cache_bytes = tree_nbytes(cache)
     tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
     sync()
     t_prefill = time.perf_counter() - t0
@@ -140,7 +143,7 @@ def serve_loop(arch_or_cfg: str | ArchConfig, *, batch: int = 4, prompt_len: int
           f"({batch*new_tokens/dt:.1f} tok/s steady-state decode)")
     tokens = torch.cat(generated, dim=1).cpu().numpy()
     return ServeResult(tokens=tokens, prefill_s=t_prefill, decode_s=dt, batch=batch,
-                       prompt_len=prompt_len, new_tokens=new_tokens)
+                       prompt_len=prompt_len, new_tokens=new_tokens, cache_bytes=cache_bytes)
 
 
 def main(argv=None):

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "DTYPE",
+    "MetaGenerator",
     "normal_bf16",
     "dense_init",
     "dense",
@@ -35,10 +36,22 @@ DTYPE = torch.bfloat16
 DRAW_SLICE_ELEMS = 1 << 28
 
 
-def normal_bf16(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    """Normal(0, 1) * scale drawn in f32 on `gen`'s device, stored bf16."""
+class MetaGenerator:
+    """Stands in for a torch.Generator where parameters are built as shapes
+    only: its device is "meta", so every init helper returns tensors on the
+    meta device, and `normal_bf16` draws nothing (the port's counterpart of
+    `jax.eval_shape(init_params)`; `transformer.param_shapes`)."""
+
+    device = torch.device("meta")
+
+
+def normal_bf16(gen: torch.Generator | MetaGenerator, shape, scale: float) -> torch.Tensor:
+    """Normal(0, 1) * scale drawn in f32 on `gen`'s device, stored bf16; on
+    the meta device (`MetaGenerator`) an empty tensor of that shape."""
     shape = tuple(shape)
     out = torch.empty(shape, dtype=DTYPE, device=gen.device)
+    if out.is_meta:
+        return out
     step = max(1, DRAW_SLICE_ELEMS // max(1, math.prod(shape[1:])))
     for i in range(0, shape[0], step):
         part = torch.randn((min(step, shape[0] - i),) + shape[1:], generator=gen,

@@ -61,8 +61,8 @@ from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv6
 from .attention import (cross_attn, cross_attn_init, gqa_decode, gqa_forward, gqa_init,
                         init_kv_cache, init_mla_cache, mla_decode, mla_forward, mla_init)
-from .layers import (DTYPE, dense, dense_init, normal_bf16, rmsnorm, rmsnorm_init, swiglu,
-                     swiglu_init)
+from .layers import (DTYPE, MetaGenerator, dense, dense_init, normal_bf16, rmsnorm,
+                     rmsnorm_init, swiglu, swiglu_init)
 from .moe import moe_apply, moe_init
 from .ssm import (init_mamba_state, init_rwkv6_state, mamba_forward, mamba_init,
                   rwkv6_channel_mix, rwkv6_init, rwkv6_time_mix, wkv6_scan_ref)
@@ -72,6 +72,7 @@ __all__ = [
     "Stage",
     "stage_plan",
     "init_params",
+    "param_shapes",
     "params_from_jax",
     "forward",
     "lm_loss",
@@ -221,6 +222,13 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
         p["mtp_ln"] = rmsnorm_init(cfg.d_model, gen.device)
         p["mtp_head"] = dense_init(gen, cfg.d_model, cfg.vocab, scale=0.02)
     return p
+
+
+def param_shapes(cfg: ArchConfig):
+    """`init_params`' exact tree (keys, per-layer lists, shapes, dtypes) as
+    tensors on the meta device: nothing drawn, no storage (the port's
+    counterpart of `jax.eval_shape(init_params)`)."""
+    return init_params(cfg, MetaGenerator())
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:

@@ -342,28 +342,20 @@ def test_moe_model_variants_match_jax(variant):
     assert float(taux) > 0 and abs(float(taux) - float(jaux)) <= AUX_RTOL * float(jaux)
 
 
-class _MetaGen(torch.Generator):
-    """A CPU generator whose `device` is "meta": `init_params` then builds
-    every parameter as a shape on the meta device, allocating nothing."""
-
-    @property
-    def device(self):
-        return torch.device("meta")
-
-
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "stablelm-3b", "yi-6b",
                                   "qwen1.5-110b", "deepseek-v3-671b", "jamba-v0.1-52b"])
 @pytest.mark.parametrize("size", ["full", "smoke"])
 def test_param_count_matches_jax_from_shapes(arch, size):
     """param_count of the port's tree equals the JAX package's, both from
-    shapes alone: jax.eval_shape of its init_params, the port's init_params
-    on the meta device (qwen1.5-110b: 111 B parameters, deepseek-v3-671b:
-    671 952 965 632 with its MTP head, never allocated)."""
+    shapes alone: jax.eval_shape of its init_params, the port's
+    `param_shapes` (init_params on the meta device; qwen1.5-110b: 111 B
+    parameters, deepseek-v3-671b: 671 952 965 632 with its MTP head, never
+    allocated)."""
     name = arch if size == "full" else arch + "-smoke"
     jcfg, tcfg = jax_get_config(name), get_config(name)
     shapes = jax.eval_shape(lambda k: JT.init_params(jcfg, k), jax.random.PRNGKey(0))
     want = sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(shapes))
-    tp = TT.init_params(tcfg, _MetaGen())
+    tp = TT.param_shapes(tcfg)
     devices = set()
     TT._tree_map(lambda t: devices.add(t.device.type), tp)
     assert devices == {"meta"}
