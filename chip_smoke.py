@@ -6,9 +6,10 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the paper simulation
 (`run_simulation`) and its multi-cell hierarchy (`run_hierarchical`,
 `run_hier_many`) through K1-K3 on all three engines and checks their traces
-against the same runs on the CPU, runs a `run_many` group of 16 cells as one
-batch on each device engine (every cell bitwise its solo run), runs the
-sweep harness (`run_sweep`) and
+against the same runs on the CPU, runs a `run_many` group of 16 cells and a
+`run_hier_many` group of 8 hierarchy configs as one batch on each device
+engine (every cell and config bitwise its solo run), runs the sweep harness
+(`run_sweep`) and
 the sustained service (`SustainedService`) on them, serves all ten models of the
 model zoo (`serve_loop`) at full width through K4 and K5 (qwen2-7b, rwkv6-7b, the MoE
 granite-moe-3b-a800m, stablelm-3b at head dim 80 and yi-6b at full depth,
@@ -79,21 +80,33 @@ order:
      every launch counter set to 0 just before it and read just after: the
      four paper DS policies x seeds 0-3 at `examples/torch_reproduce_figures.py`'s
      default widths (mnist MLP at full width, N 20, K 4, 500 samples) and
-     30 rounds, one 16-cell group on the scan engine and one with
+     15 rounds (30 before PR 25), one 16-cell group on the scan engine and one with
      aggregation="async"; every cell bitwise its solo run on the card (all
      32), one cell per policy against the CPU, K1 once and K3 once per
      aggregation of the group, the group's host reads per round within the
      bound Σ over its policies of the most any of that policy's cells reads
      alone, plus one; the group's wall time beside the sum of the solo
-     runs';
+     runs'; then a run_hier_many group as one batch on a config axis:
+     phase 8's HierSimConfig(rounds=30) (2 cells x 10 devices x 4
+     sub-channels, 400 samples, mnist MLP at full width) x the four paper
+     DS policies x seeds 0-1, one 8-config group on the scan engine and
+     one with aggregation="async" at both tiers; every config bitwise its
+     solo run on the card (all 16), one config per policy against the CPU
+     (traces exact, loss within 1e-4), K1 once per distinct world, K3
+     exactly as the group rule and the traces imply (scan: per round one
+     per cell index in which any config's cell trained, plus one global;
+     async: rounds x (C + 1)), the group's host reads per (round, cell)
+     within the flat bound carried to each cell index, and the group's
+     wall time beside the sum of the solo runs'; the phase's wall time;
  10. the sweep harness and the sustained service, each driven with every
      launch counter set to 0 just before it and read just after:
      run_sweep at `examples/torch_reproduce_figures.py`'s default widths
-     and 30 rounds (mnist MLP at full width, N 20, K 4, 500 samples, the
+     and 20 rounds (30 before PR 25; mnist MLP at full width, N 20, K 4, 500 samples, the
      four paper DS policies x seeds 0 / 1 as that example's default,
      crossed with aggregation sync / async x cell counts 1 / 2: 32 cells,
-     record and gallery into a temporary directory), K1 and K3 launched
-     as often as the spec and the traces imply, one
+     record and gallery into a temporary directory; its 16 hierarchical
+     cells run as two run_hier_many groups), K1 and K3 launched as often
+     as the spec and the traces imply (each group by its group rule), one
      cell per (aggregation, cell count) bitwise equal to its solo run on
      the card and its traces equal to the CPU's; then SustainedService at
      `python -m repro_torch.service.run --ra mo`'s defaults (N 64, K 16,
@@ -205,8 +218,9 @@ order:
      `serve_launches`, its D 80 check, `d80`, and its checks at
      whisper-base's and qwen2-vl-2b's shapes, `whisper_d64` and
      `qwen2_vl_d128`; with K1-K3's launches on the hierarchy's, the
-     batched groups', the sweep's and the service's paths: `hier_launches`,
-     `batch_launches`, `sweep_launches`, `service_launches`; every kernel's
+     batched groups', the hierarchy groups', the sweep's and the service's
+     paths: `hier_launches`, `batch_launches`, `hier_batch_launches`,
+     `sweep_launches`, `service_launches`; every kernel's
      launches on the training path, `train_launches`; K1's bound at the
      hierarchy's and a service segment's pairs, `at`; K3's cell axis at 1,
      16 and 32 cells, `cells`).
@@ -247,6 +261,7 @@ from repro_torch.fl import (HierSimConfig, SimConfig, run_hier_many,  # noqa: E4
                             run_hierarchical, run_simulation)
 from repro_torch.experiments import SweepSpec, run_sweep  # noqa: E402
 from repro_torch.fl import async_loop  # noqa: E402
+from repro_torch.fl import hier_async  # noqa: E402
 from repro_torch.fl import hierarchical as hier  # noqa: E402
 from repro_torch.fl import run_many  # noqa: E402
 from repro_torch.fl import sim as sim_mod  # noqa: E402
@@ -1130,30 +1145,44 @@ def hier_sim(cfg: HierSimConfig, device, engine: str = "scan",
     return out
 
 
+def hier_group_k3_expected(cfg: HierSimConfig, engine: str,
+                           txs: list[np.ndarray]) -> tuple[int, str]:
+    """The K3 launches of one `run_hier_many` group that its configs' tx
+    traces ((rounds, C, N) each) imply, and how.  Every aggregation is one
+    launch for all the group's configs.  scan: per round, one per cell
+    index in which any config's cell trained, and a global one every round
+    over every config's C cell slots.  async: the count does not depend on
+    the traces, by design: every event makes one buffered commit per cell
+    index and one at the global tier, for all configs, whether or not
+    anything commits (a commit that takes nothing is an exact identity
+    select, so the engine makes no host read to skip it), so rounds x
+    (C + 1), whatever the group's size."""
+    if engine == "async":
+        return (cfg.rounds * (cfg.n_cells + 1),
+                f"{cfg.rounds} events x ({cfg.n_cells} cells + 1 global)")
+    trained = np.any([tx.any(axis=2) for tx in txs], axis=0)      # (rounds, C)
+    return (int(trained.sum()) + cfg.rounds,
+            f"{int(trained.sum())} cell + {cfg.rounds} global")
+
+
 def hier_k3_expected(cfg: HierSimConfig, engine: str, out: dict) -> tuple[int, str]:
     """The K3 launches a run's traces imply, and how.  Every aggregation is
     one grouped K3 launch.  loop: one per (round, cell) in which the cell
     trained, and a global one per round in which any cell trained (it
-    stacks only those cells); scan: one per (round, cell) in which the cell
-    trained, and a global one every round over all C cell slots.  async:
-    the count does not depend on the traces, by design: every event makes
-    one buffered commit per cell and one at the global tier whether or not
-    anything commits (a commit that takes nothing is an exact identity
-    select, so the engine makes no host read to skip it), so rounds x
-    (C + 1).  The check then shows only that each event launched C + 1
-    aggregations; the cell-tier and global commits of the traces are
-    printed beside it, and each is one of those launches."""
+    stacks only those cells); scan and async: the group rule
+    (`hier_group_k3_expected`) of a group of one.  On async the check shows
+    only that each event launched C + 1 aggregations; the cell-tier and
+    global commits of the traces are printed beside it, and each is one of
+    those launches."""
     trained = out["tx"].any(axis=2)                     # (rounds, C)
     if engine == "loop":
         any_t = int(trained.any(axis=1).sum())
         return int(trained.sum()) + any_t, f"{int(trained.sum())} cell + {any_t} global"
-    if engine == "scan":
-        return (int(trained.sum()) + cfg.rounds,
-                f"{int(trained.sum())} cell + {cfg.rounds} global")
-    return (cfg.rounds * (cfg.n_cells + 1),
-            f"{cfg.rounds} events x ({cfg.n_cells} cells + 1 global); cell-tier commits "
-            f"{int(out['committed'].any(axis=2).sum())}, global commits "
-            f"{int(out['cell_committed'].sum())}")
+    want, how = hier_group_k3_expected(cfg, engine, [out["tx"]])
+    if engine == "async":
+        how += (f"; cell-tier commits {int(out['committed'].any(axis=2).sum())}, global "
+                f"commits {int(out['cell_committed'].sum())}")
+    return want, how
 
 
 def hier_k2_expected(cfg: HierSimConfig) -> int:
@@ -1226,10 +1255,11 @@ def drive_hier(cfg: HierSimConfig, engine: str, need: tuple[str, ...],
 # ---------------------------------------------------------------------------
 
 # `examples/torch_reproduce_figures.py`'s default widths (mnist MLP at Table-I
-# width, N 20, K 4, 500 samples, eval every 5 rounds) at 30 rounds, the four
-# paper DS policies x seeds 0-3: one 16-cell group per engine.
+# width, N 20, K 4, 500 samples, eval every 5 rounds) at 15 rounds (30 before
+# the hierarchy's groups joined this phase), the four paper DS policies x seeds
+# 0-3: one 16-cell group per engine.
 BATCH_SIM = dict(dataset="mnist", n_devices=20, n_subchannels=4, n_samples=500,
-                 eval_every=5, rounds=30)
+                 eval_every=5, rounds=15)
 BATCH_SEEDS = (0, 1, 2, 3)
 
 
@@ -1339,16 +1369,130 @@ def batch_phase(aggregation: str) -> dict:
                 bound=sum(bound), serial_reads=sum(map(sum, solo_reads)), cfgs=cfgs)
 
 
+# Phase 8's hierarchy (2 cells x 10 devices x 4 sub-channels, 400 samples,
+# mnist MLP at full width, 30 rounds) x the four paper DS policies x seeds 0-1:
+# one 8-config `run_hier_many` group per engine.
+HIER_BATCH_SEEDS = (0, 1)
+
+
+def hier_batch_phase(aggregation: str) -> dict:
+    """One 8-config `run_hier_many` group (`HierSimConfig(rounds=30)`,
+    PAPER_BASELINE_DS x HIER_BATCH_SEEDS) on the scan engine
+    (`aggregation="sync"`) or the two-tier async one (`aggregation` at both
+    tiers), run once as a group on the card, then every config alone on the
+    card: every config bitwise its solo run in every field; one config per
+    policy (seed 0, one CPU group) with its traces equal to the CPU's and
+    its loss within 1e-4; K1 once per distinct world; K3 exactly as the
+    group rule and the traces imply (`hier_group_k3_expected`); the host
+    reads of every (round, cell) of the group within the flat group's
+    bound carried to that cell index: 1 (the who-trains read) + Σ over its
+    policies of the most reads any of that policy's configs makes alone at
+    that (round, cell), less its own who-trains read; the group's wall time
+    beside the sum of the solo runs'."""
+    cfgs = [HierSimConfig(rounds=30, seed=s, policy=RoundPolicy(ds=d),
+                          aggregation=aggregation, global_aggregation=aggregation)
+            for d in PAPER_BASELINE_DS for s in HIER_BATCH_SEEDS]
+    engine = "scan" if aggregation == "sync" else "async"
+    owner, body = ((hier, "sync_group_round") if aggregation == "sync"
+                   else (hier_async, "group_event"))
+    with RoundReads(owner, body) as group_reads:
+        hists, wall, launches, syncs = run_on_card(cfgs, run_hier_many, engine="scan")
+    solo_walls, solo_reads, differ = [], [], []
+    for c, h in zip(cfgs, hists):
+        with RoundReads(owner, body) as reads:
+            alone, w, _, _ = run_on_card([c], run_hier_many, engine="scan")
+        solo_walls.append(w)
+        solo_reads.append(list(reads))
+        if bitwise_diff(h, alone[0], skip=()):
+            differ.append(f"{c.policy.ds}/seed{c.seed}: {bitwise_diff(h, alone[0], skip=())}")
+    cfg = cfgs[0]
+    rounds, n_cells = cfg.rounds, cfg.n_cells
+    shape = (rounds, n_cells, cfg.devices_per_cell)
+    calls = rounds * n_cells
+    bound = [1 + sum(max(solo_reads[i][j] - 1 for i, c in enumerate(cfgs)
+                         if c.policy.ds == ds) for ds in PAPER_BASELINE_DS)
+             for j in range(calls)]
+    per_round = [sum(group_reads[r * n_cells:(r + 1) * n_cells]) for r in range(rounds)]
+    bound_round = [sum(bound[r * n_cells:(r + 1) * n_cells]) for r in range(rounds)]
+    # The same bound read per round over whole solo rounds, for comparison:
+    # Σ over policies of the most any config reads alone in the round, + C.
+    solo_round = [[sum(rd[r * n_cells:(r + 1) * n_cells]) for r in range(rounds)]
+                  for rd in solo_reads]
+    whole = [n_cells + sum(max(solo_round[i][r] for i, c in enumerate(cfgs)
+                               if c.policy.ds == ds) for ds in PAPER_BASELINE_DS)
+             for r in range(rounds)]
+    k3_want, k3_how = hier_group_k3_expected(cfg, engine, [h.tx_trace.reshape(shape)
+                                                           for h in hists])
+    k1_want = len(HIER_BATCH_SEEDS)
+    serial = sum(map(sum, solo_reads))
+    line(f"main path hier batch engine={engine} aggregation={aggregation}/{aggregation}: "
+         f"{len(cfgs)} configs ({len(PAPER_BASELINE_DS)} policies x seeds {HIER_BATCH_SEEDS}) "
+         f"in one group, {n_cells} cells x {cfg.devices_per_cell} devices x "
+         f"{cfg.subchannels_per_cell} sub-channels, mnist rounds={rounds}: group "
+         f"wall_s={wall:.3f} against the sum of the {len(cfgs)} solo runs "
+         f"{sum(solo_walls):.3f} (x{sum(solo_walls) / wall:.2f}); launches "
+         + " ".join(f"{k}={v}" for k, v in launches.items()) + f" [{CARD}]")
+    line(f"  host reads: group {syncs} ({syncs / rounds:.2f} per group round; the bound, "
+         f"per (round, cell) 1 + Σ_policy max_config (alone - 1): {sum(bound)}, "
+         f"{sum(bound) / rounds:.2f} per round; equal at every (round, cell): "
+         f"{group_reads == bound}); max per round {max(per_round)} against "
+         f"Σ_policy max_config over whole solo rounds + C: {max(whole)} (held every "
+         f"round: {all(g <= b for g, b in zip(per_round, whole))}); the configs one "
+         f"after another {serial} ({serial / rounds:.2f} per round)")
+    line(f"  K1 launches={launches['polyblock_fused']} (expected {k1_want}: one Γ solve per "
+         f"distinct world); K3 launches={launches['fedavg_agg']} (the group rule and the "
+         f"traces imply {k3_want}: {k3_how})")
+    line(f"  {len(cfgs)} configs vs their solo runs on the card: bitwise equal in every "
+         f"field (commit and async traces included): {not differ}"
+         + (f" (differ: {differ})" if differ else ""))
+    firsts = [i for i, c in enumerate(cfgs) if c.seed == HIER_BATCH_SEEDS[0]]
+    t0 = time.perf_counter()
+    refs = run_hier_many([cfgs[i] for i in firsts], engine="scan", device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    same = []
+    for i, ref in zip(firsts, refs):
+        h = hists[i]
+        eq = {f: np.array_equal(getattr(h, f), getattr(ref, f))
+              for f in ("tx_trace", "age_trace", "commit_trace") if getattr(ref, f) is not None}
+        if ref.async_trace is not None:
+            eq["cell_committed"] = np.array_equal(h.async_trace["cell_committed"],
+                                                  ref.async_trace["cell_committed"])
+        loss_rel = max_rel(h.global_loss, ref.global_loss)
+        same.append(all(eq.values()) and loss_rel <= 1e-4)
+        line(f"  {cfgs[i].policy.ds}/seed{cfgs[i].seed} vs the cpu group: "
+             + "; ".join(f"{f} == cpu: {v}" for f, v in eq.items())
+             + f"; loss max_rel vs cpu: {loss_rel:.3e} (limit 1e-4)")
+    line(f"  cpu group of {len(firsts)} configs: wall_s={cpu_wall:.3f}")
+    if differ:
+        raise AssertionError(f"hier batch {engine}: configs differ from their solo runs: "
+                             f"{differ}")
+    if not all(same):
+        raise AssertionError(f"hier batch {engine}: traces or losses differ from the CPU's")
+    if (launches["polyblock_fused"], launches["fedavg_agg"]) != (k1_want, k3_want):
+        raise AssertionError(f"hier batch {engine}: K1/K3 launches differ from the expected "
+                             f"counts")
+    if len(group_reads) != calls or any(g > b for g, b in zip(group_reads, bound)):
+        raise AssertionError(f"hier batch {engine}: host reads per (round, cell) "
+                             f"{group_reads} exceed the bound {bound}")
+    for h in hists:
+        if not (np.all(np.isfinite(h.global_loss)) and h.global_loss[-1] < h.global_loss[0]):
+            raise AssertionError(f"hier batch {engine}: a config's loss is not finite or did "
+                                 f"not fall")
+    return dict(launches=launches, wall_s=wall, solo_wall_s=sum(solo_walls), reads=syncs,
+                bound=sum(bound), serial_reads=serial)
+
+
 # ---------------------------------------------------------------------------
 # the sweep harness and the sustained service
 # ---------------------------------------------------------------------------
 
 # The paper's four DS baselines at `examples/torch_reproduce_figures.py`'s
 # default widths (mnist, N 20, K 4, 500 samples, eval every 5 rounds), crossed
-# with aggregation sync / async and cell counts 1 / 2, at 30 rounds.
+# with aggregation sync / async and cell counts 1 / 2, at 20 rounds (30 before
+# the hierarchy's groups joined phase 9).
 SWEEP_SPEC = dict(name="fig3_convergence", datasets="mnist", ds=PAPER_BASELINE_DS,
                   aggregation=("sync", "async"), cell_counts=(1, 2), seeds=(0, 1),
-                  rounds=30, n_devices=20, n_subchannels=4, target_loss=1.0,
+                  rounds=20, n_devices=20, n_subchannels=4, target_loss=1.0,
                   overrides={"n_samples": 500, "eval_every": 5})
 # `python -m repro_torch.service.run --ra mo` at its defaults.
 SERVICE_SIM = dict(dataset="mnist", n_devices=64, n_subchannels=16, n_samples=128,
@@ -1426,25 +1570,24 @@ def sweep_k3_expected(cells, hists) -> int:
     the cells that share a model (`sim._scan_group_key`) as one group on
     each engine, and a group aggregates all its cells in one launch: once
     per round in which any of its cells trained (scan), once per event
-    (async).  A hierarchy: `hier_k3_expected`'s rules, config by config."""
-    total, groups = 0, {}
+    (async).  The hierarchical cells go to one `run_hier_many` call, which
+    groups them alike (`hier._hier_group_key`), each group counted by
+    `hier_group_k3_expected`."""
+    total, groups, hier_groups = 0, {}, {}
     for c, hist in zip(cells, hists):
         cfg = c.config
+        is_async = hist.commit_trace is not None
         if isinstance(cfg, HierSimConfig):
-            shape = (cfg.rounds, cfg.n_cells, cfg.devices_per_cell)
-            out = dict(tx=hist.tx_trace.reshape(shape))
-            if hist.commit_trace is None:
-                total += hier_k3_expected(cfg, "scan", out)[0]
-            else:
-                out.update(committed=hist.commit_trace.reshape(shape),
-                           cell_committed=hist.async_trace["cell_committed"])
-                total += hier_k3_expected(cfg, "async", out)[0]
+            hier_groups.setdefault((is_async, hier._hier_group_key(cfg)), []).append(
+                (cfg, hist.tx_trace.reshape(cfg.rounds, cfg.n_cells, cfg.devices_per_cell)))
         else:
-            key = (hist.commit_trace is not None, sim_mod._scan_group_key(cfg))
-            groups.setdefault(key, []).append(hist)
+            groups.setdefault((is_async, sim_mod._scan_group_key(cfg)), []).append(hist)
     for (is_async, _), hs in groups.items():
         total += (hs[0].tx_trace.shape[0] if is_async
                   else group_k3_expected(hs))
+    for (is_async, _), members in hier_groups.items():
+        total += hier_group_k3_expected(members[0][0], "async" if is_async else "scan",
+                                        [tx for _, tx in members])[0]
     return total
 
 
@@ -2857,13 +3000,22 @@ def main() -> None:
 
     # ---- 9. a run_many group as one batch on a cell axis ---------------------
     phase_mark(9, t_all)
+    t_batch = time.perf_counter()
     batch = {agg: batch_phase(agg) for agg in ("sync", "async")}
+    t_hier = time.perf_counter()
+    hier_batch = {agg: hier_batch_phase(agg) for agg in ("sync", "async")}
+    line(f"hier batch wall_s={time.perf_counter() - t_hier:.1f}; batch phase "
+         f"wall_s={time.perf_counter() - t_batch:.1f} [{CARD}]")
 
     # ---- 10. the sweep harness and the sustained service ----------------------
     phase_mark(10, t_all)
     line(f"sweep and service on {CARD}")
+    t_sweep = time.perf_counter()
     sweep = sweep_phase()
+    t_service = time.perf_counter()
     service = service_phase()
+    line(f"sweep phase wall_s={t_service - t_sweep:.1f}; service phase "
+         f"wall_s={time.perf_counter() - t_service:.1f} [{CARD}]")
     sb, sh, se, scfg = service["pairs"]
     k1_at["service_segment"] = k1_bound("the service's first segment (100 events x 16 x 64)",
                                         to(sb), to(sh), to(se), scfg)
@@ -2945,6 +3097,8 @@ def main() -> None:
         if name in ("polyblock_fused", "fedavg_agg"):
             kernels[-1]["batch_launches"] = {agg: r["launches"][name]
                                              for agg, r in batch.items()}
+            kernels[-1]["hier_batch_launches"] = {agg: r["launches"][name]
+                                                  for agg, r in hier_batch.items()}
         if name in hier_launches:
             kernels[-1]["hier_launches"] = hier_launches[name]
             kernels[-1]["sweep_launches"] = sweep["launches"][name]

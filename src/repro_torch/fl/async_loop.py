@@ -58,12 +58,12 @@ import numpy as np
 import torch
 
 from ..core.leader_torch import first_true, host_ints
-from .engine_common import (at_channel, eval_cells, group_data, lift_x, make_eval_fn,
+from .engine_common import (at_channel, eval_cells, group_data, make_eval_fn,
                             make_group_leader, make_xs, stack_cells, train_cells)
 from .server import aggregate_buffered, staleness_weight
 
-__all__ = ["commit_event", "group_event", "cell_event", "init_async_carry",
-           "build_async_runner", "build_async_group_runner"]
+__all__ = ["commit_event", "group_event", "init_async_carry", "build_async_runner",
+           "build_async_group_runner"]
 
 
 def _fresh_state(params: dict, lead: tuple, n: int) -> tuple:
@@ -148,7 +148,9 @@ def group_event(leader, trainer, data, x, t: int, params: dict, draws, age,
     are scattered into `buf` / `base` IN PLACE; every other state tensor is
     returned anew.  `busy` ((B,) bool) gates the commit: a busy cell commits
     nothing and its clocks do not advance — the two-tier engine's
-    cell-commit gating (`fl.hier_async`).  The flat engine passes None.
+    cell-commit gating (`fl.hier_async`, which runs this event once per cell
+    index over the cell of every config in its group, on views of its
+    state).  The flat engine passes None.
 
     Returns dict(params, age, disp_e, rem, active) — the cells' new state —
     and the event's lead, tx, commit, delta (the event latency), cw (the
@@ -211,21 +213,6 @@ def group_event(leader, trainer, data, x, t: int, params: dict, draws, age,
                 active=active, lead=lead, tx=tx, commit=commit, delta=delta,
                 cw=cw, energy=energy, overflow=overflow,
                 rem_dispatch=torch.where(tx, t_dev, zero))
-
-
-def cell_event(leader, trainer, data, x, t: int, params: dict, draws,
-               age, buf: dict, base: dict, disp_e, rem, active, busy=None, *,
-               k: int, n: int) -> dict:
-    """One cell's event: `group_event` on a group of one (`leader` from
-    `engine_common.make_leader_branches`), the operands and results without
-    the cell axis; the flights still land in the caller's `buf` / `base`."""
-    params, draws, age, buf, base, disp_e, rem, active = _lift_carry(
-        (params, draws, age, buf, base, disp_e, rem, active))
-    out = group_event(leader, trainer, group_data([data], rounds=False), lift_x(x), t,
-                      params, draws, age, buf, base, disp_e, rem, active,
-                      None if busy is None else busy[None], k=k, n=n)
-    return {name: ({key: u[0] for key, u in v.items()} if isinstance(v, dict) else v[0])
-            for name, v in out.items()}
 
 
 def _event_loop(model, trainer, policies: Sequence[tuple[str, str]], *, k: int, n: int,

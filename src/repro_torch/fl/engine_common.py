@@ -12,11 +12,17 @@ package's `vmap` over a `run_many` group.  `group_data` stacks the cells'
 while the learning plane stays per cell (`data["cells"]`), since a batched
 GEMM is not the bits of the cells' own GEMMs.  `sync_group_round` is the
 group's whole sync round (the async event's counterpart is
-`fl.async_loop.group_event`); `sync_cell_round` is its one-cell case, run
-once per cell by the hierarchy.  A cell's results are the bits it gets in
-a group of one: the leader masks frozen cells, the per-cell reductions run
-along the last axis, and K3 takes every cell in one launch with each cell's
-own operations (`kernels.fedavg_agg.fedavg_aggregate_leaves_batched`).
+`fl.async_loop.group_event`); `sync_cell_round` is its one-cell case.  A
+cell's results are the bits it gets in a group of one: the leader masks
+frozen cells, the per-cell reductions run along the last axis, and K3 takes
+every cell in one launch with each cell's own operations
+(`kernels.fedavg_agg.fedavg_aggregate_leaves_batched`).
+
+A `run_hier_many` group of G hierarchy configs, each of C cells, is C such
+groups that share the configs' global models: `group_data` stacks the
+configs' `fl.hierarchical._hier_scan_inputs` dicts (a config axis first,
+the cell axis second), and `group_cell_data` takes cell c of every config
+as one flat group of G, which the hierarchy's engines run in cell order.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from .server import aggregate
 
 __all__ = ["group_data", "stack_cells", "make_group_leader", "make_leader_branches",
            "at_channel", "train_cells", "make_eval_fn", "eval_cells", "make_xs",
-           "cell_data", "cell_x", "lift_x", "sync_group_round", "sync_cell_round"]
+           "cell_data", "group_cell_data", "lift_x", "sync_group_round",
+           "sync_cell_round"]
 
 # The per-cell leader-plane operands of `fl.sim._scan_inputs` ((N,) / (S,)),
 # and its per-round ones (a leading rounds axis).
@@ -48,26 +55,31 @@ def _stack(vals: list, dim: int) -> torch.Tensor:
 
 
 def group_data(cells: Sequence[dict], *, rounds: bool = True) -> dict:
-    """One group's `data` dict from its cells' `fl.sim._scan_inputs` dicts.
+    """One group's `data` dict from its cells' `fl.sim._scan_inputs` dicts
+    (or its configs' `fl.hierarchical._hier_scan_inputs` dicts).
 
     The leader operands gain a cell axis: first on the per-cell ones (beta,
-    clusters, fixed_ids: (B, N)), second on the per-round ones (gamma
-    (R, B, K, N), ...; skipped with ``rounds=False``).  The async operands
-    follow: `buffer` stays an int when every cell has the same, else a (B,)
-    tensor; `stale_exp` and `server_lr` become (B,).  `cells` keeps the
-    dicts themselves for the learning plane, and `spans` lists the runs of
-    cells with one policy as (policy index, start, stop): the leader runs
-    once per run, so cells sorted by `policy_idx` make one run per policy.
-    A group of one is lifted by views, without a copy."""
+    clusters, fixed_ids: (B, N); a hierarchy's (G, C, N)), second on the
+    per-round ones (gamma (R, B, K, N), a hierarchy's (R, G, C, K, N), ...;
+    skipped with ``rounds=False``).  The commit operands follow, at the cell
+    tier and at a hierarchy's global tier (`g_` names): `buffer` stays an int
+    when every cell has the same, else a (B,) tensor; `stale_exp` and
+    `server_lr` become (B,).  `cells` keeps the dicts themselves for the
+    learning plane, and `spans` lists the runs of cells with one policy as
+    (policy index, start, stop): the leader runs once per run, so cells
+    sorted by `policy_idx` make one run per policy.  A group of one is lifted
+    by views, without a copy."""
     out = {name: _stack([c[name] for c in cells], 0) for name in _CELL_KEYS}
     if rounds:
         out.update({name: _stack([c[name] for c in cells], 1) for name in _ROUND_KEYS})
-    if "buffer" in cells[0]:
-        buffers = [c["buffer"] for c in cells]
-        out["buffer"] = (buffers[0] if len(set(buffers)) == 1 else
-                         torch.tensor(buffers, device=out["beta"].device))
+    for tier in ("", "g_"):
+        if tier + "buffer" not in cells[0]:
+            continue
+        buffers = [c[tier + "buffer"] for c in cells]
+        out[tier + "buffer"] = (buffers[0] if len(set(buffers)) == 1 else
+                                torch.tensor(buffers, device=out["beta"].device))
         for name in ("stale_exp", "server_lr"):
-            out[name] = _stack([c[name] for c in cells], 0)
+            out[tier + name] = _stack([c[tier + name] for c in cells], 0)
     if "t0" in cells[0]:
         out["t0"] = cells[0]["t0"]
     spans: list[tuple[int, int, int]] = []
@@ -81,16 +93,20 @@ def group_data(cells: Sequence[dict], *, rounds: bool = True) -> dict:
     return out
 
 
-def stack_cells(trees: Sequence[dict]) -> dict:
+def stack_cells(trees: Sequence[dict], lead: tuple[int, ...] | None = None) -> dict:
     """The cells' parameter dicts as one dict of (B, ...) leaves, laid out
     as K3's cell-axis outputs are (`cell_buffers`), so every cell's view of
-    a leaf is aligned alike from the first round on."""
+    a leaf is aligned alike from the first round on.  `lead` splits the B
+    trees' axis, row-major: (G, C) lays out a hierarchy group's cell
+    models, config by config, every (config, cell) block aligned alike."""
     names = list(trees[0])
     first = trees[0][names[0]]
     bufs = cell_buffers([trees[0][k].shape for k in names], len(trees), first.device)
     for b, tree in enumerate(trees):
         for buf, k in zip(bufs, names):
             buf[b].copy_(tree[k])
+    if lead is not None:
+        bufs = [buf.unflatten(0, lead) for buf in bufs]
     return dict(zip(names, bufs))
 
 
@@ -127,8 +143,7 @@ def make_group_leader(policies: Sequence[tuple[str, str]], data, *, k: int, n: i
 def make_leader_branches(policies: Sequence[tuple[str, str]], data, *, k: int, n: int,
                          n_clusters: int) -> Callable:
     """One cell's leader step (`make_group_leader` of a group of one, the
-    cell's policy `data["policy_idx"]`), for `sync_cell_round` and
-    `fl.async_loop.cell_event`."""
+    cell's policy `data["policy_idx"]`), for `sync_cell_round`."""
     return make_group_leader(policies, group_data([data], rounds=False),
                              k=k, n=n, n_clusters=n_clusters)
 
@@ -206,15 +221,24 @@ def make_xs(data, rounds: int, eval_mask: np.ndarray) -> dict:
 
 
 def cell_data(data: dict, c: int) -> dict:
-    """Cell c's view of the hierarchy's `data` dict: the flat engines'
-    per-cell tensors (beta, clusters, fixed_ids, client data)."""
+    """Cell c's view of one hierarchy config's `data` dict: the flat
+    engines' per-cell tensors (beta, clusters, fixed_ids, client data)."""
     return dict(data, **{name: data[name][c] for name in (
         "beta", "clusters", "fixed_ids", "x_all", "y_all", "m_all")})
 
 
-def cell_x(x: dict, c: int) -> dict:
-    """Cell c's slice of one round's inputs (Γ, energy, permutations)."""
-    return dict(x, **{name: x[name][c] for name in _X_KEYS})
+def group_cell_data(data: dict, c: int) -> dict:
+    """Cell c of every config of a hierarchy group (`group_data` of the
+    configs' dicts) as one flat group's `data` dict: the leader operands
+    (G, N) and the per-round traces (R, G, K, N), ..., each a contiguous
+    copy; the cell tier's commit operands; `spans`; and, in `cells`, each
+    config's own cell c (`cell_data`) for the learning plane."""
+    out = {name: data[name][:, c].contiguous() for name in _CELL_KEYS}
+    out.update({name: data[name][:, :, c].contiguous() for name in _ROUND_KEYS})
+    out.update({name: data[name] for name in ("buffer", "stale_exp", "server_lr", "t0")
+                if name in data})
+    out.update(cells=[cell_data(d, c) for d in data["cells"]], spans=data["spans"])
+    return out
 
 
 def lift_x(x: dict) -> dict:

@@ -42,9 +42,14 @@ with `k=`): the order in which the JAX package splits its one key.
 
 `run_hier_many` is the sweep entry point: like `fl.sim.run_many` it dedups
 worlds across policy/aggregation variants and groups compatible configs
-(`_hier_group_key`); a group runs one config at a time, as the port's
-`run_many` does (the JAX package batches a group into one program).  It
-returns flat-compatible `SimHistory` records with (rounds, C*N) traces.
+(`_hier_group_key`).  A group of G configs runs as ONE loop with the
+configs on a leading axis, the port of the JAX package's `jit(vmap)` over
+the group: cell c of every config is one flat group of G
+(`engine_common.group_cell_data`), so per round and cell index the leader
+runs once per policy, the host reads one (G,) vector of who trains, and one
+K3 launch aggregates every config's cell c; the global tier is one K3
+launch over the (G, C) cell models.  Each config is bitwise its solo run.
+It returns flat-compatible `SimHistory` records with (rounds, C*N) traces.
 """
 from __future__ import annotations
 
@@ -69,9 +74,9 @@ from ..scenarios import (Scenario, apply_dynamics, compose_gains, get_scenario,
                          sample_energy)
 from ..train.optimizer import make_optimizer
 from .client import make_local_trainer
-from .engine_common import (cell_data, cell_x, make_eval_fn,
-                            make_leader_branches, make_xs, sync_cell_round)
-from .hier_async import build_hier_async_runner
+from .engine_common import (eval_cells, group_cell_data, group_data, make_eval_fn,
+                            make_group_leader, make_xs, stack_cells, sync_group_round)
+from .hier_async import build_hier_async_group_runner
 from .server import AsyncAggregation, aggregate, get_aggregation
 from .sim import (TABLE1, SimHistory, _eval_mask, _eval_rounds,
                   _group_trainer_and_policies, _history_from_async,
@@ -336,58 +341,59 @@ def _hier_scan_inputs(prep: _HierPrepared, ras: list[RAResult],
 
 def _build_hier_scan_runner(cfg: HierSimConfig, model, trainer,
                             policies: Sequence[tuple[str, str]]):
-    """The multi-cell SYNC round loop on the device: cells a Python loop in
-    the round body, eq.-34 at both tiers.  Each cell's round is
-    `engine_common.sync_cell_round`, the flat scan engine's round, so a
-    cell runs the flat engine's float ops by construction; the cells run in the
-    order the two-tier async engine runs them — the sync side of the
-    full-buffer differential.
+    """The multi-cell SYNC round loop of a group of G configs on the
+    device: cells a Python loop in the round body, eq.-34 at both tiers.
 
-    A cell aggregates (K3) only when it transmitted, which the host reads
-    once per cell per round (the JAX package's `lax.cond(cnt > 0)`); the
-    global K3 runs every round over all C cell slots, with weight 0 for a
-    silent cell."""
+    `data` is `engine_common.group_data` of the configs' `_hier_scan_inputs`
+    dicts.  Cell c of every config is one flat group
+    (`engine_common.group_cell_data`), and its round is the flat scan
+    engine's `sync_group_round`, so a cell runs the flat engine's float ops
+    by construction: every config trains from its own global model with its
+    own draws, the host reads the (G,) counts once, and one K3 launch
+    aggregates the configs whose cell c trained (none when no config's cell
+    trained: the JAX package's `lax.cond(cnt > 0)`).  The cells run in the
+    order the two-tier async engine runs them — the sync side of the
+    full-buffer differential.  The global tier is one K3 launch every round
+    over the (G, C) cell models, with weight 0 for a silent cell.  Returns
+    fn(data) -> ys, per-round tensors (rounds, G, ...) on the device."""
     n, k, n_cells = cfg.devices_per_cell, cfg.subchannels_per_cell, cfg.n_cells
     n_clusters = int(math.ceil(n / k))
     eval_mask = _eval_mask(cfg)
 
     def run(data):
+        configs = data["cells"]
         device = data["beta"].device
-        zero = torch.zeros((), dtype=torch.float32, device=device)
-        cells = [cell_data(data, c) for c in range(n_cells)]
-        branches = [make_leader_branches(policies, cells[c], k=k, n=n,
-                                         n_clusters=n_clusters)
-                    for c in range(n_cells)]
-        ev = make_eval_fn(model, data, cfg.track_gradnorm)
-        xs = make_xs(data, cfg.rounds, eval_mask)
-        params, draws = data["params0"], data["next_uniforms"]
-        age = torch.ones((n_cells, n), dtype=torch.int32, device=device)
+        zeros = torch.zeros(len(configs), dtype=torch.float32, device=device)
+        cells = [group_cell_data(data, c) for c in range(n_cells)]
+        leaders = [make_group_leader(policies, cells[c], k=k, n=n, n_clusters=n_clusters)
+                   for c in range(n_cells)]
+        evs = [make_eval_fn(model, d, cfg.track_gradnorm) for d in configs]
+        xs = [make_xs(cells[c], cfg.rounds, eval_mask) for c in range(n_cells)]
+        params = stack_cells([d["params0"] for d in configs])
+        draws = [d["next_uniforms"] for d in configs]
+        ages = [torch.ones((len(configs), n), dtype=torch.int32, device=device)] * n_cells
         ys = []
         for r in range(cfg.rounds):
-            x = {name: v[r] for name, v in xs.items()}
-            cell_out, weights, ages, energies, sel_all, tx_all = [], [], [], [], [], []
-            latency = zero
-            for c in range(n_cells):
-                # Every cell trains from the GLOBAL model of the round.
-                out = sync_cell_round(branches[c], trainer, cells[c], cell_x(x, c),
-                                      params, draws, age[c], k=k, n=n)
-                lead = out["lead"]
+            outs = [sync_group_round(leaders[c], trainer, cells[c],
+                                     {name: v[r] for name, v in xs[c].items()}, params,
+                                     draws, ages[c], k=k, n=n)
+                    for c in range(n_cells)]
+            latency = zeros
+            for out in outs:
                 latency = torch.maximum(latency, out["latency"])
-                energies.append(out["energy"])
-                cell_out.append(out["params"])
-                weights.append(out["slot_w"].sum())
-                ages.append(lead["age_next"])
-                sel_all.append(lead["selected"])
-                tx_all.append(lead["transmitted"])
-
-            stacked = {name: torch.stack([w[name] for w in cell_out]) for name in params}
-            params = aggregate(params, stacked, torch.stack(weights))
-            age = torch.stack(ages)
-            loss, acc, gnorm = ev(params) if x["eval_mask"] else (zero, zero, zero)
+            stacked = {name: torch.stack([out["params"][name] for out in outs], 1)
+                       for name in params}
+            weights = torch.stack([out["slot_w"].sum(-1) for out in outs], 1)
+            params = aggregate(params, stacked, weights)
+            ages = [out["lead"]["age_next"] for out in outs]
+            loss, acc, gnorm = (eval_cells(evs, params) if eval_mask[r]
+                                else (zeros, zeros, zeros))
             ys.append(dict(loss=loss, acc=acc, gnorm=gnorm, latency=latency,
-                           energy=torch.stack(energies).sum(),
-                           selected=torch.stack(sel_all),
-                           transmitted=torch.stack(tx_all), age=age))
+                           energy=torch.stack([out["energy"] for out in outs], -1).sum(-1),
+                           selected=torch.stack([out["lead"]["selected"] for out in outs], 1),
+                           transmitted=torch.stack([out["lead"]["transmitted"]
+                                                    for out in outs], 1),
+                           age=torch.stack(ages, 1)))
         return {name: torch.stack([y[name] for y in ys]) for name in ys[0]}
 
     return run
@@ -430,45 +436,63 @@ def _history_from_hier(cfg: HierSimConfig, beta_flat: np.ndarray, ys: dict,
     return hist
 
 
+def _async_operands(cfg: HierSimConfig, device: torch.device) -> dict:
+    """A config's commit operands at both tiers (`g_` the global tier's),
+    as the two-tier event loop takes them."""
+    spec, g_spec = _hier_async_specs(cfg)
+
+    def f32(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    return dict(buffer=spec.resolve_buffer(cfg.devices_per_cell, cfg.subchannels_per_cell),
+                stale_exp=f32(spec.stale_exponent()), server_lr=f32(spec.server_lr),
+                g_buffer=g_spec.resolve_buffer(cfg.n_cells, cfg.n_cells),
+                g_stale_exp=f32(g_spec.stale_exponent()),
+                g_server_lr=f32(g_spec.server_lr))
+
+
 def _run_hier_group(mode: str, cfgs: Sequence[HierSimConfig],
                     preps: Sequence[_HierPrepared],
                     ras_list: Sequence[list[RAResult]],
                     plan_walls: Sequence[float],
                     device: torch.device) -> list[SimHistory]:
     """Run one group of hierarchical simulations through the scan or
-    two-tier async engine, one config at a time over the group's shared
-    model, trainer and leader branches (like `fl.sim._run_group_scan`);
-    each config's four commit-policy operands enter as data."""
+    two-tier async engine as ONE loop over a leading config axis, sharing
+    the group's model, trainer and leader variants (like `fl.sim._run_group`).
+    The configs run sorted by policy, so each distinct policy's leader runs
+    once per (round, cell) on a contiguous slice; the histories come back in
+    the given order.  On the async engine each config's commit operands at
+    both tiers enter as data.
+
+    A config's `wall_s` is the group's wall time divided by its size, plus
+    the config's own share of planning (`plan_wall_s`), as the JAX package
+    counts it: the configs run together, so there is no per-config time."""
     cfg = cfgs[0]
     model, trainer, policies, pol_idx = _group_trainer_and_policies(cfgs, device)
     _check_hier_f32(preps)
+    order = sorted(range(len(cfgs)), key=pol_idx.__getitem__)
+    t_start = time.perf_counter()
+    datas = []
+    for i in order:
+        d = _hier_scan_inputs(preps[i], ras_list[i], device, pol_idx[i])
+        if mode == "async":
+            d.update(_async_operands(cfgs[i], device))
+        datas.append(d)
     if mode == "scan":
         run = _build_hier_scan_runner(cfg, model, trainer, policies)
     else:
-        run = build_hier_async_runner(
+        run = build_hier_async_group_runner(
             model, trainer, policies, n_cells=cfg.n_cells,
             k=cfg.subchannels_per_cell, n=cfg.devices_per_cell,
             rounds=cfg.rounds, eval_mask=_eval_mask(cfg),
             track_gradnorm=cfg.track_gradnorm)
-
-    def f32(v: float) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.float32, device=device)
-
-    out = []
-    for c, p, ras, w, i in zip(cfgs, preps, ras_list, plan_walls, pol_idx):
-        t_start = time.perf_counter()
-        data = _hier_scan_inputs(p, ras, device, i)
-        if mode == "async":
-            spec, g_spec = _hier_async_specs(c)
-            data.update(
-                buffer=spec.resolve_buffer(c.devices_per_cell, c.subchannels_per_cell),
-                stale_exp=f32(spec.stale_exponent()), server_lr=f32(spec.server_lr),
-                g_buffer=g_spec.resolve_buffer(c.n_cells, c.n_cells),
-                g_stale_exp=f32(g_spec.stale_exponent()),
-                g_server_lr=f32(g_spec.server_lr))
-        ys = _to_host(run(data))
-        out.append(_history_from_hier(c, p.beta.reshape(-1), ys,
-                                      time.perf_counter() - t_start + w, w, mode))
+    ys = _to_host(run(group_data(datas)))
+    wall_each = (time.perf_counter() - t_start) / len(cfgs)
+    out: list[SimHistory | None] = [None] * len(cfgs)
+    for j, i in enumerate(order):
+        out[i] = _history_from_hier(cfgs[i], preps[i].beta.reshape(-1),
+                                    {name: v[:, j] for name, v in ys.items()},
+                                    wall_each + plan_walls[i], plan_walls[i], mode)
     return out
 
 
@@ -503,9 +527,9 @@ def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
 
     The multi-cell analogue of `fl.sim.run_many`: worlds are deduped across
     policy/aggregation variants, Γ is solved once per world (all cells in
-    one call), scenario dynamics fold in once, and compatible configs share
-    one model, trainer and leader branch list.  Histories come back
-    flat-compatible: (rounds, C*N) traces.
+    one call), scenario dynamics fold in once, and compatible configs run as
+    one group on a leading config axis (`_run_hier_group`), each bitwise its
+    solo run.  Histories come back flat-compatible: (rounds, C*N) traces.
 
     Args:
       cfgs: the simulations to run; results are returned in the same order.

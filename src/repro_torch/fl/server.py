@@ -27,7 +27,9 @@ a group of B cells at once — global leaves (B, ...), client leaves
 (B, K, ...), per-cell `server_lr` (B,) — and aggregate every cell in one
 K3 launch (`fedavg_aggregate_leaves_batched`).  The selects around the
 mean are elementwise, so each cell gets the bits of its own one-cell call.
-The results are `kernels.fedavg_agg.cell_buffers` views.
+The results are `kernels.fedavg_agg.cell_buffers` views.  A hierarchy
+group's global tier is the same call with the configs as B and their cell
+models as the K slots: (G, C) weights, one launch for every config.
 """
 from __future__ import annotations
 

@@ -651,9 +651,9 @@ def _run_group(mode: str, cfgs: Sequence[SimConfig], preps: Sequence[_Prepared],
     cell's commit batch size, staleness exponent and server step enter as
     data.
 
-    A cell's `wall_s` is the GROUP's wall time plus the cell's own share of
-    planning (`plan_wall_s`): the cells run together, so there is no
-    per-cell time."""
+    A cell's `wall_s` is the group's wall time divided by its size, plus
+    the cell's own share of planning (`plan_wall_s`), as the JAX package
+    counts it: the cells run together, so there is no per-cell time."""
     cfg = cfgs[0]
     model, trainer, policies, pol_idx = _group_trainer_and_policies(cfgs, device)
     _check_f32_priorities(preps)
@@ -678,12 +678,12 @@ def _run_group(mode: str, cfgs: Sequence[SimConfig], preps: Sequence[_Prepared],
             rounds=cfg.rounds, eval_mask=_eval_mask(cfg),
             track_gradnorm=cfg.track_gradnorm)
     ys = _to_host(run(group_data(cells)))
-    wall = time.perf_counter() - t_start
+    wall_each = (time.perf_counter() - t_start) / len(cfgs)
     history = _history_from_scan if mode == "scan" else _history_from_async
     out: list[SimHistory | None] = [None] * len(cfgs)
     for j, i in enumerate(order):
         out[i] = history(cfgs[i], preps[i].beta, {name: v[:, j] for name, v in ys.items()},
-                         wall + plan_walls[i], plan_walls[i])
+                         wall_each + plan_walls[i], plan_walls[i])
     return out
 
 

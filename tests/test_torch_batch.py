@@ -19,8 +19,8 @@ a group).  The contract: every cell is bitwise its solo run, in every
     policies, the most any of that policy's cells reads alone, plus one;
   * a group against the JAX package's vmapped `run_many` with the JAX
     draws injected: traces exact, losses within 1e-4;
-  * a group of one bitwise the one-cell APIs the hierarchy and the service
-    call (`sync_cell_round`, `build_async_runner`).
+  * a group of one bitwise the one-cell APIs (`sync_cell_round`, and
+    `build_async_runner`, which the service calls).
 """
 from _torch_oracle import SMALL, inject_jax_draws, rel_err  # noqa: I001  (alias first)
 
@@ -376,7 +376,7 @@ def _world(cfg):
 
 def test_group_of_one_is_the_cell_round():
     """run_simulation(engine="scan") against a host loop of
-    `sync_cell_round`, the one-cell round the hierarchy calls."""
+    `sync_cell_round`, the one-cell round."""
     cfg = _cfg(scenario="churn", policy=RoundPolicy("alg3", "mo", "matching"))
     hist = run_simulation(cfg, engine="scan", device="cpu")
     d, model, trainer, policies = _world(cfg)

@@ -558,6 +558,39 @@ def test_group_cells_bitwise_solo_on_the_card(dev, engine, aggregation):
                                           err_msg=f.name)
 
 
+@pytest.mark.parametrize("aggregation", ["sync", "async"])
+def test_hier_group_configs_bitwise_solo_on_the_card(dev, aggregation):
+    """A `run_hier_many` group of four configs (two seeds x alg3 / random
+    DS; `aggregation` at both tiers) on the card: every config bitwise its
+    solo run on the card, and K3 launched by the group rule (async: rounds
+    x (C + 1); scan: per round one per cell index in which any config's
+    cell trained, plus one global)."""
+    cfgs = [HierSimConfig(**dict(HIER_SMALL, eval_every=2), seed=s, policy=RoundPolicy(ds=ds),
+                          aggregation=aggregation, global_aggregation=aggregation)
+            for s in (0, 1) for ds in ("alg3", "random")]
+    k3 = _k3_launches()
+    group = run_hier_many(cfgs, device=dev)
+    launched = _k3_launches() - k3
+    c0 = cfgs[0]
+    if aggregation == "async":
+        assert launched == c0.rounds * (c0.n_cells + 1)
+    else:
+        trained = np.any([h.tx_trace.reshape(c0.rounds, c0.n_cells, -1).any(axis=2)
+                          for h in group], axis=0)
+        assert launched == int(trained.sum()) + c0.rounds
+    for c, h in zip(cfgs, group):
+        solo = run_hier_many([c], device=dev)[0]
+        for f in dataclasses.fields(h):
+            if f.name in ("wall_s", "plan_wall_s"):
+                continue
+            got, want = getattr(h, f.name), getattr(solo, f.name)
+            if isinstance(got, dict):
+                for k in got:
+                    np.testing.assert_array_equal(got[k], want[k], err_msg=f"{f.name}.{k}")
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=f.name)
+
+
 # --------------------------------------------------------------------------
 # K4 flash attention and K5 WKV6 (the model zoo's serving path)
 # --------------------------------------------------------------------------
