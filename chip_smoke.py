@@ -15,9 +15,10 @@ model zoo (`serve_loop`) at full width through K4 and K5 (qwen2-7b, rwkv6-7b, th
 granite-moe-3b-a800m, stablelm-3b at head dim 80 and yi-6b at full depth,
 qwen1.5-110b at 16 of its 80 layers, the MLA deepseek-v3-671b at 5 of 61,
 the Mamba hybrid jamba-v0.1-52b at 8 of 32, and at full depth the audio
-encoder-decoder whisper-base and the VLM qwen2-vl-2b), and trains qwen2-7b
-and rwkv6-7b (`train_loop`) at full width with the depth cut.  Phases, in
-order:
+encoder-decoder whisper-base and the VLM qwen2-vl-2b), and trains qwen2-7b,
+rwkv6-7b, deepseek-v3-671b, jamba-v0.1-52b, whisper-base and qwen2-vl-2b
+(`train_loop`, the donated step) at full width with the depth cut.
+Phases, in order:
 
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. kernel build (one nvcc per source, all four started together; plain C
@@ -80,14 +81,15 @@ order:
      every launch counter set to 0 just before it and read just after: the
      four paper DS policies x seeds 0-3 at `examples/torch_reproduce_figures.py`'s
      default widths (mnist MLP at full width, N 20, K 4, 500 samples) and
-     15 rounds (30 before PR 25), one 16-cell group on the scan engine and one with
+     10 rounds (depth cut to keep the script in its time), one 16-cell group on the
+     scan engine and one with
      aggregation="async"; every cell bitwise its solo run on the card (all
      32), one cell per policy against the CPU, K1 once and K3 once per
      aggregation of the group, the group's host reads per round within the
      bound Σ over its policies of the most any of that policy's cells reads
      alone, plus one; the group's wall time beside the sum of the solo
      runs'; then a run_hier_many group as one batch on a config axis:
-     phase 8's HierSimConfig(rounds=30) (2 cells x 10 devices x 4
+     phase 8's HierSimConfig at 15 rounds (2 cells x 10 devices x 4
      sub-channels, 400 samples, mnist MLP at full width) x the four paper
      DS policies x seeds 0-1, one 8-config group on the scan engine and
      one with aggregation="async" at both tiers; every config bitwise its
@@ -101,7 +103,8 @@ order:
  10. the sweep harness and the sustained service, each driven with every
      launch counter set to 0 just before it and read just after:
      run_sweep at `examples/torch_reproduce_figures.py`'s default widths
-     and 20 rounds (30 before PR 25; mnist MLP at full width, N 20, K 4, 500 samples, the
+     and 10 rounds (depth cut to keep the script in its time; mnist MLP at
+     full width, N 20, K 4, 500 samples, the
      four paper DS policies x seeds 0 / 1 as that example's default,
      crossed with aggregation sync / async x cell counts 1 / 2: 32 cells,
      record and gallery into a temporary directory; its 16 hierarchical
@@ -113,8 +116,9 @@ order:
      128 samples, batch 16, churn; one warm-up and 2 measured segments of
      100 events, closed loop): events/s, p50/p95/p99 commit latency, SLO
      attainment, K1 once per segment, K3 once per event, host reads per
-     event, and one more segment under torch.profiler (K1's device ms and
-     the idle share); on fresh services 2 chained segments of 50 events
+     event, and a 10-event segment of a fresh service (its third) under
+     torch.profiler (K1's device ms and the idle share); on fresh services
+     2 chained segments of 50 events
      bitwise equal to one of 100 and that one equal to the CPU's
      (traces exact, latency within 1e-6, loss within 1e-4), one segment
      with ra_solver="step" (K2) dispatching as the fused one, and one
@@ -122,7 +126,8 @@ order:
      K1 against its
      plain version, its bound and critical path at the hierarchy's and
      the service's pairs;
-     every number beside the card's name and power limit;
+     every number beside the card's name and power limit, and the wall
+     time of each sub-step of the sweep and of the service;
  11. the serving paths: serve_loop at full width and depth (random weights
      from a seed) for qwen2-7b with attn_impl="pallas" and for rwkv6-7b
      with rwkv_wkv_impl="pallas", batch 4, prompt 512, 32 new tokens, the
@@ -185,27 +190,39 @@ order:
      each under sync debug (no host sync in the decode loop) and a
      4-token profiled run; the phase's wall time;
  15. the training path: train_loop(fl=True) — the Stackelberg planner's
-     cohort weights in the loss, AdamW, train_loop's batch 8 x seq 128,
-     lr 3e-4 — at full width with the depth cut (qwen2-7b at 4 layers for
-     20 steps, rwkv6-7b at 2 for 8), random weights from a seed, the launch
-     counters set to 0 just before each and read just after (none
-     launches: training runs the "ref" paths), under torch's sync debug
-     mode: parameter count, warm ms/step, tokens/s, model TFLOP/s
-     (6 * params * tokens / time, and the cost model's `model_flops`
-     train_total / time) and its share of the bf16 peak,
+     cohort weights in the loss, AdamW on the donated step (parameters and
+     moments updated in place), train_loop's batch 8, lr 3e-4 — at full
+     width with the depth cut (qwen2-7b at 4 layers for 20 steps, rwkv6-7b
+     at 2 for 8, and for 8 steps each deepseek-v3-671b at its 3 dense
+     layers with the MTP head, jamba-v0.1-52b at 2 (Mamba with the dense
+     and with the MoE FFN), whisper-base at 6 + 6 and qwen2-vl-2b at 28 on
+     seq 512 and seeded patch embeddings; seq 128 for the rest), random
+     weights from a seed, the launch counters set to 0 just before each and
+     read just after (none launches: training runs the "ref" paths), under
+     torch's sync debug mode: parameter count, warm ms/step, tokens/s,
+     model TFLOP/s (6 * params * tokens / time, and the cost model's
+     `model_flops` train_total / time) and its share of the bf16 peak,
      max_memory_allocated, host syncs per step and the loss trace, which
      must be finite and fall (mean of the last 3 below that of the first
-     3); one make_train_step with sgd for qwen2-7b at full width, 1 layer,
-     batch 1, seq 32 on the card and on the CPU from the same weights
-     (loss within 1e-2, grad norm within 2e-2 relative) and remat=True
-     against remat=False on the card; examples/torch_train_100m.py
-     --steps 10 --ckpt-every 5 into a temporary directory, its checkpoint
-     restored bitwise; every number beside the card's name and power limit;
+     3); qwen2-7b's and rwkv6-7b's runs again on the functional step
+     (donate=False), their loss and grad-norm traces bitwise equal; a warm
+     step and the in-place AdamW update alone under torch.profiler; three
+     AdamW steps of make_train_step(donate=True) bitwise equal to
+     donate=False (every parameter, both moments, the count, the metrics)
+     on the four families' smoke configs and qwen2-7b at full width with 1
+     layer; one make_train_step with sgd on the card and on the CPU from
+     the same weights (loss within 1e-2, grad norm within 2e-2 relative)
+     for qwen2-7b at full width, 1 layer, batch 1, seq 32 (and remat=True
+     against remat=False on the card) and the four families' smoke
+     configs; examples/torch_train_100m.py --steps 10 --ckpt-every 5 into
+     a temporary directory, its checkpoint restored bitwise; every number
+     beside the card's name and power limit;
  16. the dry run against the card, with no card run of its own: the
      port's meta-device prediction (`repro_torch.launch`: `param_shapes`,
      `specs.cache_specs`, `dryrun.analyze`, `analytic`) of every arch
-     phases 11-14 served, at its served depth and shape, and of both
-     training runs of phase 15, held to what those phases measured:
+     phases 11-14 served, at its served depth and shape, and of the six
+     training runs of phase 15 (the donated step), held to what those
+     phases measured:
      parameter and cache bytes equal to the real tensors' exactly,
      memory_allocated's growth over init_params (and, for training, over
      init_params, AdamW's init and one step) within 1% + 64 MiB of the
@@ -231,6 +248,7 @@ passed.  Exits non-zero without a CUDA device or without the repository's
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import dataclasses
 import gc
@@ -282,6 +300,7 @@ from repro_torch.launch.analytic import (GPU_HW, H100, _f_eval_ops,  # noqa: E40
 from repro_torch.launch.specs import cache_specs  # noqa: E402
 from repro_torch.launch.step_analysis import tree_nbytes  # noqa: E402
 from repro_torch.launch.serve import serve_loop  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.train.optimizer import adamw, sgd  # noqa: E402
@@ -331,6 +350,23 @@ def line(msg: str = "") -> None:
 
 def phase_mark(n: int, t_all: float) -> None:
     line(f"phase {n} starts at {time.perf_counter() - t_all:.1f}s")
+
+
+class Laps:
+    """Wall seconds of a phase's sub-steps, printed on one line."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps: list[tuple[str, float]] = []
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps.append((name, now - self.t))
+        self.t = now
+
+    def print(self, what: str) -> None:
+        line(f"{what} sub-steps wall_s: " + ", ".join(f"{n}={s:.1f}" for n, s in self.laps)
+             + f" (sum {sum(s for _, s in self.laps):.1f}) [{CARD}]")
 
 
 def time_ms(fn, reps: int, *, prefill: bool = False) -> float:
@@ -1043,6 +1079,78 @@ def drive(cfg: SimConfig, need: tuple[str, ...], **kw) -> tuple:
     return hist, launches
 
 
+# The events that torch's own read-back leaves out (`_filter_name` in
+# torch/autograd/profiler_util.py).
+SKIPPED_EVENTS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+# A device event name of a profiled window: its events and their summed us.
+Kernel = collections.namedtuple("Kernel", "key count us")
+
+
+def read_trace(prof) -> tuple[list[Kernel], dict]:
+    """A profiled window read from torch's raw events in one pass: the
+    device events with device time, by name (`Kernel`), and for each range
+    name that `is_range` accepts, (calls, kernels launched inside those
+    ranges, their device us).  torch's own read-back (`key_averages()`,
+    `events()`) sums by the same rules (`_parse_kineto_results` in
+    torch/autograd/profiler.py): a device event's time is its end less its
+    start, none if it is async; a kernel belongs to the frontend op whose
+    correlation id it links; an op lies inside each range of its thread
+    that spans it.  But it builds some thirty fields and a tree for every
+    event, which took most of each profiled window's wall time
+    (`examples/torch_smoke_parts.py --profile-readback` times both and
+    holds them equal)."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    sums: dict[str, list] = {}
+    # Frontend ops by correlation id: [(thread, start, end)], every op of an id.
+    ops: dict[int, list] = collections.defaultdict(list)
+    ranges: list[tuple[str, int, int, int]] = []
+    linked: list[tuple[int, float]] = []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in SKIPPED_EVENTS or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        dev = e.device_type()
+        sync = not e.is_async() and e.start_thread_id() == e.end_thread_id()
+        if dev == cuda:
+            us = (e.end_ns() - e.start_ns()) / 1e3
+            slot = sums.setdefault(name, [0, 0.0])
+            slot[0] += 1
+            slot[1] += us if sync else 0.0
+            if e.linked_correlation_id() > 0:
+                linked.append((e.linked_correlation_id(), us))
+        elif dev == cpu and sync and e.linked_correlation_id() == 0:
+            span = (e.start_thread_id(), e.start_ns(), e.end_ns())
+            ops[e.correlation_id()].append(span)
+            if is_range(name):
+                ranges.append((name,) + span)
+    merged: dict[str, list] = {}
+    for name, (count, us) in sums.items():
+        key = torch._C._demangle(name) if len(name) > 1 else name
+        slot = merged.setdefault(key, [0, 0.0])
+        slot[0] += count
+        slot[1] += us
+    kernels = [Kernel(k, n, us) for k, (n, us) in merged.items() if us > 0]
+    by_thread: dict[int, list] = collections.defaultdict(list)
+    for corr, us in linked:
+        for thread, start, end in ops.get(corr, ()):
+            by_thread[thread].append((start, end, us))
+    starts = {}
+    for thread, rows in by_thread.items():
+        rows.sort()
+        starts[thread] = [r[0] for r in rows]
+    inside: dict[str, tuple[int, int, float]] = {}
+    for name, thread, start, end in ranges:
+        rows, at = by_thread.get(thread, []), starts.get(thread, [])
+        mine = [us for _, stop, us in
+                rows[bisect.bisect_left(at, start):bisect.bisect_left(at, end)] if stop <= end]
+        calls, n, us = inside.get(name, (0, 0, 0.0))
+        inside[name] = (calls + 1, n + len(mine), us + sum(mine))
+    return kernels, inside
+
+
 def profile_call(name: str, fn, focus: tuple[str, ...] = ()) -> dict:
     """Where one warm call's time goes: `fn()` under torch.profiler: wall
     time, the card's busy time (the sum of its kernels' self time; one
@@ -1058,25 +1166,26 @@ def profile_call(name: str, fn, focus: tuple[str, ...] = ()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels, _ = read_trace(prof)
+    # The trace's processing and read-back, which the script waits for.
+    readback = time.perf_counter() - t0 - wall
+    busy_ms = sum(k.us for k in kernels) / 1e3
     if busy_ms == 0:
         line(f"profile {name}: wall_s={wall:.3f}; device time not measured (no device events)")
         return dict(idle=None, **{part: None for part in focus})
     idle = 1 - busy_ms / 1e3 / wall
     line(f"profile {name}: wall_s={wall:.3f} (profiled) device_busy_ms="
          f"{busy_ms:.2f} device_idle_share={idle:.4f} "
-         f"kernel_launches={sum(e.count for e in kernels)}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        line(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}")
+         f"kernel_launches={sum(k.count for k in kernels)}; trace read back in {readback:.1f}s")
+    for k in sorted(kernels, key=lambda k: -k.us)[:6]:
+        line(f"  {k.us / 1e3:8.3f} ms  {k.count:6d}x  {k.key[:90]}")
     out = dict(idle=idle)
     for part in focus:
-        mine = [e for e in kernels if part in e.key]
-        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        mine = [k for k in kernels if part in k.key]
+        ms = sum(k.us for k in mine) / 1e3
         out[part] = ms if mine else None
-        line(f"  kernels named *{part}*: launches={sum(e.count for e in mine)} device_ms="
-             f"{ms:.4f} (" + ", ".join(f"{e.key[:60]} x{e.count}" for e in mine) + ")")
+        line(f"  kernels named *{part}*: launches={sum(k.count for k in mine)} device_ms="
+             f"{ms:.4f} (" + ", ".join(f"{k.key[:60]} x{k.count}" for k in mine) + ")")
     return out
 
 
@@ -1255,11 +1364,11 @@ def drive_hier(cfg: HierSimConfig, engine: str, need: tuple[str, ...],
 # ---------------------------------------------------------------------------
 
 # `examples/torch_reproduce_figures.py`'s default widths (mnist MLP at Table-I
-# width, N 20, K 4, 500 samples, eval every 5 rounds) at 15 rounds (30 before
-# the hierarchy's groups joined this phase), the four paper DS policies x seeds
-# 0-3: one 16-cell group per engine.
+# width, N 20, K 4, 500 samples, eval every 5 rounds) at 10 rounds (the depth
+# is cut to keep the whole script well inside its time limit), the four paper
+# DS policies x seeds 0-3: one 16-cell group per engine.
 BATCH_SIM = dict(dataset="mnist", n_devices=20, n_subchannels=4, n_samples=500,
-                 eval_every=5, rounds=15)
+                 eval_every=5, rounds=10)
 BATCH_SEEDS = (0, 1, 2, 3)
 
 
@@ -1370,13 +1479,15 @@ def batch_phase(aggregation: str) -> dict:
 
 
 # Phase 8's hierarchy (2 cells x 10 devices x 4 sub-channels, 400 samples,
-# mnist MLP at full width, 30 rounds) x the four paper DS policies x seeds 0-1:
-# one 8-config `run_hier_many` group per engine.
+# mnist MLP at full width) at 15 rounds (phase 8 runs 30; the depth is cut to
+# keep the whole script well inside its time limit) x the four paper DS
+# policies x seeds 0-1: one 8-config `run_hier_many` group per engine.
 HIER_BATCH_SEEDS = (0, 1)
+HIER_BATCH_ROUNDS = 15
 
 
 def hier_batch_phase(aggregation: str) -> dict:
-    """One 8-config `run_hier_many` group (`HierSimConfig(rounds=30)`,
+    """One 8-config `run_hier_many` group (`HierSimConfig(rounds=15)`,
     PAPER_BASELINE_DS x HIER_BATCH_SEEDS) on the scan engine
     (`aggregation="sync"`) or the two-tier async one (`aggregation` at both
     tiers), run once as a group on the card, then every config alone on the
@@ -1389,7 +1500,7 @@ def hier_batch_phase(aggregation: str) -> dict:
     policies of the most reads any of that policy's configs makes alone at
     that (round, cell), less its own who-trains read; the group's wall time
     beside the sum of the solo runs'."""
-    cfgs = [HierSimConfig(rounds=30, seed=s, policy=RoundPolicy(ds=d),
+    cfgs = [HierSimConfig(rounds=HIER_BATCH_ROUNDS, seed=s, policy=RoundPolicy(ds=d),
                           aggregation=aggregation, global_aggregation=aggregation)
             for d in PAPER_BASELINE_DS for s in HIER_BATCH_SEEDS]
     engine = "scan" if aggregation == "sync" else "async"
@@ -1488,17 +1599,21 @@ def hier_batch_phase(aggregation: str) -> dict:
 
 # The paper's four DS baselines at `examples/torch_reproduce_figures.py`'s
 # default widths (mnist, N 20, K 4, 500 samples, eval every 5 rounds), crossed
-# with aggregation sync / async and cell counts 1 / 2, at 20 rounds (30 before
-# the hierarchy's groups joined phase 9).
+# with aggregation sync / async and cell counts 1 / 2, at 10 rounds (the depth
+# is cut to keep the whole script well inside its time limit).
 SWEEP_SPEC = dict(name="fig3_convergence", datasets="mnist", ds=PAPER_BASELINE_DS,
                   aggregation=("sync", "async"), cell_counts=(1, 2), seeds=(0, 1),
-                  rounds=20, n_devices=20, n_subchannels=4, target_loss=1.0,
+                  rounds=10, n_devices=20, n_subchannels=4, target_loss=1.0,
                   overrides={"n_samples": 500, "eval_every": 5})
 # `python -m repro_torch.service.run --ra mo` at its defaults.
 SERVICE_SIM = dict(dataset="mnist", n_devices=64, n_subchannels=16, n_samples=128,
                    batch=16, local_steps=1, scenario="churn", aggregation="async",
                    policy=RoundPolicy(ra="mo"))
 SERVICE_SEGMENTS = 2
+# Events of the profiled service segment: the profiler reads its trace back
+# at ~0.7 ms a kernel, and an event launches ~1 900 (a 100-event segment,
+# ~185 000 kernels, took over two minutes to read back).
+SERVICE_PROFILE_EVENTS = 10
 
 
 def k1_bound(label: str, beta64, h264, e64, cfg) -> dict:
@@ -1612,10 +1727,12 @@ def sweep_phase() -> dict:
     equal to its solo run on the card, and its tx and AoU traces equal to
     the same solo run on the CPU."""
     spec = SweepSpec(**SWEEP_SPEC)
+    laps = Laps()
     with tempfile.TemporaryDirectory() as tmp:
         res, wall, launches, syncs = run_on_card(spec, run_sweep, engine="scan",
                                                  results_root=tmp, figures=True)
         svgs = sorted(p.name for p in (res.out_dir / "figures").glob("*.svg"))
+    laps.lap("run_sweep")
     cells, hists = res.cells, res.histories
     k1_want = sweep_k1_expected(spec)
     k3_want = sweep_k3_expected(cells, hists)
@@ -1658,7 +1775,9 @@ def sweep_phase() -> dict:
             raise AssertionError(f"sweep {agg} C={n_cells}: training did not lower the loss")
         assert_bitwise(hist, solo(cell.config, DEV),
                        f"sweep cell {cell.cell_id} vs its solo run on the card")
+        laps.lap(f"solo card {agg} C={n_cells}")
         ref = solo(cell.config, "cpu")
+        laps.lap(f"solo cpu {agg} C={n_cells}")
         same = {f: np.array_equal(getattr(hist, f), getattr(ref, f))
                 for f in ("tx_trace", "age_trace", "commit_trace")
                 if getattr(ref, f) is not None}
@@ -1667,6 +1786,7 @@ def sweep_phase() -> dict:
              + f"; loss max_rel vs cpu: {max_rel(hist.global_loss, ref.global_loss):.3e}")
         if not all(same.values()):
             raise AssertionError(f"sweep cell {cell.cell_id}: traces differ from the CPU run")
+    laps.print("sweep phase")
     return dict(launches=launches, wall_s=res.record["wall_s"])
 
 
@@ -1690,8 +1810,9 @@ def service_k1_expected(cfg: ServiceConfig, segments: int) -> int:
 def service_phase() -> dict:
     """The sustained service at `service/run.py`'s defaults with `--ra mo`:
     one warm-up and `SERVICE_SEGMENTS` measured segments of 100 events,
-    closed loop, with K1 once per segment and K3 once per event; one more
-    segment under the profiler; then, on fresh services, 2 chained segments
+    closed loop, with K1 once per segment and K3 once per event; the third
+    segment of a service of `SERVICE_PROFILE_EVENTS`-event segments under
+    the profiler; then, on fresh services, 2 chained segments
     of 50 events bitwise equal to one of 100, that segment against the same
     segment on the CPU (dispatches, commits, AoU and the buffer exact,
     latency within 1e-6, loss within 1e-4), one segment with
@@ -1700,12 +1821,15 @@ def service_phase() -> dict:
     rate."""
     cfg = service_config()
     sim = cfg.sim
+    laps = Laps()
     svc = SustainedService(cfg, device=DEV)
     rec, wall, launches, syncs = run_on_card(SERVICE_SEGMENTS,
                                              lambda n, device: svc.serve(n))
     events = svc.events_served
     s = rec["summary"]
+    laps.lap(f"serve (warm-up + {SERVICE_SEGMENTS} segments)")
     k1_want = service_k1_expected(cfg, cfg.warmup_segments + SERVICE_SEGMENTS)
+    laps.lap("K1 count replay")
     line(f"main path service: mnist N={sim.n_devices} K={sim.n_subchannels} "
          f"samples={sim.n_samples} batch={sim.batch} scenario={sim.scenario} ra=mo, "
          f"{cfg.warmup_segments} warm-up + {SERVICE_SEGMENTS} segments of "
@@ -1729,14 +1853,21 @@ def service_phase() -> dict:
         raise AssertionError("service: steady-state losses are not finite / one per segment")
     if not losses[-1] < losses[0]:
         raise AssertionError("service: training did not lower the loss")
+    # The profiled window: a segment of SERVICE_PROFILE_EVENTS events, the
+    # third of its own service (the first two warm it up).
+    short = SustainedService(service_config(segment_events=SERVICE_PROFILE_EVENTS,
+                                            eval_every_events=SERVICE_PROFILE_EVENTS), device=DEV)
+    for _ in range(2):
+        short.run_segment()
     k1_before = polyblock_solve_fused.launches
-    prof = profile_call(f"service segment ({cfg.segment_events} events)", svc.run_segment,
-                        focus=("solve_", "agg_leaves"))
+    prof = profile_call(f"service segment ({SERVICE_PROFILE_EVENTS} events, the third of "
+                        f"its service)", short.run_segment, focus=("solve_", "agg_leaves"))
     line(f"  K1 launches in the profiled segment: {polyblock_solve_fused.launches - k1_before}")
     k1_ms = "not measured" if prof["solve_"] is None else f"{prof['solve_']:.4f}"
     idle = "not measured" if prof["idle"] is None else f"{prof['idle']:.4f}"
     line(f"  K1 device ms per segment (profiler)={k1_ms}; idle share of the segment={idle} "
          f"[{CARD}]")
+    laps.lap("profiled segment")
 
     halves = SustainedService(service_config(segment_events=50, eval_every_events=50),
                               device=DEV)
@@ -1749,6 +1880,7 @@ def service_phase() -> dict:
          f"equal on every key ({len(one)}): {not diff}" + (f" (differ: {diff})" if diff else ""))
     if diff:
         raise AssertionError(f"service: chained segments differ on {diff}")
+    laps.lap("2 x 50 vs 100 events")
 
     t0 = time.perf_counter()
     ref = SustainedService(service_config(eval_every_events=50), device="cpu").run_segment()
@@ -1766,6 +1898,7 @@ def service_phase() -> dict:
         raise AssertionError("service: the card's segment differs from the CPU's")
     if not (lat_rel <= 1e-6 and loss_rel <= 1e-4 and one["transmitted"].any()):
         raise AssertionError("service: latency or loss too far from the CPU's segment")
+    laps.lap("cpu segment")
 
     step = SustainedService(cfg, ra_solver="step", device=DEV)
     ys, step_wall, step_launches, _ = run_on_card(None, lambda _, device: step.run_segment())
@@ -1778,6 +1911,7 @@ def service_phase() -> dict:
         raise AssertionError("service: the step segment did not run on K2 alone")
     if not same_tx:
         raise AssertionError("service: the step segment's dispatches differ from the fused")
+    laps.lap("step segment")
 
     rate = 0.5 * s["throughput_events_per_s"]
     open_loop = SustainedService(service_config(target_rate_events_per_s=rate,
@@ -1791,8 +1925,12 @@ def service_phase() -> dict:
          f"[{CARD}]")
     if not 0 < o["throughput_events_per_s"] <= rate:
         raise AssertionError("service: the open loop served faster than its arrivals")
+    laps.lap("open loop")
+    pairs = service_pairs(cfg)
+    laps.lap("K1 pairs")
+    laps.print("service phase")
     return dict(launches=launches, step_launches=step_launches, k1_ms=prof["solve_"],
-                idle=prof["idle"], pairs=service_pairs(cfg))
+                idle=prof["idle"], pairs=pairs)
 
 
 def service_pairs(cfg: ServiceConfig):
@@ -1981,45 +2119,20 @@ def is_range(key: str) -> bool:
     return key in STEP_RANGES or key == "moe_apply" or key.startswith("mamba T=")
 
 
-def device_kernels(prof) -> list:
-    """The profile's device events by name, without the device-side copies
-    of user ranges (`record_function`), which span their kernels."""
-    return [e for e in prof.key_averages() if e.self_device_time_total > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA and not is_range(e.key)]
-
-
-def kernels_under(ev) -> tuple[int, float]:
-    """(kernels, their device us) launched inside a CPU event, children
-    included."""
-    n = len(getattr(ev, "kernels", []) or [])
-    us = sum(k.duration for k in (getattr(ev, "kernels", []) or []))
-    for c in ev.cpu_children:
-        cn, cus = kernels_under(c)
-        n, us = n + cn, us + cus
-    return n, us
-
-
-def range_shares(prof) -> dict:
-    """Per range name of `profiled_ranges`: its calls, the kernels launched
-    inside them and their device time, printed with its share of the
-    profiled run's device time; returns {name: (calls, kernels, us)}."""
-    by_name: dict = {}
-    for e in prof.events():
-        if is_range(e.name) and e.device_type == torch.autograd.DeviceType.CPU:
-            calls, n, us = by_name.get(e.name, (0, 0, 0.0))
-            kn, kus = kernels_under(e)
-            by_name[e.name] = (calls + 1, n + kn, us + kus)
-    busy = sum(e.self_device_time_total for e in device_kernels(prof)) or float("nan")
+def range_shares(ranges: dict, busy_us: float) -> None:
+    """Per range name of `profiled_ranges` (`read_trace`'s ranges): its
+    calls, the kernels launched inside them and their device time, printed
+    with its share of the profiled run's device time."""
     labels = {"moe_apply": "MoE FFN", "prefill": "prefill step", "decode_step": "decode step"}
-    for name, (calls, n, us) in by_name.items():
+    for name, (calls, n, us) in ranges.items():
         label = labels.get(name, "Mamba mixer")
         if n == 0:
             line(f"  {label} share of device time: not measured ({calls} {name} ranges, no "
                  "kernel linked to them in this trace)")
             continue
         line(f"  {label} ({calls} {name} calls): device_ms={us / 1e3:.2f} share of device "
-             f"time {us / busy:.4f}; kernels {n} ({n / calls:.1f} per {name} call)")
-    return by_name
+             f"time {us / (busy_us or float('nan')):.4f}; kernels {n} ({n / calls:.1f} per "
+             f"{name} call)")
 
 
 class profiled_ranges:
@@ -2050,14 +2163,13 @@ class profiled_ranges:
          serve_mod.make_serve_step) = self.real
 
 
-def check_frontend(cfg) -> dict:
+def check_frontend(cfg, b: int = SERVE["batch"], s: int = SERVE["prompt_len"]) -> dict:
     """The audio and VLM families' inputs for the prefill logits check, on
     the card, from a seed: encoder frames (B, encoder_seq, d) of unit
     scale, or patch embeddings (B, n_patches, d) of scale 0.02 with the
     prompt's 3-D M-RoPE grid (`mrope_grid`).  serve_loop's own stubs (zero
     frames or patches, M-RoPE arange on all three streams, where M-RoPE is
     RoPE) would not exercise these paths."""
-    b, s = SERVE["batch"], SERVE["prompt_len"]
     gen = torch.Generator(DEV).manual_seed(SERVE["seed"] + 1)
     if cfg.family == "audio":
         return {"enc_frames": torch.randn(b, cfg.encoder_seq, cfg.d_model, generator=gen,
@@ -2216,17 +2328,19 @@ def profile_serve(cfg, params) -> dict:
                               log_every=prof_serve["new_tokens"], **prof_serve)
         prof_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    kernels = device_kernels(prof)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    n_launch = sum(e.count for e in kernels)
+    kernels, ranges = read_trace(prof)
+    # The device-side copies of user ranges span their kernels.
+    kernels = [k for k in kernels if not is_range(k.key)]
+    busy_ms = sum(k.us for k in kernels) / 1e3
+    n_launch = sum(k.count for k in kernels)
     steps = prof_serve["new_tokens"] + 2
     line(f"  profile (profiled run, {prof_serve['new_tokens']} new tokens): wall_s={prof_wall:.3f} "
          f"prefill_s={prof_run.prefill_s:.4f} decode_s={prof_run.decode_s:.4f} "
          f"device_busy_ms={busy_ms:.2f} device_idle_share={1 - busy_ms / 1e3 / prof_wall:.4f} "
          f"kernel_launches={n_launch} (~{n_launch / steps:.0f} per step)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        line(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    ranges = range_shares(prof)
+    for k in sorted(kernels, key=lambda k: -k.us)[:8]:
+        line(f"  {k.us / 1e3:9.3f} ms  {k.count:6d}x  {k.key[:90]}")
+    range_shares(ranges, busy_ms * 1e3)
     per = {name: ranges[name][1] / ranges[name][0] for name in STEP_RANGES if name in ranges}
     line(f"  kernels per prefill {per.get('prefill', float('nan')):.0f}, per decode step "
          f"{per.get('decode_step', float('nan')):.1f} (warm-up step included)")
@@ -2474,46 +2588,72 @@ def audio_vlm_phase() -> dict:
     return {"k4": k4, "serve": out}
 
 
-# The training phase: train_loop's defaults (batch 8, seq 128, lr 3e-4) with
-# fl=True, at full width with the depth cut so that bf16 weights and
-# gradients and AdamW's two f32 moments fit the card (PERF.md section 4):
-# (arch, layers, steps).
-TRAIN = dict(batch=8, seq=128, lr=3e-4, seed=0)
-TRAIN_RUNS = (("qwen2-7b", 4, 20), ("rwkv6-7b", 2, 8))
+# The training phase: train_loop's defaults (batch 8, lr 3e-4) with fl=True,
+# its donated step (parameters and AdamW's moments updated in place), at
+# full width with the depth cut so that bf16 weights and gradients and
+# AdamW's two f32 moments fit the card (PERF.md section 4): (arch, layers,
+# steps, seq).  deepseek-v3-671b trains its 3 dense layers and the MTP head
+# (its 4th layer, the first MoE one, would take ~179 GiB with AdamW's
+# state); jamba-v0.1-52b its first two (Mamba with the dense FFN, then with
+# the MoE FFN; its attention layer is the 5th); qwen2-vl-2b trains at seq
+# 512, since a sequence shorter than its 256 patches raises, on seeded
+# patch embeddings (`train_frontend`).
+TRAIN = dict(batch=8, lr=3e-4, seed=0)
+TRAIN_RUNS = (("qwen2-7b", 4, 20, 128), ("rwkv6-7b", 2, 8, 128),
+              ("deepseek-v3-671b", 3, 8, 128), ("jamba-v0.1-52b", 2, 8, 128),
+              ("whisper-base", 6, 8, 128), ("qwen2-vl-2b", 28, 8, 512))
+# The runs whose loss traces predate the donated step: each is run again on
+# the functional step, and the two traces must be equal to the bit.
+TRAIN_TRACE_REFS = ("qwen2-7b", "rwkv6-7b")
 
 
-def train_run(arch: str, layers: int, steps: int) -> dict:
+def functional_train_loop(cfg, **kw):
+    """train_loop with make_train_step(donate=False), the step it ran
+    before the donated one."""
+    real = train_mod.make_train_step
+
+    def functional(*args, **step_kw):
+        return real(*args, **{**step_kw, "donate": False})
+
+    train_mod.make_train_step = functional
+    try:
+        return train_loop(cfg, **kw)
+    finally:
+        train_mod.make_train_step = real
+
+
+def train_run(arch: str, layers: int, steps: int, seq: int) -> dict:
     """train_loop(fl=True) at full width and `layers` layers on the card,
     random weights from the seed, under torch's sync debug mode, with every
     launch counter set to 0 just before it and read just after (training
     runs the "ref" paths: no kernel of the port launches); returns those
-    launch counts."""
+    launch counts and the memory phase 16 reads."""
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    kw = dict(steps=steps, fl=True, device=DEV, log_every=steps, seq=seq,
+              frontend=train_frontend(cfg, TRAIN["batch"], seq, DEV), **TRAIN)
     for fn in COUNTERS.values():
         fn.launches = 0
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res, by_line = sync_counted(lambda: train_loop(cfg, steps=steps, fl=True, device=DEV,
-                                                   log_every=steps, **TRAIN))
+    res, by_line = sync_counted(lambda: train_loop(cfg, **kw))
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
     peak = torch.cuda.max_memory_allocated()
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+    tokens = TRAIN["batch"] * seq
     warm = res.step_s[2:]                      # the first two steps warm the card up
     step_ms = 1e3 * sum(warm) / len(warm)
     tflops = 6 * res.n_params * tokens / (step_ms / 1e3) / 1e12
     # The cost model's count: 3x the forward's matmuls, attention and LM
     # head included, embedding gathers not (6*P*tokens counts the embedding
     # table's parameters as FLOPs and leaves attention out).
-    train_flops = model_flops(cfg, InputShape("train", TRAIN["seq"], TRAIN["batch"],
-                                              "train"))["train_total"]
+    train_flops = model_flops(cfg, InputShape("train", seq, TRAIN["batch"], "train"))["train_total"]
     model_tflops = train_flops / (step_ms / 1e3) / 1e12
     n_sync = sum(by_line.values())
-    line(f"main path train {arch} (full width, {layers} layers, fl=True, AdamW) on {CARD}: "
-         f"params={res.n_params} ({res.n_params / 1e9:.3f} B) B={TRAIN['batch']} "
-         f"seq={TRAIN['seq']} steps={steps}: warm ms/step={step_ms:.2f} (steps 2-{steps - 1}; "
+    line(f"main path train {arch} (full width, {layers} layers, fl=True, AdamW, donated step) "
+         f"on {CARD}: params={res.n_params} ({res.n_params / 1e9:.3f} B) B={TRAIN['batch']} "
+         f"seq={seq} steps={steps}: warm ms/step={step_ms:.2f} (steps 2-{steps - 1}; "
          f"first {1e3 * res.step_s[0]:.1f}, second {1e3 * res.step_s[1]:.1f}) "
          f"tokens/s={tokens / (step_ms / 1e3):.0f} model TFLOP/s (6*P*tokens/time)="
          f"{tflops:.2f} = {tflops / (PEAK_OPS[torch.bfloat16] / 1e12):.4f} of the dense bf16 peak; "
@@ -2526,24 +2666,59 @@ def train_run(arch: str, layers: int, steps: int) -> dict:
     line("  grad-norm trace: " + " ".join(f"{x:.3f}" for x in res.grad_norms))
     line("  kernel launches on the training path: "
          + " ".join(f"{k}={v}" for k, v in launches.items()))
-    memory = profile_step(cfg, arch)
-    memory.update(train_peak=peak, step_ms=step_ms, layers=layers)
     first, last = np.mean(res.losses[:3]), np.mean(res.losses[-3:])
     if not np.all(np.isfinite(res.losses)) or not last < first:
         raise AssertionError(f"train {arch}: losses not finite or not falling "
                              f"(first 3 mean {first:.4f}, last 3 mean {last:.4f})")
     if any(launches.values()):
         raise AssertionError(f"train {arch}: a kernel launched on the training path: {launches}")
+    if arch in TRAIN_TRACE_REFS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ref = functional_train_loop(cfg, **kw)
+        same = ref.losses == res.losses and ref.grad_norms == res.grad_norms
+        line(f"  the functional step (donate=False) from the same seed: loss and grad-norm "
+             f"traces bitwise equal to the donated step's: {same}; its max_memory_allocated="
+             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB against the donated "
+             f"{peak / 2**30:.2f} GiB [{CARD}]")
+        if not same:
+            raise AssertionError(f"train {arch}: the donated step's traces differ from the "
+                                 "functional step's")
+    memory = profile_step(cfg, arch, seq)
+    memory.update(train_peak=peak, step_ms=step_ms, layers=layers, seq=seq)
     return dict(launches=launches, memory=memory)
 
 
-def profile_step(cfg, arch: str) -> dict:
-    """Where a warm training step's time goes: one make_train_step (AdamW)
-    under torch.profiler, then AdamW's update alone on the same state.
-    Returns the memory the dry-run phase reads: the parameters' bytes, and
-    memory_allocated's growth over init_params and over init_params, the
-    optimizer's init and one step (the steady state: parameters, both
-    moments, the batch)."""
+def train_frontend(cfg, batch: int, seq: int, device) -> dict:
+    """The modality inputs of the training runs: the VLM's from a seed
+    (`check_frontend`: patch embeddings of scale 0.02 on the 3-D M-RoPE
+    grid), since the JAX package's stub of zero patches makes qwen2-vl-2b's
+    gradient non-finite at its full depth, in both packages
+    (`launch/train.py`); the audio family's the stub's zero frames, as
+    train_loop makes them."""
+    if cfg.family == "vlm":
+        return {k: v.to(device) for k, v in check_frontend(cfg, batch, seq).items()}
+    return serve_mod.stub_frontend(cfg, batch, seq, device)
+
+
+def train_batch(cfg, batch: int, seq: int, seed: int, device) -> dict:
+    """A synthetic token batch with the training runs' frontend
+    (`train_frontend`) and unit cohort weights, on `device`."""
+    b = synthetic_token_batch(np.random.default_rng(seed), batch, seq, cfg.vocab)
+    return {"tokens": torch.from_numpy(b["tokens"]).to(device),
+            "labels": torch.from_numpy(b["labels"]).to(device),
+            "fl_weights": torch.ones(batch, device=device),
+            **train_frontend(cfg, batch, seq, device)}
+
+
+def profile_step(cfg, arch: str, seq: int) -> dict:
+    """Where a warm training step's time goes: one donated make_train_step
+    (AdamW) under torch.profiler, then AdamW's in-place update alone on the
+    same state.  Returns the memory the dry-run phase reads: the
+    parameters' bytes, and memory_allocated's growth over init_params and
+    over init_params, the optimizer's init and one step (the steady state:
+    parameters, both moments, the batch)."""
     gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
@@ -2552,37 +2727,100 @@ def profile_step(cfg, arch: str) -> dict:
                   init_growth=torch.cuda.memory_allocated() - before)
     opt = adamw(TRAIN["lr"])
     state = opt.init(params)
-    step = make_train_step(cfg, opt, remat=False)
-    b = synthetic_token_batch(np.random.default_rng(2), TRAIN["batch"], TRAIN["seq"], cfg.vocab)
-    batch = {"tokens": torch.from_numpy(b["tokens"]).to(DEV),
-             "labels": torch.from_numpy(b["labels"]).to(DEV),
-             "fl_weights": torch.ones(TRAIN["batch"], device=DEV)}
+    step = make_train_step(cfg, opt, remat=False, donate=True)
+    batch = train_batch(cfg, TRAIN["batch"], seq, 2, DEV)
     params, state, metrics = step(params, state, batch)              # warm
     torch.cuda.synchronize()
     del metrics
     memory["steady_growth"] = torch.cuda.memory_allocated() - before
-    profile_call(f"train step {arch} (warm, AdamW) on {CARD}",
+    profile_call(f"train step {arch} (warm, AdamW, donated) on {CARD}",
                  lambda: step(params, state, batch), focus=("gemm", "nvjet", "elementwise"))
-    grads = tree_map(lambda p: torch.full_like(p, 1e-3, dtype=torch.float32), params)
-    profile_call(f"  of which AdamW's update alone ({arch})",
-                 lambda: opt.update(grads, state, params), focus=("elementwise",))
-    del params, state, grads
+    grads = [torch.full_like(p, 1e-3, dtype=torch.float32) for p in tree_leaves(params)]
+
+    def update_alone():
+        for update, g in zip(opt.donate(state, params)[1], grads):
+            update(g)
+
+    profile_call(f"  of which AdamW's in-place update alone ({arch})", update_alone,
+                 focus=("elementwise",))
+    del params, state, grads, batch
     gc.collect()
     torch.cuda.empty_cache()
     return memory
 
 
-def card_vs_cpu_step(arch: str = "qwen2-7b") -> None:
-    """One make_train_step with sgd at full width, 1 layer, batch 1, seq
-    32, from the same weights on the card and on the CPU: loss within 1e-2
-    absolute, grad norm within 2e-2 relative.  Then remat=True against
+def same_bits(a, b) -> bool:
+    """Two trees of tensors (or numbers) with the same leaves, equal to the
+    bit, dtypes included."""
+    la, lb = torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+# make_train_step(donate=True) against donate=False on the card: the four
+# families' smoke configs (batch 8, seq 32) and qwen2-7b at full width with
+# 1 layer (train_loop's batch 8, seq 128), 3 AdamW steps from opt.init.
+DONATE_CASES = (("deepseek-v3-671b-smoke", 0, 32), ("jamba-v0.1-52b-smoke", 0, 32),
+                ("whisper-base-smoke", 0, 32), ("qwen2-vl-2b-smoke", 0, 32),
+                ("qwen2-7b", 1, 128))
+
+
+def donate_vs_functional(arch: str, layers: int, seq: int) -> None:
+    """Three AdamW steps of make_train_step(donate=True) and of
+    donate=False from the same weights on the card: every parameter, both
+    moments, the count and the metrics bitwise equal."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    batches = [train_batch(cfg, TRAIN["batch"], seq, 10 + i, DEV) for i in range(3)]
+    out = {}
+    for donate in (False, True):
+        params = init_params(cfg, torch.Generator(DEV).manual_seed(TRAIN["seed"]))
+        opt = adamw(TRAIN["lr"])
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat=False, donate=donate)
+        metrics = []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        out[donate] = (params, state, metrics)
+        del params, state
+    (p0, s0, m0), (p1, s1, m1) = out[False], out[True]
+    same = {"params": same_bits(p0, p1), "mu": same_bits(s0.mu, s1.mu),
+            "nu": same_bits(s0.nu, s1.nu), "count": same_bits(s0.count, s1.count),
+            "metrics": same_bits(m0, m1)}
+    line(f"train step {arch}" + (f" (full width, {layers} layer)" if layers else "")
+         + f" B={TRAIN['batch']} seq={seq}, 3 AdamW steps, donated vs functional on the card: "
+         + "; ".join(f"{k} bitwise equal: {v}" for k, v in same.items())
+         + f"; count={int(s1.count)} [{CARD}]")
+    del out, p0, s0, p1, s1
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(same.values()):
+        raise AssertionError(f"train step {arch}: the donated step differs from the functional")
+
+
+# One make_train_step with sgd on the card and on the CPU from the same
+# weights: qwen2-7b at full width with 1 layer (batch 1, seq 32), and the
+# four families' smoke configs (batch 2, seq 32).
+CARD_VS_CPU = (("qwen2-7b", 1, 1), ("deepseek-v3-671b-smoke", 0, 2),
+               ("jamba-v0.1-52b-smoke", 0, 2), ("whisper-base-smoke", 0, 2),
+               ("qwen2-vl-2b-smoke", 0, 2))
+
+
+def card_vs_cpu_step(arch: str, layers: int, batch_size: int) -> None:
+    """One make_train_step with sgd, seq 32, from the same weights on the
+    card and on the CPU: loss within 1e-2 absolute, grad norm within 2e-2
+    relative.  For the full-width config also remat=True against
     remat=False on the card: bitwise equal, or the largest gap."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params = init_params(cfg, torch.Generator(DEV).manual_seed(TRAIN["seed"]))
     host = tree_map(lambda t: t.cpu(), params)
-    b = synthetic_token_batch(np.random.default_rng(1), 1, 32, cfg.vocab)
-    batch = {"tokens": torch.from_numpy(b["tokens"]), "labels": torch.from_numpy(b["labels"]),
-             "fl_weights": torch.ones(1)}
+    batch = train_batch(cfg, batch_size, 32, 1, torch.device("cpu"))
     on_card = {k: v.to(DEV) for k, v in batch.items()}
     step = make_train_step(cfg, sgd(TRAIN["lr"]), remat=False)
     p_card, _, m_card = step(params, (), on_card)
@@ -2594,7 +2832,8 @@ def card_vs_cpu_step(arch: str = "qwen2-7b") -> None:
     loss_h, gn_h = float(m_host["loss"]), float(m_host["grad_norm"])
     moved = max(float((a.cpu().float() - c.float()).abs().max())
                 for a, c in zip(tree_leaves(p_card), tree_leaves(p_host)))
-    line(f"train step {arch} (full width, 1 layer, sgd) B=1 seq=32, card vs cpu on {CARD}: "
+    line(f"train step {arch}" + (f" (full width, {layers} layer, " if layers else " (")
+         + f"sgd) B={batch_size} seq=32, card vs cpu on {CARD}: "
          f"params={param_count(params)} loss card={loss:.6f} cpu={loss_h:.6f} "
          f"|diff|={abs(loss - loss_h):.3e} (limit 1e-2); grad_norm card={gn:.6f} "
          f"cpu={gn_h:.6f} rel={abs(gn - gn_h) / gn_h:.3e} (limit 2e-2); largest gap in the "
@@ -2603,6 +2842,8 @@ def card_vs_cpu_step(arch: str = "qwen2-7b") -> None:
     del p_host, host
     if not (abs(loss - loss_h) <= 1e-2 and abs(gn - gn_h) <= 2e-2 * gn_h):
         raise AssertionError(f"train step {arch}: the card is off the cpu")
+    if not layers:
+        return
     p_remat, _, m_remat = make_train_step(cfg, sgd(TRAIN["lr"]), remat=True)(params, (), on_card)
     gaps = [float((a.float() - c.float()).abs().max())
             for a, c in zip(tree_leaves(p_remat), tree_leaves(p_card))]
@@ -2640,13 +2881,24 @@ def example_phase() -> None:
 
 def train_phase() -> dict:
     """Phase 15; returns each run's launch counts and memory by arch."""
-    runs = {arch: train_run(arch, layers, steps) for arch, layers, steps in TRAIN_RUNS}
+    laps = Laps()
+    runs = {}
+    for arch, layers, steps, seq in TRAIN_RUNS:
+        runs[arch] = train_run(arch, layers, steps, seq)
+        laps.lap(arch)
     gc.collect()
     torch.cuda.empty_cache()
-    card_vs_cpu_step()
-    gc.collect()
-    torch.cuda.empty_cache()
+    for case in DONATE_CASES:
+        donate_vs_functional(*case)
+    laps.lap("donated vs functional")
+    for case in CARD_VS_CPU:
+        card_vs_cpu_step(*case)
+        gc.collect()
+        torch.cuda.empty_cache()
+    laps.lap("card vs cpu")
     example_phase()
+    laps.lap("example")
+    laps.print("training phase")
     return runs
 
 
@@ -2687,12 +2939,13 @@ def predict_serve(cfg) -> dict:
                 roofline=analytic_cost(cfg, pre_shape, H100))
 
 
-def predict_train(cfg) -> dict:
-    """Meta prediction of train_loop's step (TRAIN, AdamW, remat off):
-    parameter bytes, the steady state's arguments (parameters, both
-    moments, the batch), the step's counted FLOPs and its peak."""
-    shape = InputShape("train", TRAIN["seq"], TRAIN["batch"], "train")
-    kw = dict(opt=adamw(TRAIN["lr"]), remat=False)
+def predict_train(cfg, seq: int) -> dict:
+    """Meta prediction of train_loop's step (TRAIN at `seq`, AdamW, remat
+    off, donated): parameter bytes, the steady state's arguments
+    (parameters, both moments, the batch), the step's counted FLOPs and its
+    peak."""
+    shape = InputShape("train", seq, TRAIN["batch"], "train")
+    kw = dict(opt=adamw(TRAIN["lr"]), remat=False, donate=True)
     args = tree_nbytes(dryrun.build_step(cfg, shape, **kw)[1])
     step = dryrun.analyze(cfg, shape, **kw)
     return dict(param_bytes=tree_nbytes(tf_mod.param_shapes(cfg)), args=args,
@@ -2745,12 +2998,12 @@ def dryrun_phase(served: dict, train: dict) -> None:
     for arch, res in train.items():
         mem = res["memory"]
         cfg = dataclasses.replace(get_config(arch), n_layers=mem["layers"])
-        pred = predict_train(cfg)
+        pred = predict_train(cfg, mem["seq"])
         ok = (pred["param_bytes"] == mem["param_bytes"]
               and within_growth(mem["init_growth"], pred["param_bytes"])
               and within_growth(mem["steady_growth"], pred["args"]))
         line(f"dry run vs card, train {arch} ({mem['layers']} layers, B={TRAIN['batch']} "
-             f"seq={TRAIN['seq']}, AdamW) on {CARD}: param bytes predicted "
+             f"seq={mem['seq']}, AdamW, donated) on {CARD}: param bytes predicted "
              f"{pred['param_bytes']} real {mem['param_bytes']}; growth over init_params "
              f"{mem['init_growth']} ({(mem['init_growth'] - pred['param_bytes']) / 2**20:+.1f} "
              f"MiB); parameters + optimizer state + batch predicted {pred['args']}, growth over "

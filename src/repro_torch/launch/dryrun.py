@@ -8,8 +8,10 @@ For each combination this driver:
      `models.transformer.param_shapes`, the inputs and the decode cache
      from `launch/specs.py`, and `make_train_step` with
      `make_optimizer(cfg.optimizer)` (Adafactor for deepseek-v3 and jamba,
-     as in the JAX dry run) for train shapes, `make_prefill_step` for
-     prefill, `make_serve_step` for decode;
+     as in the JAX dry run) for train shapes, donated where the optimizer
+     updates in place (`make_train_step(donate=True)`, the JAX dry run's
+     `donate_argnums=(0, 1)`; Adafactor's step is not donated),
+     `make_prefill_step` for prefill, `make_serve_step` for decode;
   2. sums the arguments' bytes (parameters, optimizer state, batch, cache:
      `argument_size_in_bytes`; each storage once, the optimizer's moments
      as distinct tensors, as after the first step);
@@ -65,16 +67,21 @@ def steady_opt_state(opt, params):
                     opt.init(params))
 
 
-def build_step(cfg, shape, *, opt=None, remat: bool = True, cache_headroom: int = 0):
+def build_step(cfg, shape, *, opt=None, remat: bool = True, donate: bool | None = None,
+               cache_headroom: int = 0):
     """Returns (step fn, its arguments as meta tensors).  A train step takes
     `opt` (default make_optimizer(cfg.optimizer, 1e-4)) with its state as
-    in the steady state (`steady_opt_state`) and `remat`; a prefill step
-    keeps `cache_headroom` free decode slots, as `serve_loop`'s does."""
+    in the steady state (`steady_opt_state`), `remat` and `donate` (default:
+    donated where `opt` updates in place, as `train_loop` runs it); a
+    prefill step keeps `cache_headroom` free decode slots, as
+    `serve_loop`'s does."""
     params = param_shapes(cfg)
     if shape.kind == "train":
         opt = opt or make_optimizer(cfg.optimizer, 1e-4)
-        return make_train_step(cfg, opt, remat=remat), (params, steady_opt_state(opt, params),
-                                                        input_specs(cfg, shape))
+        if donate is None:
+            donate = opt.donate is not None
+        step = make_train_step(cfg, opt, remat=remat, donate=donate)
+        return step, (params, steady_opt_state(opt, params), input_specs(cfg, shape))
     if shape.kind == "prefill":
         return (make_prefill_step(cfg, cache_headroom=cache_headroom),
                 (params, input_specs(cfg, shape)))

@@ -13,9 +13,11 @@ not either.  Beside the FLOPs it takes the step's peak bytes of live
 intermediates, the counterpart of `memory_analysis().temp_size_in_bytes`:
 a dispatch mode adds every new storage an op returns to a running total
 and takes it off when the storage is freed.  Unlike XLA's number it
-includes the step's outputs, because the port's steps do not donate their
-arguments: a train step's new parameters and optimizer state are
-allocated while the old ones are still alive, as on the card.
+includes the step's outputs where a step does not donate its arguments: a
+functional train step's new parameters and optimizer state are allocated
+while the old ones are still alive, as on the card.  A donated train step
+(`make_train_step(donate=True)`) writes them into the arguments' storage,
+which the count leaves out, as XLA leaves out donated buffers.
 
 Where a mixer loops over tokens in Python (`models/ssm.py`'s Mamba scan,
 the "ref" WKV loop of `kernels/rwkv6_wkv/ref.py`), a step dispatches a few

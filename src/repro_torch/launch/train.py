@@ -9,9 +9,16 @@ loss (eq. 42) at every step.
 runs on the current CUDA device (and raises without one).  `train_loop`
 also takes an `ArchConfig` (a full-width config with its depth cut, say),
 `device="cpu"`, and `params` (from `init_params` or `params_from_jax`, on
-that device).  The audio and VLM families train on the JAX package's stub
-frontends (`serve.stub_frontend`: zero frames or patch embeddings, M-RoPE
-arange); a VLM `seq` shorter than n_patches raises ValueError.
+that device), which the loop's donated step updates in place
+(`make_train_step(donate=True)`).  The audio and VLM families train on the
+JAX package's stub frontends (`serve.stub_frontend`: zero frames or patch
+embeddings, M-RoPE arange) unless `frontend` gives their inputs; a VLM
+`seq` shorter than n_patches raises ValueError.  At qwen2-vl-2b's full
+depth the zero patches make the gradient non-finite, in the JAX package
+too: every patch row's residual stays exactly 0 (the Q/K/V biases start
+at 0), and each RMS norm's backward scales that row's gradient by
+1/sqrt(eps), layer after layer.  Train it on patch embeddings that are
+not all zero.
 """
 from __future__ import annotations
 
@@ -64,7 +71,8 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 def train_loop(arch_or_cfg: str | ArchConfig, *, steps: int = 20, batch: int = 8,
                seq: int = 128, lr: float = 3e-4, fl: bool = False, n_cohorts: int = 8,
-               seed: int = 0, log_every: int = 1, device=None, params=None) -> TrainResult:
+               seed: int = 0, log_every: int = 1, device=None, params=None,
+               frontend: dict | None = None) -> TrainResult:
     cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) else arch_or_cfg
     dev = resolve_device(device)
     if params is None:
@@ -74,12 +82,14 @@ def train_loop(arch_or_cfg: str | ArchConfig, *, steps: int = 20, batch: int = 8
 
     opt = make_optimizer("adamw" if cfg.optimizer == "adafactor" else cfg.optimizer, lr)
     opt_state = opt.init(params)
-    step_fn = make_train_step(cfg, opt, remat=False)
+    # The loop never reads the old parameters or state again: donate them.
+    step_fn = make_train_step(cfg, opt, remat=False, donate=True)
 
     rng = np.random.default_rng(seed)
     stream = synthetic_lm_stream(seed, batch, seq, cfg.vocab)
-    # The audio and VLM families' stubbed frontends, the same every step.
-    frontend = stub_frontend(cfg, batch, seq, dev)
+    # The audio and VLM families' modality inputs, the same every step.
+    if frontend is None:
+        frontend = stub_frontend(cfg, batch, seq, dev)
 
     fl_state = None
     if fl:

@@ -185,9 +185,11 @@ def mamba_forward(p, cfg: ArchConfig, x, state=None):
     dbx = dt[..., None] * b_ssm[:, :, None, :] * xc32[..., None]
     h = state["ssm"]
     ys = []
-    for i in range(t):
-        h = da[:, i] * h + dbx[:, i]                             # (B, di, N)
-        ys.append(torch.einsum("bdn,bn->bd", h, c_ssm[:, i]))
+    # The steps' slices by unbind, not by index: the backward of T index
+    # slices would add T zero-filled (B, T, di, N) gradients, T^2 bytes.
+    for da_i, dbx_i, c_i in zip(da.unbind(1), dbx.unbind(1), c_ssm.unbind(1)):
+        h = da_i * h + dbx_i                                     # (B, di, N)
+        ys.append(torch.einsum("bdn,bn->bd", h, c_i))
     y = torch.stack(ys, dim=1) + xc32 * p["d_skip"]
     out = dense(p["out_proj"], y.to(x.dtype) * F.silu(z))
     conv = xpad[:, -(kw - 1):] if kw > 1 else state["conv"]

@@ -167,7 +167,7 @@ def _ported_plan(cfg: ArchConfig) -> list[Stage]:
             if kind not in PORTED_KINDS:
                 raise NotImplementedError(
                     f"{cfg.name}: layer kind {kind.tag!r} is still to port to PyTorch "
-                    f"(ROADMAP.md, Queue 1 'LLM zoo'); the port runs "
+                    f"(ROADMAP.md, Queue 1: modules to port); the port runs "
                     f"{[k.tag for k in PORTED_KINDS]}")
     return stages
 

@@ -19,15 +19,24 @@ per-layer group as the JAX package's stacked leaf (`tree.jax_leaves`), so
 a per-layer 1-D leaf is a 2-D (repeats, D) leaf and is factored, and the
 clip's RMS runs over all the group's layers, as in the JAX package.  Its
 row and column moments are kept in the JAX tree's stacked layout.
+
+The elementwise four also update in place (`Optimizer.donate`), the
+counterpart of the JAX package's donated train step: `opt.donate(state,
+params)` returns the new state and one update per parameter leaf, which
+takes that leaf's gradient and writes the new moments and the new
+parameter into their own storage.  It computes the same expressions in the
+same order as `update` and `apply_updates`, so its results are their bits.
+Adafactor, whose clip spans a group's layers, has none.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
 
-from .tree import jax_leaves, map_jax_leaves, stacked, tree_leaves, tree_map
+from .tree import jax_leaves, map_jax_leaves, stacked, tree_leaves, tree_map, tree_slots
 
 __all__ = [
     "Optimizer",
@@ -46,10 +55,17 @@ __all__ = [
 ]
 
 
+# One parameter leaf's in-place update: takes its gradient, returns nothing.
+LeafUpdate = Callable[[torch.Tensor], None]
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple[Any, Any]]  # (grads, state, params)
+    # (state, params) -> (new state, one LeafUpdate per leaf of tree_leaves(params));
+    # None where the update is not elementwise (Adafactor, the clip).
+    donate: Callable[[Any, Any], tuple[Any, list[LeafUpdate]]] | None = None
 
 
 def apply_updates(params, updates):
@@ -85,7 +101,14 @@ def sgd(lr: float) -> Optimizer:
     def update(grads, state, params=None):
         return tree_map(lambda g: -lr * g, grads), state
 
-    return Optimizer(init, update)
+    def leaf(p, g):
+        u = -lr * g
+        p.copy_(p + u)
+
+    def donate(state, params):
+        return state, [functools.partial(leaf, p) for p in tree_leaves(params)]
+
+    return Optimizer(init, update, donate)
 
 
 def momentum(lr: float, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
@@ -100,7 +123,22 @@ def momentum(lr: float, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
             upd = tree_map(lambda m: -lr * m, new_m)
         return upd, new_m
 
-    return Optimizer(init, update)
+    def leaf(slot, p, g):
+        box, key = slot
+        m = box[key]
+        if m.dtype == torch.result_type(m, g):
+            m.mul_(beta)
+            m.add_(g)
+        else:                    # a bf16 moment and an f32 gradient: the new moment is f32
+            m = box[key] = beta * m + g
+        u = -lr * (beta * m + g) if nesterov else -lr * m
+        p.copy_(p + u)
+
+    def donate(state, params):
+        return state, [functools.partial(leaf, slot, p)
+                       for slot, p in zip(tree_slots(state), tree_leaves(params))]
+
+    return Optimizer(init, update, donate)
 
 
 class AdamState(NamedTuple):
@@ -141,18 +179,50 @@ def _adam_update(lr: float, b1: float, b2: float, eps: float, wd: float):
     return update
 
 
+def _adam_donate(lr: float, b1: float, b2: float, eps: float, wd: float):
+    """`_adam_update` and `apply_updates` in place, one leaf at a time.
+    adam's init hands one zero tree to both moments, so a second moment
+    that is its first moment's tensor is given storage of its own first."""
+
+    def donate(state, params):
+        count = state.count + 1
+        bc1, bc2 = _bias_corrections(count, b1, b2)
+        mu, nu = state.mu, state.nu
+        if any(m is v for m, v in zip(tree_leaves(mu), tree_leaves(nu))):
+            nu = tree_map(lambda m, v: v.clone() if m is v else v, mu, nu)
+
+        def leaf(m, v, p, g):
+            g = g.to(torch.float32)
+            m.mul_(b1)
+            m.add_((1 - b1) * g)
+            v.mul_(b2)
+            v.add_((1 - b2) * (g * g))
+            u = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if wd:
+                u = u - lr * wd * p.to(torch.float32)
+            p.copy_(p + u)
+
+        updates = [functools.partial(leaf, m, v, p)
+                   for m, v, p in zip(tree_leaves(mu), tree_leaves(nu), tree_leaves(params))]
+        return AdamState(count=count, mu=mu, nu=nu), updates
+
+    return donate
+
+
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
     def init(params):
         z = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         count = torch.zeros((), dtype=torch.int32, device=_device(params))
         return AdamState(count=count, mu=z, nu=z)
 
-    return Optimizer(init, _adam_update(lr, b1, b2, eps, 0.0))
+    return Optimizer(init, _adam_update(lr, b1, b2, eps, 0.0),
+                     _adam_donate(lr, b1, b2, eps, 0.0))
 
 
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           wd: float = 0.01) -> Optimizer:
-    return Optimizer(adam(lr, b1, b2, eps).init, _adam_update(lr, b1, b2, eps, wd))
+    return Optimizer(adam(lr, b1, b2, eps).init, _adam_update(lr, b1, b2, eps, wd),
+                     _adam_donate(lr, b1, b2, eps, wd))
 
 
 class AdafactorState(NamedTuple):

@@ -22,12 +22,20 @@ __all__ = ["make_train_step", "make_prefill_step", "make_serve_step"]
 
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
-                    clip_norm: float = 1.0):
+                    clip_norm: float = 1.0, donate: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): the loss and its gradient by autograd, the gradient's global
     norm, the clip to `clip_norm` (none if 0), the optimizer update.  The
     metrics {"loss", "grad_norm", "aux"} stay on the parameters' device.
     remat=True recomputes each sublayer in the backward pass.
+
+    donate=True is the JAX package's donated step (`donate_argnums=(0, 1)`
+    of its dry run): the caller hands over `params` and `opt_state`, and
+    the step clips and updates one leaf at a time in their storage
+    (`Optimizer.donate`), dropping each gradient leaf once it is used.  It
+    returns the `params` tree it was given, and computes the bits of
+    donate=False, which holds the old and the new trees at once.  The
+    optimizer must update elementwise: Adafactor cannot be donated.
 
     The port's K4 and K5 kernels have no backward, nor do the JAX
     package's Pallas kernels, so a config with attn_impl or rwkv_wkv_impl
@@ -39,16 +47,30 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
                 f"make_train_step: {cfg.name} has {field}='pallas', but the {kernel} kernel "
                 "has no backward kernel, and the JAX package cannot differentiate its "
                 f"Pallas kernels either; train with {field}='ref'")
+    if donate and opt.donate is None:
+        raise ValueError("make_train_step(donate=True) updates each leaf in place, which "
+                         "needs an elementwise optimizer (sgd, momentum, adam, adamw); this "
+                         "one (Adafactor, or a chain) has no in-place update: pass donate=False")
 
     def train_step(params, opt_state, batch):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, extras = lm_loss(cfg, tree_unflatten(params, leaves), batch, remat=remat)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
-                                        for p, g in zip(leaves, grads)])
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         del leaves
-        gnorm = global_norm(grads)
+        gnorm = global_norm(tree_unflatten(params, grads))
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "aux": extras["aux"].detach()}
+        if donate:
+            scale = _clip_scale(gnorm, clip_norm, 1e-9) if clip_norm > 0 else None
+            opt_state, updates = opt.donate(opt_state, params)
+            for i, update in enumerate(updates):
+                g, grads[i] = grads[i], None
+                if scale is not None:
+                    g = g.to(torch.float32) * scale
+                update(g)
+            return params, opt_state, metrics
+        grads = tree_unflatten(params, grads)
         if clip_norm > 0:
             # The JAX package's bf16 gradient times its f32 scale is f32.
             scale = _clip_scale(gnorm, clip_norm, 1e-9)
@@ -56,7 +78,6 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
         updates, opt_state = opt.update(grads, opt_state, params)
         del grads
         params = apply_updates(params, updates)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "aux": extras["aux"].detach()}
         return params, opt_state, metrics
 
     return train_step

@@ -22,8 +22,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves", "tree_unflatten", "jax_leaves", "map_jax_leaves",
-           "stacked"]
+__all__ = ["tree_map", "tree_leaves", "tree_unflatten", "tree_slots", "jax_leaves",
+           "map_jax_leaves", "stacked"]
 
 # A JAX-layout leaf: a tensor, or (a per-layer group) one tensor per layer.
 Leaf = Any
@@ -49,6 +49,19 @@ def tree_unflatten(like, leaves) -> Any:
     """The tree of `like`'s structure whose `tree_leaves` are `leaves`."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_slots(tree) -> list[tuple[Any, Any]]:
+    """(container, key) of every leaf of a tree of dicts and lists, in
+    `tree_leaves`' order: container[key] = x puts x in the leaf's place."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        raise TypeError(f"tree_slots: a leaf's slot is in a dict or a list, not a {type(tree)}")
+    return [slot for k, v in items
+            for slot in (tree_slots(v) if isinstance(v, (dict, list)) else [(tree, k)])]
 
 
 def _fields(tree: tuple):

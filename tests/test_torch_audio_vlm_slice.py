@@ -30,6 +30,15 @@ with F.silu, no f32 copies and no XLA-rounded SiLU.  Training at
 tests/test_torch_train.py's gates: loss 5e-3 absolute (whisper 2.9e-5,
 qwen2-vl 1.5e-4), global grad norm 2e-2 relative (1.1e-4, 2.3e-5), each
 leaf's relative Frobenius error 5e-2 (2.0e-2, 2.7e-2).
+
+At qwen2-vl-2b's full depth (28 layers, here at smoke width) the JAX
+package's stub of zero patch embeddings makes the gradient non-finite in
+both packages: each patch row's residual stays exactly 0 (the Q/K/V biases
+start at 0), and every RMS norm's backward scales that row's gradient by
+1/sqrt(eps).  On seeded patch embeddings of scale 0.02 both are finite
+and the port's global grad norm sits within the training gate of JAX's
+(loss gap 1.6e-4, grad norm 9.4e-4); `train_loop(frontend=)` trains on
+such inputs.
 """
 from _torch_oracle import f32, jax_llm_params, rel_max  # noqa: I001  (alias first)
 
@@ -389,3 +398,65 @@ def test_torch_serve_model_example_runs_every_arch_on_the_cpu(arch, capsys):
     out = capsys.readouterr().out
     assert f"arch={arch}-smoke" in out and "prefill + decode vs full forward" in out
     assert 0 <= err < TOL
+
+
+# --------------------------------------------------------------------------
+# qwen2-vl-2b's full depth: the zero-patch stub against seeded patches
+# --------------------------------------------------------------------------
+
+VL_DEPTH = 28          # qwen2-vl-2b's layers
+
+
+def _finite(tree) -> bool:
+    return all(np.isfinite(f32(torch.stack(v) if isinstance(v, list) else v)).all()
+               for _, v in jax_leaves(tree))
+
+
+def test_vlm_gradient_on_zero_patches_is_not_finite_at_full_depth():
+    """qwen2-vl-2b-smoke at 28 layers: on the stub's zero patches JAX's and
+    the port's gradients are not finite; on seeded patches (0.02) both are,
+    loss within 5e-3 and global grad norm within 2e-2 of JAX's."""
+    jcfg = dataclasses.replace(jax_get_config(QWEN_VL), n_layers=VL_DEPTH)
+    tcfg = dataclasses.replace(get_config(QWEN_VL), n_layers=VL_DEPTH)
+    p_np = jax_llm_params(jcfg, 3)
+    jb, tb = _inputs(jcfg, 2, 33, seed=4)
+    jb["labels"], jb["tokens"] = jb["tokens"][:, 1:], jb["tokens"][:, :-1]
+    tb["labels"], tb["tokens"] = tb["tokens"][:, 1:], tb["tokens"][:, :-1]
+    jb["mrope_pos"], tb["mrope_pos"] = jb["mrope_pos"][:, :-1], tb["mrope_pos"][:, :-1]
+    jb["fl_weights"], tb["fl_weights"] = jnp.ones(2), torch.ones(2)
+    fn = jax.jit(jax.value_and_grad(lambda p, b: JT.lm_loss(jcfg, p, b), has_aux=True))
+    jp = jax.tree_util.tree_map(jnp.asarray, p_np)
+    for patches in ("zero", "seeded"):
+        if patches == "zero":
+            zj, zt = {**jb, "image_embeds": jnp.zeros_like(jb["image_embeds"])}, {
+                **tb, "image_embeds": torch.zeros_like(tb["image_embeds"])}
+        else:
+            zj, zt = jb, tb
+        (jloss, _), jgrads = fn(jp, zj)
+        loss, grads = _port_grads(tcfg, TT.params_from_jax(tcfg, p_np), zt)
+        jflat = [f32(v) for v in jax.tree_util.tree_leaves(jgrads)]
+        jfinite = all(np.isfinite(v).all() for v in jflat)
+        assert jfinite == _finite(grads) == (patches == "seeded"), patches
+        if patches == "seeded":
+            assert abs(loss - float(jloss)) <= LOSS_ATOL
+            gn = float(np.sqrt(sum((f32(torch.stack(v) if isinstance(v, list) else v) ** 2).sum()
+                                   for _, v in jax_leaves(grads))))
+            jgn = float(np.sqrt(sum((v ** 2).sum() for v in jflat)))
+            assert abs(gn - jgn) <= GNORM_RTOL * jgn
+
+
+def test_train_loop_trains_the_vlm_at_full_depth_on_the_frontend_it_is_given():
+    """train_loop on qwen2-vl-2b-smoke at 28 layers: on its default stub
+    (zero patches) the grad norm is not finite; with `frontend` (seeded
+    patches of scale 0.02 on the 3-D M-RoPE grid) every loss and grad norm
+    is."""
+    cfg = dataclasses.replace(get_config(QWEN_VL), n_layers=VL_DEPTH)
+    kw = dict(steps=2, batch=2, seq=32, fl=True, device="cpu", log_every=2)
+    stub = TL.train_loop(cfg, **kw)
+    assert not np.isfinite(stub.grad_norms).all()
+    gen = torch.Generator().manual_seed(1)
+    frontend = {"image_embeds": (0.02 * torch.randn(2, cfg.n_patches, cfg.d_model,
+                                                    generator=gen)).bfloat16(),
+                "mrope_pos": TLY.mrope_grid(2, 32, cfg.n_patches)}
+    fed = TL.train_loop(cfg, frontend=frontend, **kw)
+    assert np.isfinite(fed.losses).all() and np.isfinite(fed.grad_norms).all()
