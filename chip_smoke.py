@@ -6,7 +6,8 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives the paper simulation
 (`run_simulation`) and its multi-cell hierarchy (`run_hierarchical`,
 `run_hier_many`) through K1-K3 on all three engines and checks their traces
-against the same runs on the CPU, runs a `run_many` group of 16 cells and a
+against the same runs on the CPU, and again with the Γ solver's plain
+projection backends (`ra_backend`), which route round K1 and K2, runs a `run_many` group of 16 cells and a
 `run_hier_many` group of 8 hierarchy configs as one batch on each device
 engine (every cell and config bitwise its solo run), runs the sweep harness
 (`run_sweep`) and
@@ -128,6 +129,20 @@ Phases, in order:
      the service's pairs;
      every number beside the card's name and power limit, and the wall
      time of each sub-step of the sweep and of the service;
+ 10b. the Γ solver's projection backends: Γ of the main path's pairs and of
+     the service segment's, by the step driver with "newton", "mixed" and
+     "bisect" on the card, each against the same on the CPU (iterations
+     equal) and against K1 on the card (iterations equal), values within
+     RA_LIMITS, K1 and K2 launched 0 times; the Γ wall ms of K1, of K2
+     through the step driver and of the three plain backends at both pair
+     sets, beside the card's name and power limit; then, each driven with
+     every launch counter set to 0 just before it and read just after and
+     held against the same run on the CPU (traces equal, latency within
+     1e-6, loss within 1e-4): run_simulation(SimConfig(rounds=30),
+     engine="scan", ra_backend="mixed"), 10 rounds with ra_backend="newton"
+     and ra_solver="step" (loop engine), and the hierarchy's scan engine
+     (HierSimConfig(rounds=30)) with ra_backend="mixed"; K1 and K2 launched
+     0 times and K3 once per aggregation; the phase's wall time;
  11. the serving paths: serve_loop at full width and depth (random weights
      from a seed) for qwen2-7b with attn_impl="pallas" and for rwkv6-7b
      with rwkv_wkv_impl="pallas", batch 4, prompt 512, 32 new tokens, the
@@ -235,9 +250,10 @@ Phases, in order:
      `serve_launches`, its D 80 check, `d80`, and its checks at
      whisper-base's and qwen2-vl-2b's shapes, `whisper_d64` and
      `qwen2_vl_d128`; with K1-K3's launches on the hierarchy's, the
-     batched groups', the hierarchy groups', the sweep's and the service's
-     paths: `hier_launches`, `batch_launches`, `hier_batch_launches`,
-     `sweep_launches`, `service_launches`; every kernel's
+     batched groups', the hierarchy groups', the sweep's, the service's
+     and phase 10b's paths: `hier_launches`, `batch_launches`,
+     `hier_batch_launches`, `sweep_launches`, `service_launches`,
+     `ra_backend_launches`; every kernel's
      launches on the training path, `train_launches`; K1's bound at the
      hierarchy's and a service segment's pairs, `at`; K3's cell axis at 1,
      16 and 32 cells, `cells`).
@@ -275,6 +291,7 @@ from repro_torch.configs import InputShape, get_config  # noqa: E402
 from repro_torch.core import (PAPER_BASELINE_DS, RoundPolicy,  # noqa: E402
                               WirelessConfig, is_infeasible, total_energy)
 from repro_torch.core.leader_torch import host_int  # noqa: E402
+from repro_torch.core.monotonic_torch import solve_pairs_fused, solve_pairs_step  # noqa: E402
 from repro_torch.fl import (HierSimConfig, SimConfig, run_hier_many,  # noqa: E402
                             run_hierarchical, run_simulation)
 from repro_torch.experiments import SweepSpec, run_sweep  # noqa: E402
@@ -348,7 +365,7 @@ def line(msg: str = "") -> None:
     print(msg, flush=True)
 
 
-def phase_mark(n: int, t_all: float) -> None:
+def phase_mark(n: int | str, t_all: float) -> None:
     line(f"phase {n} starts at {time.perf_counter() - t_all:.1f}s")
 
 
@@ -1234,17 +1251,18 @@ def count_syncs(cfg, run=run_simulation, **kw) -> None:
 # ---------------------------------------------------------------------------
 
 def hier_sim(cfg: HierSimConfig, device, engine: str = "scan",
-             ra_solver: str = "fused") -> dict:
+             ra_solver: str = "fused", ra_backend: str | None = None) -> dict:
     """One hierarchy run through the entry point a user calls
     (`run_hierarchical` for the loop engine, `run_hier_many` otherwise), as
     per-cell traces: tx and AoU (rounds, C, N), losses, latencies, the
     async engine's commits at both tiers, and the SimHistory (`hist`; None
     on the loop engine)."""
     if engine == "loop":
-        out = run_hierarchical(cfg, engine="loop", device=device)
+        out = run_hierarchical(cfg, engine="loop", ra_backend=ra_backend, device=device)
         return dict(tx=out["tx"], age=out["age"], loss=out["loss"], acc=out["accuracy"],
                     latency=out["latency"], hist=None)
-    h = run_hier_many([cfg], engine=engine, ra_solver=ra_solver, device=device)[0]
+    h = run_hier_many([cfg], engine=engine, ra_backend=ra_backend, ra_solver=ra_solver,
+                      device=device)[0]
     shape = (cfg.rounds, cfg.n_cells, cfg.devices_per_cell)
     out = dict(tx=h.tx_trace.reshape(shape), age=h.age_trace.reshape(shape),
                loss=h.global_loss, acc=h.accuracy, latency=h.latency_all, hist=h)
@@ -1304,18 +1322,22 @@ def hier_k2_expected(cfg: HierSimConfig) -> int:
 
 
 def drive_hier(cfg: HierSimConfig, engine: str, need: tuple[str, ...],
-               ra_solver: str = "fused") -> tuple[dict, dict]:
+               ra_solver: str = "fused", ra_backend: str | None = None
+               ) -> tuple[dict, dict]:
     """Drive one hierarchy path on the card twice and once on the CPU:
     traces equal to the CPU run's, latency within 1e-6 and losses within
     1e-4 of it, each kernel in `need` launched, K1 exactly once on a fused
-    run, K2 as often as the step driver iterates on a step run, and K3
-    exactly as often as the traces imply (`hier_k3_expected`)."""
-    out, wall, launches, syncs = run_on_card(cfg, hier_sim, engine=engine, ra_solver=ra_solver)
-    again, warm_wall, _, _ = run_on_card(cfg, hier_sim, engine=engine, ra_solver=ra_solver)
+    run, K2 as often as the step driver iterates on a step run (neither
+    with a plain `ra_backend`), and K3 exactly as often as the traces imply
+    (`hier_k3_expected`)."""
+    kw = dict(engine=engine, ra_solver=ra_solver, ra_backend=ra_backend)
+    out, wall, launches, syncs = run_on_card(cfg, hier_sim, **kw)
+    again, warm_wall, _, _ = run_on_card(cfg, hier_sim, **kw)
     t0 = time.perf_counter()
-    ref = hier_sim(cfg, "cpu", engine, ra_solver)
+    ref = hier_sim(cfg, "cpu", **kw)
     cpu_wall = time.perf_counter() - t0
-    name = f"engine={engine}" + (f" ra_solver={ra_solver}" if ra_solver != "fused" else "")
+    name = (f"engine={engine}" + (f" ra_solver={ra_solver}" if ra_solver != "fused" else "")
+            + (f" ra_backend={ra_backend}" if ra_backend is not None else ""))
     line(f"main path hier {name} cells={cfg.n_cells}x{cfg.devices_per_cell} devices, "
          f"{cfg.subchannels_per_cell} sub-channels each, scenario={cfg.scenario} "
          f"coupling={cfg.cell_coupling} aggregation={cfg.aggregation}/"
@@ -1332,8 +1354,9 @@ def drive_hier(cfg: HierSimConfig, engine: str, need: tuple[str, ...],
     lat_rel = max_rel(out["latency"], ref["latency"])
     loss_rel = max_rel(out["loss"], ref["loss"])
     k3_want, k3_how = hier_k3_expected(cfg, engine, out)
-    k1_want = 1 if ra_solver == "fused" else 0
-    k2_want = hier_k2_expected(cfg) if ra_solver == "step" else 0
+    kernels = ra_backend is None
+    k1_want = 1 if ra_solver == "fused" and kernels else 0
+    k2_want = hier_k2_expected(cfg) if ra_solver == "step" and kernels else 0
     line("  " + "; ".join(f"{f} == cpu: {v}" for f, v in same.items())
          + f"; latency max_rel vs cpu: {lat_rel:.3e} (limit 1e-6); loss max_rel vs cpu: "
          f"{loss_rel:.3e} (limit 1e-4); transmissions: {int(out['tx'].sum())}")
@@ -1942,6 +1965,117 @@ def service_pairs(cfg: ServiceConfig):
         cfg.segment_events)
     return (*feasible_pairs(beta[None, None, :], tr.h2_all, tr.e_max_j[:, None, :],
                             sim.wireless()), sim.wireless())
+
+
+# ---------------------------------------------------------------------------
+# the Γ solver's projection backends
+# ---------------------------------------------------------------------------
+
+RA_BACKENDS = ("newton", "mixed", "bisect")
+# Relative limits ((tau, p), (time, energy)) of a plain backend's Γ on the
+# card, at both pair sets: against the same backend on the CPU, and against K1.
+# "bisect" and "mixed" converge: against the CPU, the limits the CPU tests
+# hold the port to against the JAX package (tests/test_torch_ra_backends.py:
+# two libraries' log1p and exp, as here CUDA's and the CPU's); against K1 (a
+# bisection), K2's float64 limit against its plain version for "bisect" and
+# the JAX package's own agreement of "mixed" with its bisection (T 1e-8,
+# tau 5e-8).  A 14-step "newton" root that has not converged moves with the
+# last bit of log1p and exp: the JAX package's own "newton" sits 2.05e-8
+# from its bisection at the service's pairs (tau, p and T; the CPU test
+# `test_backend_gaps_at_the_service_pairs`), hence 5e-8 for it everywhere.
+RA_LIMITS = {"bisect": ((1e-11, 1e-11), (1e-10, 1e-10)),
+             "newton": ((5e-8, 5e-8), (5e-8, 5e-8)),
+             "mixed": ((2e-11, 5e-12), (5e-8, 1e-8))}
+RA_FIELDS = (("tau", "p"), ("time_s", "energy_j"))
+
+
+def gamma_gaps(got, want) -> tuple[float, float]:
+    """Largest relative gaps of two RAResults on the feasible pairs: over
+    tau and p, and over time and energy."""
+    f = want.feasible
+    return tuple(max(max_rel(getattr(got, k)[f], getattr(want, k)[f]) for k in ks)
+                 for ks in RA_FIELDS)
+
+
+def timed_solve(solve, pairs, **kw):
+    """`solve` of one pair set on the card: its RAResult (the first call)
+    and the wall ms of a second, warm call (the driver hands numpy back,
+    so it ends synchronised)."""
+    b, h, e, cfg = pairs
+    res = solve(b, h, cfg, e, device=DEV, **kw)
+    t0 = time.perf_counter()
+    solve(b, h, cfg, e, device=DEV, **kw)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def ra_gamma(label: str, pairs) -> dict:
+    """Γ of one pair set by the step driver with each plain backend on the
+    card, against the same on the CPU (iterations equal, values within
+    RA_LIMITS) and against K1 on the card (iterations equal, values within
+    RA_LIMITS); K1 and K2 launched by none of them.  Returns the wall ms
+    of K1, K2 through the step driver and each plain backend."""
+    b, h, e, cfg = pairs
+    ms, failed = {}, []
+    k1_res, ms["K1"] = timed_solve(solve_pairs_fused, pairs)
+    _, ms["K2 step"] = timed_solve(solve_pairs_step, pairs)
+    for backend in RA_BACKENDS:
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        got, ms[backend] = timed_solve(solve_pairs_step, pairs, backend=backend)
+        k12 = (polyblock_solve_fused.launches, polyblock_project.launches)
+        t0 = time.perf_counter()
+        cpu = solve_pairs_step(b, h, cfg, e, backend=backend, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        lim_cpu, lim_k1 = RA_LIMITS[backend]
+        gap_cpu, gap_k1 = gamma_gaps(got, cpu), gamma_gaps(got, k1_res)
+        it_cpu = np.array_equal(got.iterations, cpu.iterations)
+        it_k1 = np.array_equal(got.iterations, k1_res.iterations)
+        line(f"Γ {label} pairs={int(got.feasible.sum())} backend={backend} on the card: "
+             f"iterations == cpu: {it_cpu}, == K1: {it_k1}; vs cpu (tau,p)={gap_cpu[0]:.3e} "
+             f"(T,E)={gap_cpu[1]:.3e} (limits {lim_cpu[0]:g}, {lim_cpu[1]:g}); vs K1 "
+             f"(tau,p)={gap_k1[0]:.3e} (T,E)={gap_k1[1]:.3e} (limits {lim_k1[0]:g}, "
+             f"{lim_k1[1]:g}); K1 launches={k12[0]} K2 launches={k12[1]} (expected 0, 0); "
+             f"max iterations={int(got.iterations.max())}; cpu solve_s={cpu_s:.2f}")
+        if not (it_cpu and it_k1):
+            failed.append(f"{backend}: iterations differ")
+        if not all(g <= lim for g, lim in zip(gap_cpu + gap_k1, lim_cpu + lim_k1)):
+            failed.append(f"{backend}: values beyond their limits")
+        if k12 != (0, 0):
+            failed.append(f"{backend}: K1 or K2 launched")
+    line(f"Γ wall ms at {label} ({int(k1_res.feasible.sum())} pairs, warm call): "
+         + " ".join(f"{k}={v:.2f}" for k, v in ms.items()) + f" [{CARD}]")
+    if failed:
+        raise AssertionError(f"Γ {label}: " + "; ".join(failed))
+    return ms
+
+
+def ra_backend_phase(main_cfg: SimConfig, step_cfg: SimConfig, hier_cfg: HierSimConfig,
+                     pairs: dict) -> dict:
+    """Phase 10b: Γ by each plain projection backend at `pairs` (label ->
+    (beta, h2, e_max, cfg)), then the main paths with `ra_backend` set: the
+    scan engine with "mixed", the step solver with "newton" (loop engine)
+    and the hierarchy's scan engine with "mixed"; each against the same
+    run on the CPU (`drive`, `drive_hier`), K1 and K2 launched 0 times, K3
+    once per aggregation.  Returns the Γ wall ms by pair set and each run's
+    launch counts."""
+    ms = {label: ra_gamma(label, p) for label, p in pairs.items()}
+    runs = {}
+    for name, cfg, kw in (("mixed scan", main_cfg, dict(ra_backend="mixed", engine="scan")),
+                          ("newton step", step_cfg, dict(ra_backend="newton",
+                                                         ra_solver="step"))):
+        hist, launches = drive(cfg, ("fedavg_agg",), **kw)
+        aggregations = int(hist.tx_trace.any(1).sum())
+        line(f"  ra_backend run {name}: K1 launches={launches['polyblock_fused']} K2 "
+             f"launches={launches['polyblock_project']} (expected 0, 0); K3 launches="
+             f"{launches['fedavg_agg']} (aggregations {aggregations}) [{CARD}]")
+        if (launches["polyblock_fused"], launches["polyblock_project"],
+                launches["fedavg_agg"]) != (0, 0, aggregations):
+            raise AssertionError(f"ra_backend run {name}: launches differ from (0, 0, "
+                                 f"{aggregations})")
+        runs[name] = launches
+    _, runs["hier mixed scan"] = drive_hier(hier_cfg, "scan", ("fedavg_agg",),
+                                            ra_backend="mixed")
+    return dict(ms=ms, launches=runs)
 
 
 # ---------------------------------------------------------------------------
@@ -3273,6 +3407,13 @@ def main() -> None:
     k1_at["service_segment"] = k1_bound("the service's first segment (100 events x 16 x 64)",
                                         to(sb), to(sh), to(se), scfg)
 
+    # ---- 10b. the Γ solver's projection backends -------------------------------
+    phase_mark("10b", t_all)
+    t_ra = time.perf_counter()
+    ra = ra_backend_phase(main_cfg, step_cfg, hier_cfg,
+                          {"main": (mb, mh, me, mcfg), "service": service["pairs"]})
+    line(f"ra_backend phase wall_s={time.perf_counter() - t_ra:.1f} [{CARD}]")
+
     # ---- 11. the serving paths -----------------------------------------------
     phase_mark(11, t_all)
     n_new = SERVE["new_tokens"]
@@ -3353,6 +3494,8 @@ def main() -> None:
             kernels[-1]["hier_batch_launches"] = {agg: r["launches"][name]
                                                   for agg, r in hier_batch.items()}
         if name in hier_launches:
+            kernels[-1]["ra_backend_launches"] = {run: c[name]
+                                                  for run, c in ra["launches"].items()}
             kernels[-1]["hier_launches"] = hier_launches[name]
             kernels[-1]["sweep_launches"] = sweep["launches"][name]
             kernels[-1]["service_launches"] = (service["step_launches"][name]

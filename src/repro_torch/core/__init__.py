@@ -3,9 +3,11 @@
   wireless         -- system model, eqs. 1-10 (numpy/torch backend-agnostic)
   feasibility      -- Proposition 1
   monotonic        -- Algorithm 1, host NumPy reference (copy)
-  monotonic_torch  -- Algorithm 1 batched on the card (kernels K1 and K2);
-                      import it as `repro_torch.core.monotonic_torch` (the
-                      kernels import this package's wireless model)
+  monotonic_torch  -- Algorithm 1 batched on the card (kernels K1 and K2,
+                      or the plain "bisect" / "newton" / "mixed"
+                      projections) and `precompute_gamma`; import it as
+                      `repro_torch.core.monotonic_torch` (the kernels
+                      import this package's wireless model)
   matching         -- Algorithm 2 (swap matching), NumPy copy
   aou              -- Age-of-Update state, eqs. 6-7, NumPy copy
   convergence      -- Proposition 3's bound (eq. 40), NumPy copy

@@ -2,20 +2,35 @@
 `core/monotonic_jax.py`.
 
 Two drivers, both drop-ins for the host `monotonic.solve_pairs` (same
-arguments, host numpy `RAResult`):
+arguments, host numpy `RAResult`), and `precompute_gamma`, the
+whole-horizon (rounds, K, N) solve through either:
 
-  solve_pairs_fused -- the whole polyblock solve of every feasible pair in
-                       one launch of kernel K1 (`kernels.polyblock_fused`);
-                       on the CPU, its plain torch version.  The JAX
-                       package's staged jit driver (bucket compaction, lazy
-                       store growth, `shard_map`) exists to feed XLA fixed
-                       shapes; the kernel replaces it here, as the Pallas
-                       `polyblock_fused` kernel replaces it on the TPU.
   solve_pairs_step  -- the counterpart of `solve_pairs_jit`: the
                        selection / children loop in torch, one projection
                        call per iteration for the children of the still-
-                       active pairs, through kernel K2 (backend "cuda") or
-                       the plain bisection (backend "bisect").
+                       active pairs, by the projection backend named:
+                       kernel K2 (None, "cuda", alias "pallas"), the plain
+                       bisection ("bisect", alias "jnp"), the log-space
+                       Newton ("newton") or the float32-bulk / float64-
+                       polish Newton ("mixed", warm-started from the parent
+                       vertex as the JAX package's `_children_impl` does);
+  solve_pairs_fused -- the counterpart of the JAX package's staged
+                       `solve_pairs_fused`.  With backend None, "cuda" or
+                       "pallas", the whole polyblock solve of every
+                       feasible pair in one launch of kernel K1
+                       (`kernels.polyblock_fused`; on the CPU, its plain
+                       torch version), as the Pallas `polyblock_fused`
+                       kernel solves it on the TPU.  With any other
+                       backend, the step loop with that projection: the
+                       JAX staged driver's contract is that it is bit for
+                       bit `solve_pairs_jit` with the same backend (its
+                       bucket compaction, lazy store growth and stage
+                       boundaries only feed XLA fixed shapes), so the step
+                       loop is that driver here.
+
+The defaults differ from the JAX package's off the TPU (fused "mixed",
+step "newton"): None means the kernels, K1 fused and K2 step, on every
+device, whose plain versions run on the CPU.
 
 Proposition-1 feasibility is decided on the host in float64 before either
 driver runs, and energies of the solved points are evaluated there too,
@@ -28,12 +43,25 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.polyblock_fused.ops import polyblock_solve_fused
-from ..kernels.polyblock_project.ops import polyblock_project, project_bisect
+from ..kernels.polyblock_project.ops import project as project_by
+from ..kernels.polyblock_project.ops import project_newton_mixed
 from .feasibility import is_infeasible
 from .monotonic import RAResult
 from .wireless import WirelessConfig, total_energy, total_time
 
-__all__ = ["solve_pairs_fused", "solve_pairs_step"]
+__all__ = ["solve_pairs_fused", "solve_pairs_step", "precompute_gamma",
+           "RA_BACKENDS", "check_ra_backend"]
+
+# The projection backends both drivers take: None and "cuda" (alias
+# "pallas") are the kernels, the rest the JAX package's plain projections.
+RA_BACKENDS = (None, "cuda", "pallas", "bisect", "jnp", "newton", "mixed")
+_KERNEL_BACKENDS = (None, "cuda", "pallas")
+
+
+def check_ra_backend(backend) -> None:
+    """Raise ValueError unless `backend` names a projection backend."""
+    if backend not in RA_BACKENDS:
+        raise ValueError(f"unknown backend: {backend!r} (one of {RA_BACKENDS})")
 
 
 def _flatten(beta, h2, cfg: WirelessConfig, e_max):
@@ -68,10 +96,20 @@ def _host(x: torch.Tensor, dtype=np.float64) -> np.ndarray:
 
 def solve_pairs_fused(beta, h2, cfg: WirelessConfig, e_max=None, *,
                       eps: float | None = None, max_iter: int = 64,
-                      n_bisect: int = 60, device=None) -> RAResult:
-    """Algorithm 1 over pairs of any shape, all of it in kernel K1, in
-    float64 (the type of the JAX package's CPU solvers, which it tracks
-    pair for pair).  beta and e_max broadcast against h2."""
+                      backend: str | None = None, n_bisect: int = 60,
+                      device=None) -> RAResult:
+    """Algorithm 1 over pairs of any shape, in float64 (the type of the
+    JAX package's CPU solvers, which it tracks pair for pair).  beta and
+    e_max broadcast against h2.
+
+    backend: None, "cuda" or "pallas" solve all of it in kernel K1 (its
+    plain version on the CPU); "bisect" (alias "jnp"), "newton" or "mixed"
+    run `solve_pairs_step` with that projection, bit for bit, as the JAX
+    package's staged driver runs `solve_pairs_jit`'s trajectory."""
+    check_ra_backend(backend)
+    if backend not in _KERNEL_BACKENDS:
+        return solve_pairs_step(beta, h2, cfg, e_max, eps=eps, max_iter=max_iter,
+                                backend=backend, n_bisect=n_bisect, device=device)
     device = resolve_device(device)
     eps = 0.01 if eps is None else float(eps)
     shape, beta_f, h2f, e_f = _flatten(beta, h2, cfg, e_max)
@@ -89,21 +127,32 @@ def solve_pairs_fused(beta, h2, cfg: WirelessConfig, e_max=None, *,
 
 def solve_pairs_step(beta, h2, cfg: WirelessConfig, e_max=None, *,
                      eps: float | None = None, max_iter: int = 64,
-                     backend: str = "cuda", n_bisect: int = 60,
+                     backend: str | None = None, n_bisect: int = 60,
                      device=None) -> RAResult:
     """Algorithm 1 over pairs of any shape, one iteration at a time, in
     float64.
 
-    backend: "cuda" projects through kernel K2 (its wrapper runs the plain
-    bisection for CPU tensors), "bisect" through the plain torch bisection
-    on any device.
+    backend: None, "cuda" or "pallas" project through kernel K2 (its
+    wrapper runs the plain bisection for CPU tensors); "bisect" (alias
+    "jnp") through the plain torch bisection, "newton" through
+    `project_newton` and "mixed" through `project_newton_mixed` on any
+    device.  "mixed" projects (1, 1) cold with 4 float32 steps and each
+    child with 2 float32 steps and 1 float64 step from its parent's zeta,
+    as the JAX package's `_init_state` / `_children_impl` do.  n_bisect is
+    the halving count of the bisection backends.
     """
-    if backend == "cuda":
-        project = polyblock_project
-    elif backend == "bisect":
-        project = project_bisect
-    else:
-        raise ValueError(f"unknown backend: {backend!r} (use 'cuda' or 'bisect')")
+    check_ra_backend(backend)
+
+    def project(v, b, h, e, hint=None):
+        """The backend's projection; `hint` is the parents' zeta ("mixed"
+        children), None for the cold projection of (1, 1)."""
+        if backend != "mixed":
+            return project_by(v, b, h, e, cfg, backend=backend or "cuda",
+                              n_bisect=n_bisect)
+        if hint is None:
+            return project_newton_mixed(v, b, h, e, cfg, n_f32=4)
+        return project_newton_mixed(v, b, h, e, cfg, n_f32=2, n_f64=1, x0_hint=hint)
+
     device = resolve_device(device)
     eps = 0.01 if eps is None else float(eps)
     shape, beta_f, h2f, e_f = _flatten(beta, h2, cfg, e_max)
@@ -118,7 +167,7 @@ def solve_pairs_step(beta, h2, cfg: WirelessConfig, e_max=None, *,
     rows = torch.arange(b, device=device)
 
     v0 = torch.ones(b, 2, dtype=torch.float64, device=device)
-    pj0 = project(v0, beta_t, h2_t, e_t, cfg, n_bisect=n_bisect)
+    pj0 = project(v0, beta_t, h2_t, e_t)
     f0 = -total_time(pj0[:, 0], pj0[:, 1], beta_t, h2_t, cfg)
     verts = torch.zeros(b, m, 2, dtype=torch.float64, device=device)
     vproj = torch.zeros(b, m, 2, dtype=torch.float64, device=device)
@@ -154,8 +203,11 @@ def solve_pairs_step(beta, h2, cfg: WirelessConfig, e_max=None, *,
         child1 = torch.stack([phi[:, 0], v[:, 1]], dim=-1)  # eq. (23)
         child2 = torch.stack([v[:, 0], phi[:, 1]], dim=-1)
         beta2, h22, e2 = (torch.cat([x[a], x[a]]) for x in (beta_t, h2_t, e_t))
-        pj = project(torch.cat([child1, child2]), beta2, h22, e2, cfg,
-                     n_bisect=n_bisect)
+        hint = None
+        if backend == "mixed":  # the parent's zeta bounds both children's roots below
+            zeta = phi[:, 0] / torch.clamp_min(v[:, 0], 1e-300)
+            hint = torch.cat([zeta, zeta])
+        pj = project(torch.cat([child1, child2]), beta2, h22, e2, hint)
         fj = -total_time(pj[:, 0], pj[:, 1], beta2, h22, cfg)
         na = a.numel()
         slot2 = nvalid[a]                                  # eq. (24)
@@ -166,3 +218,18 @@ def solve_pairs_step(beta, h2, cfg: WirelessConfig, e_max=None, *,
 
     return _result(shape, feas, beta_f, h2f, cfg, work, _host(best_proj[:, 0]),
                    _host(best_proj[:, 1]), _host(-best_f), _host(iters, np.int64))
+
+
+def precompute_gamma(beta, h2_all, cfg: WirelessConfig, e_max=None, *,
+                     solver: str = "fused", device=None, **kw) -> RAResult:
+    """Whole-horizon Γ: Algorithm 1 for every (round, sub-channel, device)
+    pair in one solve.  h2_all is (rounds, K, N), beta broadcasts as (N,);
+    the RAResult's fields are (rounds, K, N) — Γ is `time_s`, the
+    Proposition-1 mask `feasible`.  solver: "fused" (`solve_pairs_fused`)
+    or "step" (`solve_pairs_step`); the rest (eps, max_iter, backend,
+    n_bisect) goes to the solver."""
+    if solver not in ("fused", "step"):
+        raise ValueError(f"unknown solver: {solver!r} (use 'fused' or 'step')")
+    solve = solve_pairs_fused if solver == "fused" else solve_pairs_step
+    return solve(np.asarray(beta, np.float64)[None, None, :],
+                 np.asarray(h2_all, np.float64), cfg, e_max, device=device, **kw)

@@ -9,10 +9,12 @@ results are IDENTICAL to solo `run_simulation` / `run_hierarchical` calls
 (pinned by tests/test_torch_experiments.py), so an artifact is exactly
 "the paper run N times".
 
-The port of the JAX package's `experiments/runner.py`.  The port's engines
-run a group's cells one at a time and have no `shard` argument (batching
-and sharding are ROADMAP.md Queue 1), nor a choice of projection backend:
-Γ is solved by kernel K1 on the card and by its plain version on the CPU.
+The port of the JAX package's `experiments/runner.py`.  A group's cells
+run as one loop on a leading cell (or config) axis, each bitwise its solo
+run.  `ra_backend` picks the Γ solver's projection, as in the JAX package:
+None (default) solves on kernel K1 on the card and on its plain version on
+the CPU; "bisect" / "jnp", "newton" and "mixed" run the step loop with
+that projection.  The port has no `shard` argument: it runs on one card.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core.monotonic_torch import check_ra_backend
 from ..device import resolve_device
 from ..fl.hierarchical import HierSimConfig, run_hier_many
 from ..fl.sim import SimHistory, run_many
@@ -101,6 +104,7 @@ def _env(device: torch.device) -> dict:
 
 def run_sweep(spec: SweepSpec, *,
               engine: str = "scan",
+              ra_backend: str | None = None,
               device=None,
               results_root: str | Path = "results",
               write: bool = True,
@@ -112,6 +116,8 @@ def run_sweep(spec: SweepSpec, *,
       engine: `fl.run_many` round-loop engine: "scan" (default), "async"
         or "loop".  Hierarchical cells run on `fl.run_hier_many`'s "scan"
         (or "async" when engine="async"); engine="loop" refuses them.
+      ra_backend: Γ-solver projection backend (`fl.run_many`'s), passed to
+        both engines.
       device: "cuda[:i]" or "cpu"; None means the current CUDA device and
         raises when none is visible.
       results_root: artifact root; each call writes a NEW
@@ -121,6 +127,7 @@ def run_sweep(spec: SweepSpec, *,
 
     Returns a `SweepResult`; ``result.record`` is the JSON artifact.
     """
+    check_ra_backend(ra_backend)
     device = resolve_device(device)
     cells = spec.cells()
     # Flat and hierarchical cells dispatch through their own engines
@@ -139,13 +146,13 @@ def run_sweep(spec: SweepSpec, *,
     if flat_idx:
         for i, h in zip(flat_idx, run_many(
                 [cells[i].config for i in flat_idx], engine=engine,
-                device=device)):
+                ra_backend=ra_backend, device=device)):
             hists[i] = h
     if hier_idx:
         hier_engine = "async" if engine == "async" else "scan"
         for i, h in zip(hier_idx, run_hier_many(
                 [cells[i].config for i in hier_idx], engine=hier_engine,
-                device=device)):
+                ra_backend=ra_backend, device=device)):
             hists[i] = h
     wall_s = time.time() - t0
 

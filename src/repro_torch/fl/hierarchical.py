@@ -18,7 +18,10 @@ Like the single-cell harness (`fl.sim`), every engine shares two stages:
      same arrays;
   2. Γ for every (cell, round, sub-channel, device) pair concatenated into
      ONE solver call (`_solve_hier_horizons`): kernel K1, or the step
-     driver over kernel K2 with `ra_solver="step"`.
+     driver over kernel K2 with `ra_solver="step"`; `ra_backend` names
+     another projection, as in the JAX package ("bisect" / "jnp",
+     "newton" or "mixed": the step loop with that projection, launching
+     neither kernel).
 
 Then one of three round loops:
 
@@ -65,7 +68,7 @@ from torch.func import functional_call
 from ..core import (RAResult, RoundPolicy, RoundRandomness, WirelessConfig,
                     init_aou, make_clusters, plan_round)
 from ..core.monotonic import fixed_ra
-from ..core.monotonic_torch import solve_pairs_fused, solve_pairs_step
+from ..core.monotonic_torch import check_ra_backend, solve_pairs_fused, solve_pairs_step
 from ..data.fl_datasets import Dataset, make_dataset, partition_imbalanced_iid
 from ..device import resolve_device
 from ..models.small import get_small_model
@@ -235,7 +238,7 @@ def _prepare_hier(cfg: HierSimConfig, device: torch.device) -> _HierPrepared:
 
 
 def _solve_hier_horizons(preps: Sequence[_HierPrepared], solver: str,
-                         device: torch.device
+                         device: torch.device, backend: str | None = None
                          ) -> tuple[list[list[RAResult]], list[float]]:
     """Algorithm 1 for every (cell, round) of every prepared simulation.
 
@@ -244,7 +247,8 @@ def _solve_hier_horizons(preps: Sequence[_HierPrepared], solver: str,
     elementwise over pairs, so cells concatenate freely and the per-cell
     slices equal solo solves bit for bit — at C == 1, the flat
     `_solve_horizons` result.  Worlds shared across policy-only /
-    aggregation-only variants are solved once and aliased.
+    aggregation-only variants are solved once and aliased.  `backend` is
+    the solver's projection backend.
     """
     solve = solve_pairs_fused if solver == "fused" else solve_pairs_step
     out: list[list[RAResult] | None] = [None] * len(preps)
@@ -265,7 +269,7 @@ def _solve_hier_horizons(preps: Sequence[_HierPrepared], solver: str,
             emax_cat = np.broadcast_to(p.emax_all[:, :, None, :],
                                        p.h2_all.shape).reshape(-1)
             flat = solve(beta_cat, p.h2_all.reshape(-1), p.wcfg, emax_cat,
-                         device=device)
+                         backend=backend, device=device)
             out[i] = [RAResult(**{f.name: getattr(flat, f.name)[c * sz:(c + 1) * sz]
                                   .reshape(shp) for f in dataclasses.fields(RAResult)})
                       for c in range(p.cfg.n_cells)]
@@ -521,7 +525,8 @@ def _is_async(cfg: HierSimConfig) -> bool:
 
 
 def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
-                  ra_solver: str = "fused", device=None) -> list[SimHistory]:
+                  ra_backend: str | None = None, ra_solver: str = "fused",
+                  device=None) -> list[SimHistory]:
     """Run several hierarchical simulations, sharing prepared worlds and
     their Γ solves.
 
@@ -537,6 +542,9 @@ def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
         event loop).  Configs whose `aggregation` OR `global_aggregation`
         name an async policy route through the async engine regardless;
         the host "loop" engine is single-sim only (`run_hierarchical`).
+      ra_backend: projection backend of the Γ solver, as in
+        `fl.sim.run_many`: None (the kernels), "cuda" / "pallas",
+        "bisect" / "jnp", "newton" or "mixed".
       ra_solver: "fused" (kernel K1 solves every pair whole) or "step" (the
         per-iteration driver over kernel K2).
       device: "cuda[:i]" or "cpu"; None means the current CUDA device and
@@ -548,6 +556,7 @@ def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
                          f"host 'loop' engine is run_hierarchical-only)")
     if ra_solver not in ("fused", "step"):
         raise ValueError(f"unknown ra_solver: {ra_solver}")
+    check_ra_backend(ra_backend)
     modes = ["async" if engine == "async" or _is_async(c) else engine for c in cfgs]
     device = resolve_device(device)
 
@@ -561,7 +570,7 @@ def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
         preps.append(shared if shared.cfg == c
                      else dataclasses.replace(shared, cfg=c))
 
-    ras_list, plan_walls = _solve_hier_horizons(preps, ra_solver, device)
+    ras_list, plan_walls = _solve_hier_horizons(preps, ra_solver, device, ra_backend)
     transformed: dict[int, list[RAResult]] = {}
     for i, (p, ras) in enumerate(zip(preps, ras_list)):
         if id(ras) not in transformed:
@@ -586,13 +595,14 @@ def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
 # engine="loop" + the single-sim dict entry point
 # ---------------------------------------------------------------------------
 
-def _run_hier_loop(cfg: HierSimConfig, device: torch.device) -> dict:
+def _run_hier_loop(cfg: HierSimConfig, device: torch.device,
+                   ra_backend: str | None) -> dict:
     """Host round loop: per-cell `plan_round`, training from the global
     model, eq.-34 per cell, then one eq.-34 over the cells that
     transmitted."""
     t_start = time.perf_counter()
     prep = _prepare_hier(cfg, device)
-    ras_list, _ = _solve_hier_horizons([prep], "fused", device)
+    ras_list, _ = _solve_hier_horizons([prep], "fused", device, ra_backend)
     ras = _apply_hier_dynamics(prep, ras_list[0])
     t1 = TABLE1[cfg.dataset]
     batch = cfg.batch or t1["batch"]
@@ -668,7 +678,7 @@ def _run_hier_loop(cfg: HierSimConfig, device: torch.device) -> dict:
 
 
 def run_hierarchical(cfg: HierSimConfig, *, engine: str = "loop",
-                     device=None) -> dict:
+                     ra_backend: str | None = None, device=None) -> dict:
     """Two-tier FedAvg: per-cell Stackelberg rounds + inter-cell
     aggregation (sync barrier or buffered async at either tier).
 
@@ -678,6 +688,8 @@ def run_hierarchical(cfg: HierSimConfig, *, engine: str = "loop",
         with the cell list in its body), or "async" (the two-tier buffered
         event loop).  Configs whose cell- or global-tier aggregation is
         async route through the event engine regardless.
+      ra_backend: projection backend of the Γ solver (the fused one), as
+        in `fl.sim.run_many`.
       device: "cuda[:i]" or "cpu"; None means the current CUDA device and
         raises when none is visible.
 
@@ -690,11 +702,12 @@ def run_hierarchical(cfg: HierSimConfig, *, engine: str = "loop",
     """
     if engine not in ("loop", "scan", "async"):
         raise ValueError(f"unknown engine: {engine}")
+    check_ra_backend(ra_backend)
     async_mode = engine == "async" or _is_async(cfg)
     if engine == "loop" and not async_mode:
-        return _run_hier_loop(cfg, resolve_device(device))
+        return _run_hier_loop(cfg, resolve_device(device), ra_backend)
     hist = run_hier_many([cfg], engine="async" if async_mode else "scan",
-                         device=device)[0]
+                         ra_backend=ra_backend, device=device)[0]
     shape = (cfg.rounds, cfg.n_cells, cfg.devices_per_cell)
     out = {"loss": hist.global_loss, "accuracy": hist.accuracy,
            "eval_rounds": hist.rounds, "cum_time_s": hist.cum_time_s,

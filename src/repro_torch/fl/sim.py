@@ -14,7 +14,10 @@ Every engine shares the same first two stages:
   2. whole-horizon Γ (`_solve_horizons`): Algorithm 1 for every (round,
      sub-channel, device) pair in one batch, on kernel K1
      (`core.monotonic_torch.solve_pairs_fused`) or, with
-     `ra_solver="step"`, on the step driver over kernel K2.
+     `ra_solver="step"`, on the step driver over kernel K2; `ra_backend`
+     names another projection, as in the JAX package: "bisect" (alias
+     "jnp"), "newton" or "mixed" route round both kernels (the step loop
+     with that projection, on either solver).
 
 Then one of three round loops:
 
@@ -59,7 +62,7 @@ from torch.func import functional_call, grad
 from ..core import (RAResult, RoundPolicy, RoundRandomness, WirelessConfig,
                     init_aou, make_clusters, participation_deficit, plan_round)
 from ..core.monotonic import fixed_ra
-from ..core.monotonic_torch import solve_pairs_fused, solve_pairs_step
+from ..core.monotonic_torch import check_ra_backend, solve_pairs_fused, solve_pairs_step
 from ..data.fl_datasets import (Dataset, FLPartition, make_dataset,
                                 partition_dirichlet, partition_imbalanced_iid)
 from ..device import resolve_device
@@ -257,15 +260,16 @@ def _prepare(cfg: SimConfig, device: torch.device,
                      emax_all=emax_all)
 
 
-def _solve_horizons(preps: Sequence[_Prepared], solver: str,
-                    device: torch.device) -> tuple[list[RAResult], list[float]]:
+def _solve_horizons(preps: Sequence[_Prepared], solver: str, device: torch.device,
+                    backend: str | None = None) -> tuple[list[RAResult], list[float]]:
     """Algorithm 1 for every round of every prepared simulation, batched.
 
     All MO-RA horizons that share their wireless constants are flattened
     into ONE solver call (the solver is elementwise over pairs, with e_max a
     per-element operand); FIX-RA horizons are a closed form.  Sims sharing
     a `_Prepared` world and RA scheme alias one solve.  Returns the per-sim
-    RAResults and each sim's share of planning wall time.
+    RAResults and each sim's share of planning wall time.  `backend` is the
+    solver's projection backend (`core.monotonic_torch.RA_BACKENDS`).
     """
     out: list[RAResult | None] = [None] * len(preps)
     secs = [0.0] * len(preps)
@@ -302,7 +306,7 @@ def _solve_horizons(preps: Sequence[_Prepared], solver: str,
             for i in mo])
         t0 = time.perf_counter()
         ra_flat = solve(beta_cat, h2_cat, preps[mo[0]].wcfg, emax_cat,
-                        device=device)
+                        backend=backend, device=device)
         group_s = time.perf_counter() - t0
         off = 0
         for i in mo:
@@ -717,8 +721,9 @@ def _history_from_async(cfg: SimConfig, beta: np.ndarray, ys: dict,
 # entry points
 # ---------------------------------------------------------------------------
 
-def run_many(cfgs: Sequence[SimConfig], *, ra_solver: str = "fused",
-             engine: str = "loop", device=None) -> list[SimHistory]:
+def run_many(cfgs: Sequence[SimConfig], *, ra_backend: str | None = None,
+             ra_solver: str = "fused", engine: str = "loop",
+             device=None) -> list[SimHistory]:
     """Run several simulations, sharing ONE batched whole-horizon Γ solve.
 
     Configs identical up to the policy (and aggregation) share one
@@ -731,6 +736,11 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_solver: str = "fused",
 
     Args:
       cfgs: the simulations to run; results are returned in the same order.
+      ra_backend: projection backend of the Γ solver, the JAX package's
+        names: None (default — the kernels), "cuda" / "pallas" (the same),
+        "bisect" / "jnp", "newton" or "mixed" (the step loop with that
+        projection, launching neither K1 nor K2); see
+        `core.monotonic_torch`.
       ra_solver: "fused" (default — kernel K1 solves every pair whole) or
         "step" (the per-iteration driver over kernel K2).
       engine: "loop" (host round loop), "scan" (device-resident round loop)
@@ -746,6 +756,7 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_solver: str = "fused",
         raise ValueError(f"unknown engine: {engine}")
     if ra_solver not in ("fused", "step"):
         raise ValueError(f"unknown ra_solver: {ra_solver}")
+    check_ra_backend(ra_backend)
     # Per-cell mode: an async aggregation spec overrides the requested sync
     # engine (and validates eagerly, before any sampling).
     modes = ["async" if engine == "async" or get_aggregation(c.aggregation)
@@ -763,7 +774,7 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_solver: str = "fused",
         preps.append(shared if shared.cfg == c
                      else dataclasses.replace(shared, cfg=c))
 
-    ras, plan_walls = _solve_horizons(preps, ra_solver, device)
+    ras, plan_walls = _solve_horizons(preps, ra_solver, device, ra_backend)
     # Churn availability and straggler slowdowns fold into the solved
     # horizon once (Γ-deduped sims alias one RAResult, transformed once).
     transformed: dict[int, RAResult] = {}
@@ -788,8 +799,9 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_solver: str = "fused",
     return out
 
 
-def run_simulation(cfg: SimConfig, *, ra_solver: str = "fused",
-                   engine: str = "loop", device=None) -> SimHistory:
+def run_simulation(cfg: SimConfig, *, ra_backend: str | None = None,
+                   ra_solver: str = "fused", engine: str = "loop",
+                   device=None) -> SimHistory:
     """Run ONE simulation: ``run_many([cfg], ...)[0]``."""
-    return run_many([cfg], ra_solver=ra_solver, engine=engine,
-                    device=device)[0]
+    return run_many([cfg], ra_backend=ra_backend, ra_solver=ra_solver,
+                    engine=engine, device=device)[0]

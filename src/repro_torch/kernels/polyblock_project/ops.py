@@ -1,12 +1,16 @@
 """K2: the polyblock projection (eqs. 27-29) — plain torch and CUDA.
 
 Projection phi(v) = zeta * v of each vertex v = (tau, p) onto the upper
-boundary of G = {z : g(z) <= 0}: `n_bisect` halvings of (TINY, 1] on
-g(zeta tau, zeta p) = 0, keeping the feasible lo side; zeta = 1 where v is
-already feasible.
+boundary of G = {z : g(z) <= 0}: the root of g(zeta tau, zeta p) = 0 on
+(TINY, 1], on the feasible side; zeta = 1 where v is already feasible.
 
   project_bisect    -- the plain torch version, the mirror of the JAX
-                       package's `project_jnp` (same arithmetic, same order);
+                       package's `project_jnp` (same arithmetic, same order):
+                       `n_bisect` halvings of (TINY, 1], keeping lo;
+  project_newton    -- the mirror of the JAX package's `project_newton`:
+                       safeguarded log-space Newton, 14 steps, float64;
+  project_newton_mixed -- the mirror of its `project_newton_mixed`: a
+                       float32 Newton bulk, then float64 Halley polish;
   project_speculative -- a plain emulation of the cooperative projection
                        (`coop_project` in csrc/polyblock.cu, shared by K1
                        and K2), for tests;
@@ -17,17 +21,25 @@ already feasible.
                        per vertex (speculative bisection, chosen from the
                        vertex count by `project_lanes`), or `project_kernel`,
                        one thread per vertex (lanes=1, the reference
-                       schedule).
+                       schedule);
+  project           -- the dispatcher by backend name, the counterpart of
+                       the JAX package's `polyblock_project(backend=)`.
+
+The Newton projections are plain torch functions, not kernels: on a CUDA
+tensor they run as torch ops on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ...core.wireless import WirelessConfig, total_energy
+from ...core.wireless import WirelessConfig, _TorchOps, total_energy
 from .._build import check_launch, load_polyblock
-from .ref import TINY
+from .ref import TINY, project_ref
 
-__all__ = ["project_bisect", "project_speculative", "polyblock_project", "project_lanes",
+__all__ = ["project_bisect", "project_newton", "project_newton_mixed",
+           "project_speculative", "polyblock_project", "project", "project_lanes",
            "LANES"]
 
 _DTYPES = (torch.float64, torch.float32)
@@ -70,6 +82,120 @@ def project_bisect(v, beta, h2, e_max, cfg: WirelessConfig, *,
         take_hi = g_con(mid * tau_v, mid * p_v) > 0.0
         lo, hi = torch.where(take_hi, lo, mid), torch.where(take_hi, mid, hi)
     zeta = torch.where(need_root, lo, 1.0)
+    return zeta[..., None] * v
+
+
+def _newton_coefs(tau_v, p_v, beta, h2, cfg: WirelessConfig):
+    """a, b, c of g(x) = a x^2 + b x / log1p(c x) - e_max on the ray x v
+    (`project_newton`), in the JAX package's order of operations."""
+    a = cfg.kappa0 * cfg.mu_cycles * beta * (tau_v * cfg.cpu_hz) ** 2
+    b = p_v * cfg.pt_w * cfg.model_bits * math.log(2.0) / cfg.bandwidth_hz
+    return a, b, p_v * h2
+
+
+def _g_gp(x, a, b, c, e_max, floor: float):
+    """g and g' at x, sharing one log1p (`floor` keeps log1p off 0)."""
+    u = c * x
+    el = torch.log1p(u)
+    elc = torch.clamp_min(el, floor)
+    g = a * x * x + b * x / elc - e_max
+    gp = 2.0 * a * x + b * (el - u / (1.0 + u)) / (elc * elc)
+    return g, gp
+
+
+def project_newton(v, beta, h2, e_max, cfg: WirelessConfig, *, n_steps: int = 14):
+    """Safeguarded log-space Newton root of g(zeta v) = 0 on (0, 1]: the
+    mirror of the JAX package's `project_newton` (same arithmetic, same
+    order).  Each step takes cand = x exp(-g / (x g')) where it falls
+    strictly inside the bisection bracket, else the bracket's geometric
+    mean; the start is the root of the low-SNR limit,
+    sqrt((e_max - b/c) / a).  float64 in, float64 out; v[..., 2] = (tau, p),
+    beta / h2 / e_max broadcast against v[..., 0].  Returns zeta * v."""
+    tau_v, p_v = v[..., 0], v[..., 1]
+    a, b, c = _newton_coefs(tau_v, p_v, beta, h2, cfg)
+    need_root = _g_gp(torch.ones_like(tau_v), a, b, c, e_max, 1e-300)[0] > 0.0
+    x = torch.sqrt(torch.clamp_min(e_max - b / torch.clamp_min(c, 1e-300), 1e-300)
+                   / torch.clamp_min(a, 1e-300))
+    x = torch.clamp(x, TINY, 1.0 - 1e-9)
+    lo = torch.full_like(tau_v, TINY)
+    hi = torch.ones_like(tau_v)
+    for _ in range(n_steps):
+        g, gp = _g_gp(x, a, b, c, e_max, 1e-300)
+        pos = g > 0.0
+        lo = torch.where(pos, lo, x)
+        hi = torch.where(pos, x, hi)
+        cand = x * torch.exp(-g / (x * gp))
+        ok = (cand > lo) & (cand < hi)
+        x = torch.where(ok, cand, torch.sqrt(lo * hi))
+    zeta = torch.where(need_root, torch.clamp(x, TINY, 1.0), 1.0)
+    return zeta[..., None] * v
+
+
+def project_newton_mixed(v, beta, h2, e_max, cfg: WirelessConfig, *,
+                         n_f32: int = 6, n_f64: int = 2, x0_hint=None):
+    """Mixed-precision Newton: the mirror of the JAX package's
+    `project_newton_mixed` (same arithmetic, same order).
+
+    `n_f32` safeguarded log-space Newton steps in float32 (boundary-equal
+    candidates accepted, `>=`) from the regime-split warm start — the
+    positive root of a x^2 + (b/2) x = q where c x stays below 1/2, else
+    sqrt(q / a), q = e_max - b/c — raised to `x0_hint` where the hint is
+    finite (the parent vertex's zeta, a lower bound on a child's root);
+    then `n_f64` float64 Halley steps from that root in a fresh bracket,
+    keeping x where the candidate leaves it.  Whether a vertex needs a
+    root (g(v) > 0) is decided in float64: a vertex with g(v) within
+    float32 noise of 0 must classify as the float64 backends do.
+    float64 in, float64 out.  Returns zeta * v."""
+    tau_v, p_v = v[..., 0], v[..., 1]
+    a, b, c = _newton_coefs(tau_v, p_v, beta, h2, cfg)
+
+    # float32 bulk: every operand cast down.
+    f32 = torch.float32
+    a32, b32, c32 = a.to(f32), b.to(f32), c.to(f32)
+    e32 = torch.as_tensor(e_max, device=tau_v.device).to(f32)
+    q = torch.clamp_min(e32 - b32 / torch.clamp_min(c32, 1e-38), 1e-38)
+    bh = 0.5 * b32
+    a_s = torch.clamp_min(a32, 1e-38)
+    x_quad = 2.0 * q / (bh + torch.sqrt(bh * bh + 4.0 * a_s * q))
+    x_sqrt = torch.sqrt(q / a_s)
+    x0 = torch.where(c32 * x_quad < 0.5, x_quad, x_sqrt)
+    if x0_hint is not None:
+        h32 = x0_hint.to(f32)
+        x0 = torch.where(torch.isfinite(h32), torch.maximum(x0, h32), x0)
+    x = torch.clamp(x0, TINY, 1.0 - 1e-7)
+    lo = torch.full_like(x, TINY)
+    hi = torch.ones_like(x)
+    for _ in range(n_f32):
+        g, gp = _g_gp(x, a32, b32, c32, e32, 1e-38)
+        pos = g > 0.0
+        lo = torch.where(pos, lo, x)
+        hi = torch.where(pos, x, hi)
+        cand = x * torch.exp(-g / (x * gp))
+        ok = (cand >= lo) & (cand <= hi)
+        x = torch.where(ok, cand, torch.sqrt(lo * hi))
+
+    # float64 Halley polish: g'' is algebraic once log1p(u) is in hand.
+    need_root = _g_gp(torch.ones_like(tau_v), a, b, c, e_max, 1e-300)[0] > 0.0
+    x = torch.clamp(x.to(tau_v.dtype), TINY, 1.0 - 1e-12)
+    lo = torch.full_like(tau_v, TINY)
+    hi = torch.ones_like(tau_v)
+    for _ in range(n_f64):
+        u = c * x
+        el = torch.log1p(u)
+        elc = torch.clamp_min(el, 1e-300)
+        t1 = _TorchOps.divide(1.0, 1.0 + u)
+        w = u * t1
+        g = a * x * x + b * x / elc - e_max
+        gp = 2.0 * a * x + b * (el - w) / (elc * elc)
+        g2 = 2.0 * a + b * c * t1 * ((1.0 - t1) / (elc * elc)
+                                     - 2.0 * (el - w) / (elc * elc * elc))
+        pos = g > 0.0
+        lo = torch.where(pos, lo, x)
+        hi = torch.where(pos, x, hi)
+        cand = x - 2.0 * g * gp / (2.0 * gp * gp - g * g2)
+        ok = (cand >= lo) & (cand <= hi)
+        x = torch.where(ok, cand, x)
+    zeta = torch.where(need_root, torch.clamp(x, TINY, 1.0), 1.0)
     return zeta[..., None] * v
 
 
@@ -166,3 +292,26 @@ def polyblock_project(v, beta, h2, e_max, cfg: WirelessConfig, *,
 
 
 polyblock_project.launches = 0
+
+
+
+def project(v, beta, h2, e_max, cfg: WirelessConfig, *, backend: str = "cuda",
+            n_bisect: int = 60):
+    """Project a batch of vertices by the named backend: "ref" (the NumPy
+    bisection, numpy in and out), "bisect" (alias "jnp", `project_bisect`),
+    "newton" (`project_newton`), "mixed" (`project_newton_mixed`) or
+    "cuda" (alias "pallas": kernel K2 through `polyblock_project`, whose
+    plain version runs on CPU tensors).  n_bisect is the halving count of
+    the bisection backends; the Newton ones have their own step counts."""
+    if backend == "ref":
+        return project_ref(v, beta, h2, e_max, cfg, n_bisect=n_bisect)
+    if backend in ("bisect", "jnp"):
+        return project_bisect(v, beta, h2, e_max, cfg, n_bisect=n_bisect)
+    if backend == "newton":
+        return project_newton(v, beta, h2, e_max, cfg)
+    if backend == "mixed":
+        return project_newton_mixed(v, beta, h2, e_max, cfg)
+    if backend in ("cuda", "pallas"):
+        return polyblock_project(v, beta, h2, e_max, cfg, n_bisect=n_bisect)
+    raise ValueError(f"unknown backend: {backend!r} (use 'ref', 'bisect', 'jnp', "
+                     f"'newton', 'mixed', 'cuda' or 'pallas')")

@@ -14,7 +14,8 @@ long-running service instead (DESIGN.md §14):
     (the solver is elementwise over pairs, so per-segment solves are
     bit-identical to slicing one whole-horizon solve): one kernel-K1
     launch per segment with a feasible pair (`ra_solver="step"`: the step
-    driver over kernel K2), and the async loop's carry is chained across
+    driver over kernel K2; `ra_backend` another projection, as in
+    `fl.sim.run_many`), and the async loop's carry is chained across
     segments via `build_async_runner(..., segmented=True)` +
     `init_async_carry`, one runner built once for every segment;
   * a load generator replays the event stream at a target rate
@@ -39,7 +40,7 @@ import torch
 
 from ..core import RAResult, make_clusters
 from ..core.monotonic import fixed_ra
-from ..core.monotonic_torch import solve_pairs_fused, solve_pairs_step
+from ..core.monotonic_torch import check_ra_backend, solve_pairs_fused, solve_pairs_step
 from ..device import resolve_device
 from ..fl import sim as fl_sim
 from ..fl.async_loop import build_async_runner, init_async_carry
@@ -100,21 +101,25 @@ class SustainedService:
 
     Args:
       cfg: the deployment.
+      ra_backend: projection backend of the Γ solver, as in
+        `fl.sim.run_many`: None (the kernels), "cuda" / "pallas",
+        "bisect" / "jnp", "newton" or "mixed".
       ra_solver: "fused" (kernel K1 solves each segment's pairs whole) or
         "step" (the per-iteration driver over kernel K2).
       device: "cuda[:i]" or "cpu"; None means the current CUDA device and
         raises when none is visible.
     """
 
-    def __init__(self, cfg: ServiceConfig, *, ra_solver: str = "fused",
-                 device=None):
+    def __init__(self, cfg: ServiceConfig, *, ra_backend: str | None = None,
+                 ra_solver: str = "fused", device=None):
         if ra_solver not in ("fused", "step"):
             raise ValueError(f"unknown ra_solver: {ra_solver}")
+        check_ra_backend(ra_backend)
         self.cfg = cfg
         sim = cfg.sim
         self.spec = _async_spec(sim)
         self.wcfg = sim.wireless()
-        self._ra_solver = ra_solver
+        self._ra_backend, self._ra_solver = ra_backend, ra_solver
         self.device = device = resolve_device(device)
         L = cfg.segment_events
 
@@ -197,7 +202,7 @@ class SustainedService:
         solve = (solve_pairs_fused if self._ra_solver == "fused"
                  else solve_pairs_step)
         flat = solve(beta_b.reshape(-1), tr.h2_all.reshape(-1), self.wcfg,
-                     emax_b.reshape(-1), device=self.device)
+                     emax_b.reshape(-1), backend=self._ra_backend, device=self.device)
         return RAResult(**{f.name: np.asarray(getattr(flat, f.name)).reshape(shp)
                            for f in dataclasses.fields(RAResult)})
 

@@ -259,6 +259,27 @@ def test_simulation_traces_match_the_cpu(dev, engine, aggregation):
     np.testing.assert_allclose(got.global_loss, want.global_loss, rtol=1e-4)
 
 
+@pytest.mark.parametrize("ra_backend,ra_solver,k1,k2", [
+    ("newton", "fused", 0, 0), ("newton", "step", 0, 0), ("mixed", "fused", 0, 0),
+    (None, "fused", 1, 0)])
+def test_ra_backend_routes_round_or_through_the_solver_kernels(dev, ra_backend, ra_solver,
+                                                               k1, k2):
+    """A plain projection backend launches neither K1 nor K2 (the step loop
+    runs its torch ops on the card); None launches K1 once per run.  Traces
+    equal to the same run on the CPU."""
+    cfg = SimConfig(**SMALL, scenario="churn")
+    before = (polyblock_solve_fused.launches, polyblock_project.launches)
+    got = run_simulation(cfg, engine="scan", ra_backend=ra_backend, ra_solver=ra_solver,
+                         device=dev)
+    assert (polyblock_solve_fused.launches - before[0],
+            polyblock_project.launches - before[1]) == (k1, k2)
+    want = run_simulation(cfg, engine="scan", ra_backend=ra_backend, ra_solver=ra_solver,
+                          device="cpu")
+    np.testing.assert_array_equal(got.tx_trace, want.tx_trace)
+    np.testing.assert_array_equal(got.age_trace, want.age_trace)
+    np.testing.assert_allclose(got.latency_all, want.latency_all, rtol=1e-6)
+
+
 def test_full_buffer_is_bitwise_scan_on_the_card(dev):
     """K3 is deterministic (no atomics, slot order fixed), so the async
     engine's full-buffer limit reproduces the scan engine bit for bit on

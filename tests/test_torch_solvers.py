@@ -81,7 +81,7 @@ def test_drivers_with_no_feasible_pair():
 def test_drivers_reject_unknown_backend_and_device():
     beta, h2, e_max = _horizon(rounds=1, n=4)
     with pytest.raises(ValueError):
-        solve_pairs_step(beta, h2, WirelessConfig(), e_max, backend="newton",
+        solve_pairs_step(beta, h2, WirelessConfig(), e_max, backend="secant",
                          device="cpu")
     with pytest.raises(ValueError):
         solve_pairs_fused(beta, h2, WirelessConfig(), e_max, device="meta")
