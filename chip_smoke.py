@@ -9,8 +9,8 @@ against its plain PyTorch version on the card, drives the paper simulation
 against the same runs on the CPU, and again with the Γ solver's plain
 projection backends (`ra_backend`), which route round K1 and K2, runs a `run_many` group of 16 cells and a
 `run_hier_many` group of 8 hierarchy configs as one batch on each device
-engine (every cell and config bitwise its solo run), runs the sweep harness
-(`run_sweep`) and
+engine (every cell and config bitwise its solo run) and again sharded over
+emulated devices, runs the sweep harness (`run_sweep`) and
 the sustained service (`SustainedService`) on them, serves all ten models of the
 model zoo (`serve_loop`) at full width through K4 and K5 (qwen2-7b, rwkv6-7b, the MoE
 granite-moe-3b-a800m, stablelm-3b at head dim 80 and yi-6b at full depth,
@@ -18,7 +18,9 @@ qwen1.5-110b at 16 of its 80 layers, the MLA deepseek-v3-671b at 5 of 61,
 the Mamba hybrid jamba-v0.1-52b at 8 of 32, and at full depth the audio
 encoder-decoder whisper-base and the VLM qwen2-vl-2b), and trains qwen2-7b,
 rwkv6-7b, deepseek-v3-671b, jamba-v0.1-52b, whisper-base and qwen2-vl-2b
-(`train_loop`, the donated step) at full width with the depth cut.
+(`train_loop`, the donated step) at full width with the depth cut, and
+trains granite-moe-3b-a800m on a (1, 1) mesh through the sharded model
+(expert-parallel MoE, sharded attention) as a world of one.
 Phases, in order:
 
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
@@ -246,6 +248,24 @@ Phases, in order:
      max_memory_allocated, the counted FLOPs against `model_flops`, and
      qwen2-7b's warm prefill time as a share of `analytic_cost`'s bound;
      the phase's wall time;
+ 18. across devices (run before the kernel list, which stays last): the
+     Γ solve row-sharded (`shard=True`) over 1, 2 and 3 emulated shards of
+     cuda:0 (`launch.mesh.emulate_devices`) at 77 x (3, 4) rows, the main
+     path's 883 pairs and a service segment's 44 823, on K1 and on
+     "mixed": every field bitwise the unsharded solve, K1 launched once
+     per shard; phase 9's 16-cell `run_many` groups and 8-config
+     `run_hier_many` groups (scan and async) with shard=True over 2
+     emulated shards, every member bitwise phase 9's unsharded group run
+     (reused), K1 once per shard per Γ solve and K3 as each block's traces
+     imply; the meshed model as a world of one (NCCL, a (1, 1) mesh):
+     granite-moe-3b-a800m at full width and 16 layers, one
+     `multidevice_demo.run_rank` step through the expert-parallel MoE and
+     `sharded_causal_attention` against the unsharded donated step from
+     the same weights (loss within 1e-5, parameters within 2.5 lr), the
+     meshed gradient (`train_step.make_grad_fn`) against the unsharded
+     one leaf by leaf (1e-3 of each leaf's norm, the gradient norm 1e-5),
+     no kernel launched on it, the dry run's peak beside
+     max_memory_allocated, then four demo steps; each part's wall time;
  17. the kernel list as one JSON line (K4's launches per served arch,
      `serve_launches`, its D 80 check, `d80`, and its checks at
      whisper-base's and qwen2-vl-2b's shapes, `whisper_d64` and
@@ -256,7 +276,8 @@ Phases, in order:
      `ra_backend_launches`; every kernel's
      launches on the training path, `train_launches`; K1's bound at the
      hierarchy's and a service segment's pairs, `at`; K3's cell axis at 1,
-     16 and 32 cells, `cells`).
+     16 and 32 cells, `cells`; K1's launches per emulated shard count in
+     phase 18, `shard_launches`).
 
 Any failure raises; the last line is the device JSON only when every phase
 passed.  Exits non-zero without a CUDA device or without the repository's
@@ -281,6 +302,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device")
@@ -310,6 +332,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import emulate_devices, split_padded  # noqa: E402
+from repro_torch.launch.multidevice_demo import (demo_ctx, fl_batches, init_world,  # noqa: E402
+                                                 leaf_gaps, run_rank)
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.analytic import (GPU_HW, H100, _f_eval_ops,  # noqa: E402
                                          analytic_cost, bisect_step_ops, model_flops,
@@ -321,15 +346,18 @@ from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.train.optimizer import adamw, sgd  # noqa: E402
-from repro_torch.train.train_step import make_train_step  # noqa: E402
+from repro_torch.train.train_step import make_grad_fn, make_train_step  # noqa: E402
 from repro_torch.train.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf_mod  # noqa: E402
 from repro_torch.models.layers import mrope_grid  # noqa: E402
-from repro_torch.models.transformer import forward, init_params, param_count  # noqa: E402
+from repro_torch.models.transformer import (forward, init_params, param_count,  # noqa: E402
+                                            param_specs)
 from repro_torch.models.small import get_small_model  # noqa: E402
 from repro_torch.scenarios import ScenarioStream  # noqa: E402
+from repro_torch.sharding.params import shard_tree  # noqa: E402
+from repro_torch.sharding.partition import leaves_with_path  # noqa: E402
 from repro_torch.service import ServiceConfig, SustainedService  # noqa: E402
 from repro_torch.kernels.polyblock_fused.ops import (  # noqa: E402
     LANES, coop_lanes, polyblock_solve_fused, polyblock_solve_plain)
@@ -1498,7 +1526,8 @@ def batch_phase(aggregation: str) -> dict:
         if not (np.all(np.isfinite(h.global_loss)) and h.global_loss[-1] < h.global_loss[0]):
             raise AssertionError(f"batch {name}: a cell's loss is not finite or did not fall")
     return dict(launches=launches, wall_s=wall, solo_wall_s=sum(solo_walls), reads=syncs,
-                bound=sum(bound), serial_reads=sum(map(sum, solo_reads)), cfgs=cfgs)
+                bound=sum(bound), serial_reads=sum(map(sum, solo_reads)), cfgs=cfgs,
+                hists=hists)
 
 
 # Phase 8's hierarchy (2 cells x 10 devices x 4 sub-channels, 400 samples,
@@ -1613,7 +1642,7 @@ def hier_batch_phase(aggregation: str) -> dict:
             raise AssertionError(f"hier batch {engine}: a config's loss is not finite or did "
                                  f"not fall")
     return dict(launches=launches, wall_s=wall, solo_wall_s=sum(solo_walls), reads=syncs,
-                bound=sum(bound), serial_reads=serial)
+                bound=sum(bound), serial_reads=serial, cfgs=cfgs, hists=hists)
 
 
 # ---------------------------------------------------------------------------
@@ -2105,8 +2134,8 @@ class RoutingRecorder:
     def __enter__(self) -> list:
         self.calls, self.real_dispatch, self.real_route = [], moe_mod._dispatch, moe_mod._route
 
-        def recording(top_e, n_local, capacity):
-            order, keep, slot = self.real_dispatch(top_e, n_local, capacity)
+        def recording(top_e, n_local, capacity, e_offset=None):
+            order, keep, slot = self.real_dispatch(top_e, n_local, capacity, e_offset)
             kept = torch.empty_like(keep)
             kept[order] = keep
             code = torch.zeros(top_e.shape[0], n_local, dtype=torch.int8, device=top_e.device)
@@ -3155,6 +3184,270 @@ def dryrun_phase(served: dict, train: dict) -> None:
     line(f"dry-run phase wall_s={wall:.1f} (budget 30 s: {wall < 30}) on {CARD}")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: across devices
+# ---------------------------------------------------------------------------
+
+# Shard counts of the emulated devices (`launch.mesh.emulate_devices`: n
+# copies of cuda:0) for the Γ solve and for the groups.
+GAMMA_SHARDS = (1, 2, 3)
+GROUP_SHARDS = 2
+# The meshed model: granite-moe-3b-a800m at full width, 16 of its 32
+# layers (the dry run's donated AdamW step at this shape: 23.8 GiB, so the
+# meshed and the unsharded copies fit side by side), batch 8 x seq 256.
+MESH = dict(arch="granite-moe-3b-a800m", layers=16, batch=8, seq=256, lr=1e-3, steps=4,
+            demo_lr=1e-4)
+# One meshed step against the unsharded donated step: the whole batch's
+# loss within 1e-5 relative, every parameter within 2.5 lr (AdamW's first
+# step moves a parameter by about +-lr; a gradient whose sign differs
+# between the two moves it 2 lr).  That bound holds for any gradient, so
+# the backward pass is held by the gradients themselves: the meshed
+# `make_grad_fn` against the unsharded one from the same weights on the
+# same batch, each leaf within 1e-3 of its norm (||g - g_ref|| / ||g_ref||;
+# a world of one sums in the unsharded order: 0 on the CPU, while one bf16
+# rounding in another order is ~4e-3), and the step's gradient norm within
+# 1e-5 relative.
+MESH_LOSS_RTOL, MESH_PARAM_ATOL = 1e-5, 2.5 * MESH["lr"]
+MESH_GRAD_RTOL, MESH_GNORM_RTOL = 1e-3, 1e-5
+
+
+def gamma_shard_phase(pair_sets: dict) -> dict:
+    """Γ row-sharded over 1, 2 and 3 emulated shards of cuda:0 on kernel K1
+    and on the "mixed" backend: every field bitwise the unsharded solve,
+    K1 launched once per shard ("mixed" never)."""
+    cfg_w = WirelessConfig()
+    out = {}
+    for label, (beta, h2, e_max, wcfg) in pair_sets.items():
+        for backend in (None, "mixed"):
+            name = "K1" if backend is None else backend
+            t0 = time.perf_counter()
+            want = solve_pairs_fused(beta, h2, wcfg or cfg_w, e_max, backend=backend,
+                                     device=DEV, shard=False)
+            walls = {"unsharded": time.perf_counter() - t0}
+            rows = int(want.feasible.sum())
+            for n in GAMMA_SHARDS:
+                polyblock_solve_fused.launches = 0
+                t0 = time.perf_counter()
+                with emulate_devices(n):
+                    got = solve_pairs_fused(beta, h2, wcfg or cfg_w, e_max, backend=backend,
+                                            device=DEV, shard=True)
+                walls[n] = time.perf_counter() - t0
+                k1 = polyblock_solve_fused.launches
+                differ = [f for f in ("feasible", "iterations", "tau", "p", "time_s",
+                                      "energy_j")
+                          if not np.array_equal(getattr(got, f), getattr(want, f),
+                                                equal_nan=True)]
+                k1_want = n if backend is None else 0
+                line(f"Γ {label} ({rows} feasible rows) backend={name} over {n} emulated "
+                     f"shard(s) on cuda:0: bitwise equal to unsharded in every field: "
+                     f"{not differ}" + (f" (differ: {differ})" if differ else "")
+                     + f"; K1 launches={k1} (expected {k1_want}: one per shard)")
+                if differ or k1 != k1_want:
+                    raise AssertionError(f"Γ {label} {name} x{n}: sharded solve differs "
+                                         f"({differ}) or K1 launched {k1} times")
+                out.setdefault(label, {}).setdefault(name, {})[str(n)] = k1
+            line(f"  Γ {label} backend={name} wall ms: " + ", ".join(
+                f"{k}={v * 1e3:.3f}" for k, v in walls.items()) + f" [{CARD}]")
+    return out
+
+
+def group_shard_phase(batch: dict, hier_batch: dict) -> dict:
+    """Phase 9's 16-cell `run_many` groups and 8-config `run_hier_many`
+    groups again with shard=True over GROUP_SHARDS emulated shards of
+    cuda:0 (scan and async): every member bitwise its unsharded group run
+    of phase 9 (reused, not run again); K1 once per shard per Γ solve; K3
+    launches as each shard's block of the group implies."""
+    blocks = None
+    out = {}
+    for kind, runs, entry in (("batch", batch, run_many), ("hier batch", hier_batch,
+                                                           run_hier_many)):
+        for agg, res in runs.items():
+            cfgs, refs = res["cfgs"], res["hists"]
+            with emulate_devices(GROUP_SHARDS):
+                hists, wall, launches, _ = run_on_card(cfgs, entry, engine="scan", shard=True)
+            blocks = split_padded(len(cfgs), GROUP_SHARDS)
+            differ = [f"{i}: {bitwise_diff(h, r, skip=())}" for i, (h, r) in
+                      enumerate(zip(hists, refs)) if bitwise_diff(h, r, skip=())]
+            if kind == "batch":
+                worlds = 1
+                k3_want = sum(cfgs[0].rounds if agg != "sync"
+                              else group_k3_expected([hists[i] for i in blk]) for blk in blocks)
+            else:
+                worlds = len(HIER_BATCH_SEEDS)
+                engine = "scan" if agg == "sync" else "async"
+                shape = (cfgs[0].rounds, cfgs[0].n_cells, cfgs[0].devices_per_cell)
+                k3_want = sum(hier_group_k3_expected(
+                    cfgs[0], engine, [hists[i].tx_trace.reshape(shape) for i in blk])[0]
+                    for blk in blocks)
+            k1_want = worlds * GROUP_SHARDS
+            name = f"{kind} {'scan' if agg == 'sync' else 'async'}"
+            line(f"{name} shard=True over {GROUP_SHARDS} emulated shards of cuda:0: "
+                 f"{len(cfgs)} members in blocks {[len(b) for b in blocks]}, wall_s={wall:.3f} "
+                 f"(unsharded group {res['wall_s']:.3f}); K1 launches="
+                 f"{launches['polyblock_fused']} (expected {k1_want}); K3 launches="
+                 f"{launches['fedavg_agg']} (the blocks' traces imply {k3_want}) [{CARD}]")
+            line(f"  {len(cfgs)} members vs phase 9's unsharded group on the card: bitwise "
+                 f"equal in every field: {not differ}" + (f" (differ: {differ})" if differ
+                                                          else ""))
+            if differ:
+                raise AssertionError(f"{name}: sharded members differ: {differ}")
+            if (launches["polyblock_fused"], launches["fedavg_agg"]) != (k1_want, k3_want):
+                raise AssertionError(f"{name}: K1/K3 launches differ from the expected counts")
+            out[name] = launches
+    return out
+
+
+class CallCount:
+    """Counts the calls of a module's function while in the block."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.calls = owner, name, 0
+
+    def __enter__(self):
+        self.inner = getattr(self.owner, self.name)
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.inner(*a, **kw)
+
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.inner)
+
+
+def meshed_model_phase() -> dict:
+    """The meshed model as a world of one (NCCL, a (1, 1) mesh, HashStore):
+    granite-moe-3b-a800m at full width and MESH["layers"] layers.  One
+    `multidevice_demo.run_rank` step (attn_shard="explicit": the
+    expert-parallel MoE and `sharded_causal_attention`) against the port's
+    unsharded donated step from the same weights on the same FL-weighted
+    batch, then MESH["steps"] demo steps; the dry run's prediction of the
+    step's peak beside max_memory_allocated; then the meshed gradient
+    (`make_grad_fn` on the demo's sharding context) against the unsharded
+    one, leaf by leaf."""
+    cfg = dataclasses.replace(get_config(MESH["arch"]), n_layers=MESH["layers"])
+    b, s, lr = MESH["batch"], MESH["seq"], MESH["lr"]
+    shape = InputShape("mesh", s, b, "train")
+    kw = dict(opt=adamw(lr), remat=False, donate=True)
+    args = tree_nbytes(dryrun.build_step(cfg, shape, **kw)[1])
+    peak = args + dryrun.analyze(cfg, shape, **kw)["temp_size_in_bytes"]
+    init_world(0, 1, "nccl")
+    try:
+        p0 = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+        n_params = param_count(p0)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with CallCount(attention_mod, "sharded_causal_attention") as attn_calls, \
+                CallCount(moe_mod, "_ep_moe") as moe_calls:
+            t0 = time.perf_counter()
+            one = run_rank(cfg, steps=1, batch=b, seq=s, lr=lr, params=tree_map(
+                torch.clone, p0), device=DEV, log=False)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in COUNTERS.items()}
+        meshed_peak = torch.cuda.max_memory_allocated() - base
+        ex = {k: torch.as_tensor(v, device=DEV)
+              for k, v in next(fl_batches(cfg, b, s, 0))[0].items()}
+        ref = tree_map(torch.clone, p0)
+        opt = adamw(lr)
+        ref, _, m = make_train_step(cfg, opt, remat=False, donate=True)(ref, opt.init(ref), ex)
+        loss_rel = abs(one["losses"][0] - float(m["loss"])) / abs(float(m["loss"]))
+        gnorm_rel = abs(one["grad_norms"][0] - float(m["grad_norm"])) / float(m["grad_norm"])
+        diffs = [(a.float() - r.float()).abs() for a, r in
+                 zip(tree_leaves(one["params"]), tree_leaves(ref))]
+        max_diff = max(float(d.max()) for d in diffs)
+        moved = sum(int((d > 0).sum()) for d in diffs)
+        n_layers = cfg.n_layers
+        line(f"meshed model {cfg.name} (full width, {n_layers} of 32 layers, params="
+             f"{n_params}) as a world of one (NCCL, (1, 1) mesh, attn_shard=explicit), "
+             f"batch {b} x seq {s}, AdamW lr {lr}: one step {step_s:.3f}s (its first, "
+             f"with the mesh and NCCL set-up); sharded_causal_attention calls="
+             f"{attn_calls.calls} (expected {n_layers}), expert-parallel MoE calls="
+             f"{moe_calls.calls} (expected {n_layers}); kernel launches on the meshed "
+             f"training path: " + " ".join(f"{k}={v}" for k, v in launches.items())
+             + f" [{CARD}]")
+        line(f"  one meshed step vs the unsharded donated step from the same weights: loss "
+             f"{one['losses'][0]:.6f} vs {float(m['loss']):.6f} (rel {loss_rel:.3e}, limit "
+             f"{MESH_LOSS_RTOL:g}); parameters max |diff|={max_diff:.3e} (limit "
+             f"{MESH_PARAM_ATOL:g}), elements that differ at all: {moved} of {n_params}")
+        line(f"  dry run's predicted peak of the donated AdamW step at this shape "
+             f"{peak / 2**30:.2f} GiB; the meshed step's max_memory_allocated growth "
+             f"{meshed_peak / 2**30:.2f} GiB [{CARD}]")
+        del one, ref, diffs, opt, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = demo_ctx(1, 1, b, s, "explicit", "cuda")
+        blocks = shard_tree(p0, param_specs(cfg, ctx.mesh, 1), ctx.mesh)
+        g_mesh, m_mesh = make_grad_fn(cfg, remat=False, ctx=ctx)(blocks, ex)
+        del blocks
+        g_ref, m_ref = make_grad_fn(cfg, remat=False)(p0, ex)
+        gaps = leaf_gaps(g_mesh, g_ref)
+        worst = max(range(len(gaps)), key=gaps.__getitem__)
+        worst_path = leaves_with_path(p0)[worst][0]
+        grad_gnorm_rel = abs(float(m_mesh["grad_norm"]) - float(m_ref["grad_norm"])) / float(
+            m_ref["grad_norm"])
+        line(f"  gradients, meshed make_grad_fn vs unsharded from the same weights on the same "
+             f"batch: worst leaf ||g - g_ref|| / ||g_ref||={gaps[worst]:.3e} at {worst_path} "
+             f"(limit {MESH_GRAD_RTOL:g}), leaves that differ at all: "
+             f"{sum(gap > 0 for gap in gaps)} of {len(gaps)}; grad norm "
+             f"{float(m_mesh['grad_norm']):.6f} vs {float(m_ref['grad_norm']):.6f} (rel "
+             f"{grad_gnorm_rel:.3e}); the step's grad "
+             f"norm rel {gnorm_rel:.3e} (limit {MESH_GNORM_RTOL:g} each)")
+        del g_mesh, g_ref, m_mesh, m_ref
+        if loss_rel > MESH_LOSS_RTOL or max_diff > MESH_PARAM_ATOL:
+            raise AssertionError("meshed model: one step differs from the unsharded step "
+                                 "beyond the limits")
+        if gaps[worst] > MESH_GRAD_RTOL or max(gnorm_rel, grad_gnorm_rel) > MESH_GNORM_RTOL:
+            raise AssertionError("meshed model: the meshed gradient differs from the unsharded "
+                                 "one beyond the limits")
+        if attn_calls.calls != n_layers or moe_calls.calls != n_layers:
+            raise AssertionError("meshed model: the step did not run the sharded attention "
+                                 "and the expert-parallel MoE on every layer")
+        if any(launches.values()):
+            raise AssertionError("meshed model: a kernel launched on the meshed training "
+                                 "path (K4 stays off a mesh, K1-K3 and K5 are not on it)")
+        del p0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        demo = run_rank(cfg, steps=MESH["steps"], batch=b, seq=s, lr=MESH["demo_lr"],
+                        device=DEV, log=False)
+        torch.cuda.synchronize()
+        demo_s = time.perf_counter() - t0
+        losses = demo["losses"]
+        line(f"  multidevice_demo.run_rank, {MESH['steps']} FL-weighted meshed steps from "
+             f"seed 0 at lr {MESH['demo_lr']:g} (not gated): losses "
+             + " ".join(f"{x:.4f}" for x in losses)
+             + f"; wall_s={demo_s:.3f} (init_params included) [{CARD}]")
+        if not all(math.isfinite(x) for x in losses + demo["grad_norms"]):
+            raise AssertionError("meshed model: a loss or gradient norm is not finite")
+        del demo
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return dict(loss_rel=loss_rel, max_diff=max_diff, grad_gap=gaps[worst], launches=launches)
+
+
+def shard_phase(pair_sets: dict, batch: dict, hier_batch: dict) -> dict:
+    """Phase 18: the simulation's shard= (Γ and the groups) and the meshed
+    model, each part's wall time printed."""
+    t0 = time.perf_counter()
+    gamma = gamma_shard_phase(pair_sets)
+    t1 = time.perf_counter()
+    groups = group_shard_phase(batch, hier_batch)
+    t2 = time.perf_counter()
+    model = meshed_model_phase()
+    t3 = time.perf_counter()
+    line(f"shard phase wall_s: gamma={t1 - t0:.1f} groups={t2 - t1:.1f} "
+         f"meshed_model={t3 - t2:.1f} (sum {t3 - t0:.1f}) [{CARD}]")
+    return dict(gamma=gamma, groups=groups, model=model)
+
+
 def ptxas_lines(lib: str, kernel: str) -> list[str]:
     """ptxas's report (-Xptxas=-v: registers, static shared memory, spills)
     for every entry of library `lib` whose name contains `kernel`."""
@@ -3443,6 +3736,15 @@ def main() -> None:
     dryrun_phase({"qwen2-7b": qwen_serve, "rwkv6-7b": rwkv_serve, **zoo, **mla_mamba,
                   **audio_vlm["serve"]}, train)
 
+    # ---- 18. across devices (runs before the kernel list, which stays last) ----
+    phase_mark(18, t_all)
+    rng = np.random.default_rng(17)
+    h2_77 = rng.exponential(size=(3, 4, 77)) * 3
+    beta_77 = np.broadcast_to(rng.integers(5, 60, 77).astype(np.float64), h2_77.shape)
+    shard = shard_phase({"77x(3,4)": (beta_77, h2_77, None, None),
+                         "main path": (mb, mh, me, mcfg), "service segment": service["pairs"]},
+                        batch, hier_batch)
+
     # ---- 17. kernel list ----------------------------------------------------
     phase_mark(17, t_all)
     kernels = []
@@ -3484,6 +3786,7 @@ def main() -> None:
             kernels[-1]["lanes"] = res["lanes"]
         if name == "polyblock_fused":
             kernels[-1]["at"] = k1_at
+            kernels[-1]["shard_launches"] = shard["gamma"]
         if name == "fedavg_agg":
             kernels[-1]["cells"] = {str(b): {key: r[key] for key in ("ms", "bound_ms",
                                                                      "one_cell_launches_ms")}

@@ -3,8 +3,8 @@
 
 Assigned spec: 32L d_model=1536 24H (GQA kv=8) d_ff=512 vocab=49155,
 MoE 40e top-8.  40 experts are zero-padded to 48 on a 16-way
-expert-parallel axis (models.moe.pad_experts; the port runs
-the single-device path, ep_size 1, so it keeps 40).
+expert-parallel axis (models.moe.pad_experts; `init_params(ep_size=16)`;
+at the default ep_size 1 it keeps 40).
 """
 from .base import ArchConfig
 

@@ -45,6 +45,7 @@ from ..device import resolve_device
 from ..kernels.polyblock_fused.ops import polyblock_solve_fused
 from ..kernels.polyblock_project.ops import project as project_by
 from ..kernels.polyblock_project.ops import project_newton_mixed
+from ..launch.mesh import local_devices, map_shards, split_padded, use_shards
 from .feasibility import is_infeasible
 from .monotonic import RAResult
 from .wireless import WirelessConfig, total_energy, total_time
@@ -94,35 +95,70 @@ def _host(x: torch.Tensor, dtype=np.float64) -> np.ndarray:
     return x.cpu().numpy().astype(dtype)
 
 
+def _fused_rows(beta_w, h2_w, e_w, cfg, device, *, eps, max_iter, n_bisect, backend):
+    """K1 on feasible rows: one launch, (tau, p, T, iterations) on the host."""
+    on_dev = lambda x: torch.as_tensor(x, device=device)
+    k_tau, k_p, k_time, k_it = polyblock_solve_fused(
+        on_dev(beta_w), on_dev(h2_w), on_dev(e_w), cfg, eps=eps, max_iter=max_iter,
+        n_bisect=n_bisect)
+    return _host(k_tau), _host(k_p), _host(k_time), _host(k_it, np.int64)
+
+
+def _rows_sharded(rows_fn, beta_w, h2_w, e_w, cfg, devices, opts):
+    """`rows_fn` over the rows split into one block per device (the last
+    padded by repeating row 0, dropped after), each block on its device;
+    the blocks' results joined in row order.  Each pair is solved alone
+    whatever its neighbours, so the join is bitwise the unsharded solve."""
+    parts = map_shards(lambda idx, dev: rows_fn(beta_w[idx], h2_w[idx], e_w[idx], cfg, dev,
+                                                **opts),
+                       split_padded(h2_w.shape[0], len(devices)), devices)
+    n = h2_w.shape[0]
+    return tuple(np.concatenate([part[f] for part in parts])[:n] for f in range(4))
+
+
+def _solve(rows_fn, beta, h2, cfg: WirelessConfig, e_max, *, eps, max_iter, backend,
+           n_bisect, device, shard) -> RAResult:
+    """Proposition-1 feasibility on the host, then `rows_fn` on the feasible
+    rows: on `device`, or split over the local devices when `shard` allows
+    (`_rows_sharded`)."""
+    check_ra_backend(backend)
+    device = resolve_device(device)
+    eps = 0.01 if eps is None else float(eps)
+    shape, beta_f, h2f, e_f = _flatten(beta, h2, cfg, e_max)
+    feas = ~is_infeasible(h2f, cfg, e_f)
+    work = np.where(feas)[0]
+    if not work.size:
+        return _result(shape, feas, beta_f, h2f, cfg, work, *(None,) * 4)
+    opts = dict(eps=eps, max_iter=max_iter, n_bisect=n_bisect, backend=backend)
+    devices = local_devices(device)
+    if use_shards(shard, devices):
+        out = _rows_sharded(rows_fn, beta_f[work], h2f[work], e_f[work], cfg, devices, opts)
+    else:
+        out = rows_fn(beta_f[work], h2f[work], e_f[work], cfg, device, **opts)
+    return _result(shape, feas, beta_f, h2f, cfg, work, *out)
+
+
 def solve_pairs_fused(beta, h2, cfg: WirelessConfig, e_max=None, *,
                       eps: float | None = None, max_iter: int = 64,
                       backend: str | None = None, n_bisect: int = 60,
-                      device=None) -> RAResult:
+                      device=None, shard: bool | None = None) -> RAResult:
     """Algorithm 1 over pairs of any shape, in float64 (the type of the
     JAX package's CPU solvers, which it tracks pair for pair).  beta and
     e_max broadcast against h2.
 
     backend: None, "cuda" or "pallas" solve all of it in kernel K1 (its
     plain version on the CPU); "bisect" (alias "jnp"), "newton" or "mixed"
-    run `solve_pairs_step` with that projection, bit for bit, as the JAX
-    package's staged driver runs `solve_pairs_jit`'s trajectory."""
-    check_ra_backend(backend)
-    if backend not in _KERNEL_BACKENDS:
-        return solve_pairs_step(beta, h2, cfg, e_max, eps=eps, max_iter=max_iter,
-                                backend=backend, n_bisect=n_bisect, device=device)
-    device = resolve_device(device)
-    eps = 0.01 if eps is None else float(eps)
-    shape, beta_f, h2f, e_f = _flatten(beta, h2, cfg, e_max)
-    feas = ~is_infeasible(h2f, cfg, e_f)
-    work = np.where(feas)[0]
-    out = (None,) * 4
-    if work.size:
-        on_dev = lambda x: torch.as_tensor(x[work], device=device)
-        k_tau, k_p, k_time, k_it = polyblock_solve_fused(
-            on_dev(beta_f), on_dev(h2f), on_dev(e_f), cfg, eps=eps,
-            max_iter=max_iter, n_bisect=n_bisect)
-        out = (_host(k_tau), _host(k_p), _host(k_time), _host(k_it, np.int64))
-    return _result(shape, feas, beta_f, h2f, cfg, work, *out)
+    run `solve_pairs_step`'s loop with that projection, bit for bit, as
+    the JAX package's staged driver runs `solve_pairs_jit`'s trajectory.
+
+    shard: the feasible pairs' rows split over `launch.mesh.local_devices`
+    (pad-and-drop), one block per device, solved at once (one K1 launch
+    per block) and joined in row order; None shards when more than one
+    device is visible, True on one device is the unsharded path, False
+    never shards.  Every field is bitwise the unsharded solve."""
+    rows_fn = _fused_rows if backend in _KERNEL_BACKENDS else _step_rows
+    return _solve(rows_fn, beta, h2, cfg, e_max, eps=eps, max_iter=max_iter,
+                  backend=backend, n_bisect=n_bisect, device=device, shard=shard)
 
 
 def solve_pairs_step(beta, h2, cfg: WirelessConfig, e_max=None, *,
@@ -141,7 +177,12 @@ def solve_pairs_step(beta, h2, cfg: WirelessConfig, e_max=None, *,
     as the JAX package's `_init_state` / `_children_impl` do.  n_bisect is
     the halving count of the bisection backends.
     """
-    check_ra_backend(backend)
+    return _solve(_step_rows, beta, h2, cfg, e_max, eps=eps, max_iter=max_iter,
+                  backend=backend, n_bisect=n_bisect, device=device, shard=False)
+
+
+def _step_rows(beta_w, h2_w, e_w, cfg, device, *, eps, max_iter, n_bisect, backend):
+    """The step loop on feasible rows: (tau, p, T, iterations) on the host."""
 
     def project(v, b, h, e, hint=None):
         """The backend's projection; `hint` is the parents' zeta ("mixed"
@@ -153,17 +194,9 @@ def solve_pairs_step(beta, h2, cfg: WirelessConfig, e_max=None, *,
             return project_newton_mixed(v, b, h, e, cfg, n_f32=4)
         return project_newton_mixed(v, b, h, e, cfg, n_f32=2, n_f64=1, x0_hint=hint)
 
-    device = resolve_device(device)
-    eps = 0.01 if eps is None else float(eps)
-    shape, beta_f, h2f, e_f = _flatten(beta, h2, cfg, e_max)
-    feas = ~is_infeasible(h2f, cfg, e_f)
-    work = np.where(feas)[0]
-    if not work.size:
-        return _result(shape, feas, beta_f, h2f, cfg, work, *(None,) * 4)
-
-    on_dev = lambda x: torch.as_tensor(x[work], device=device)
-    beta_t, h2_t, e_t = on_dev(beta_f), on_dev(h2f), on_dev(e_f)
-    b, m = work.size, max_iter + 1          # step t writes slot <= t + 1
+    on_dev = lambda x: torch.as_tensor(x, device=device)
+    beta_t, h2_t, e_t = on_dev(beta_w), on_dev(h2_w), on_dev(e_w)
+    b, m = h2_w.shape[0], max_iter + 1          # step t writes slot <= t + 1
     rows = torch.arange(b, device=device)
 
     v0 = torch.ones(b, 2, dtype=torch.float64, device=device)
@@ -216,8 +249,8 @@ def solve_pairs_step(beta, h2, cfg: WirelessConfig, e_max=None, *,
         valid[a, slot2] = True
         nvalid[a] += 1
 
-    return _result(shape, feas, beta_f, h2f, cfg, work, _host(best_proj[:, 0]),
-                   _host(best_proj[:, 1]), _host(-best_f), _host(iters, np.int64))
+    return (_host(best_proj[:, 0]), _host(best_proj[:, 1]), _host(-best_f),
+            _host(iters, np.int64))
 
 
 def precompute_gamma(beta, h2_all, cfg: WirelessConfig, e_max=None, *,

@@ -14,7 +14,9 @@ run as one loop on a leading cell (or config) axis, each bitwise its solo
 run.  `ra_backend` picks the Γ solver's projection, as in the JAX package:
 None (default) solves on kernel K1 on the card and on its plain version on
 the CPU; "bisect" / "jnp", "newton" and "mixed" run the step loop with
-that projection.  The port has no `shard` argument: it runs on one card.
+that projection.  `shard` shards both engines' groups and their Γ solves
+over the local devices (`launch.mesh.local_devices`), each cell still
+bitwise its solo run.
 """
 from __future__ import annotations
 
@@ -108,7 +110,8 @@ def run_sweep(spec: SweepSpec, *,
               device=None,
               results_root: str | Path = "results",
               write: bool = True,
-              figures: bool = False) -> SweepResult:
+              figures: bool = False,
+              shard: bool | None = None) -> SweepResult:
     """Run every cell of `spec` and (optionally) persist the artifact.
 
     Args:
@@ -124,6 +127,8 @@ def run_sweep(spec: SweepSpec, *,
         ``<root>/<spec.name>/v####/`` version (see `experiments.store`).
       write: set False to skip artifact I/O (returns the record in memory).
       figures: also render the SVG gallery into ``<version>/figures/``.
+      shard: passed to both engines (`fl.run_many`'s rule: None shards
+        when more than one local device is visible).
 
     Returns a `SweepResult`; ``result.record`` is the JSON artifact.
     """
@@ -146,13 +151,13 @@ def run_sweep(spec: SweepSpec, *,
     if flat_idx:
         for i, h in zip(flat_idx, run_many(
                 [cells[i].config for i in flat_idx], engine=engine,
-                ra_backend=ra_backend, device=device)):
+                ra_backend=ra_backend, device=device, shard=shard)):
             hists[i] = h
     if hier_idx:
         hier_engine = "async" if engine == "async" else "scan"
         for i, h in zip(hier_idx, run_hier_many(
                 [cells[i].config for i in hier_idx], engine=hier_engine,
-                ra_backend=ra_backend, device=device)):
+                ra_backend=ra_backend, device=device, shard=shard)):
             hists[i] = h
     wall_s = time.time() - t0
 

@@ -57,6 +57,7 @@ It returns flat-compatible `SimHistory` records with (rounds, C*N) traces.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Sequence
@@ -81,7 +82,7 @@ from .engine_common import (eval_cells, group_cell_data, group_data, make_eval_f
                             make_group_leader, make_xs, stack_cells, sync_group_round)
 from .hier_async import build_hier_async_group_runner
 from .server import AsyncAggregation, aggregate, get_aggregation
-from .sim import (TABLE1, SimHistory, _eval_mask, _eval_rounds,
+from .sim import (TABLE1, SimHistory, _dispatch_group, _eval_mask, _eval_rounds,
                   _group_trainer_and_policies, _history_from_async,
                   _history_from_scan, _pad_partition, _slice_ra, _to_host,
                   training_draws)
@@ -238,7 +239,8 @@ def _prepare_hier(cfg: HierSimConfig, device: torch.device) -> _HierPrepared:
 
 
 def _solve_hier_horizons(preps: Sequence[_HierPrepared], solver: str,
-                         device: torch.device, backend: str | None = None
+                         device: torch.device, backend: str | None = None,
+                         shard: bool | None = None
                          ) -> tuple[list[list[RAResult]], list[float]]:
     """Algorithm 1 for every (cell, round) of every prepared simulation.
 
@@ -248,9 +250,11 @@ def _solve_hier_horizons(preps: Sequence[_HierPrepared], solver: str,
     slices equal solo solves bit for bit — at C == 1, the flat
     `_solve_horizons` result.  Worlds shared across policy-only /
     aggregation-only variants are solved once and aliased.  `backend` is
-    the solver's projection backend.
+    the solver's projection backend; `shard` shards the fused solver's rows
+    over the local devices.
     """
-    solve = solve_pairs_fused if solver == "fused" else solve_pairs_step
+    solve = (functools.partial(solve_pairs_fused, shard=shard) if solver == "fused"
+             else solve_pairs_step)
     out: list[list[RAResult] | None] = [None] * len(preps)
     secs = [0.0] * len(preps)
     rep_idx: dict[tuple[int, str], int] = {}
@@ -328,7 +332,7 @@ def _hier_scan_inputs(prep: _HierPrepared, ras: list[RAResult],
         next_uniforms=next_uniforms,
         policy_idx=policy_idx,
         beta=f32(prep.beta),
-        x_all=prep.x, y_all=prep.y, m_all=prep.m,
+        x_all=prep.x.to(device), y_all=prep.y.to(device), m_all=prep.m.to(device),
         x_full=torch.from_numpy(prep.ds.x).to(device),
         y_full=torch.from_numpy(prep.ds.y).to(device),
         clusters=i64(prep.clusters),
@@ -526,7 +530,7 @@ def _is_async(cfg: HierSimConfig) -> bool:
 
 def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
                   ra_backend: str | None = None, ra_solver: str = "fused",
-                  device=None) -> list[SimHistory]:
+                  device=None, shard: bool | None = None) -> list[SimHistory]:
     """Run several hierarchical simulations, sharing prepared worlds and
     their Γ solves.
 
@@ -549,6 +553,10 @@ def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
         per-iteration driver over kernel K2).
       device: "cuda[:i]" or "cpu"; None means the current CUDA device and
         raises when none is visible.
+      shard: shard each group's config axis and the fused Γ solve's rows
+        over the local devices, as `fl.sim.run_many` does (each config
+        bitwise its solo run); None shards when more than one device is
+        visible.
     """
     if engine not in ("scan", "async"):
         raise ValueError(f"unknown engine: {engine} "
@@ -570,7 +578,7 @@ def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
         preps.append(shared if shared.cfg == c
                      else dataclasses.replace(shared, cfg=c))
 
-    ras_list, plan_walls = _solve_hier_horizons(preps, ra_solver, device, ra_backend)
+    ras_list, plan_walls = _solve_hier_horizons(preps, ra_solver, device, ra_backend, shard)
     transformed: dict[int, list[RAResult]] = {}
     for i, (p, ras) in enumerate(zip(preps, ras_list)):
         if id(ras) not in transformed:
@@ -582,10 +590,10 @@ def run_hier_many(cfgs: Sequence[HierSimConfig], *, engine: str = "scan",
     for i, (c, mode) in enumerate(zip(cfgs, modes)):
         groups.setdefault((mode, _hier_group_key(c)), []).append(i)
     for (mode, _), idx in groups.items():
-        hists = _run_hier_group(mode, [cfgs[i] for i in idx],
-                                [preps[i] for i in idx],
-                                [ras_list[i] for i in idx],
-                                [plan_walls[i] for i in idx], device)
+        hists = _dispatch_group(functools.partial(_run_hier_group, mode),
+                                [cfgs[i] for i in idx], [preps[i] for i in idx],
+                                [ras_list[i] for i in idx], [plan_walls[i] for i in idx],
+                                device, shard)
         for i, h in zip(idx, hists):
             out[i] = h
     return out

@@ -41,6 +41,15 @@ of who trains, one K3 launch for every cell's aggregation per round; each
 cell's local training and eval stay its own.  Every cell of a group gets
 the bits of its solo run; `run_simulation` is the group of one.
 
+Across devices (`run_many(..., shard=)`, the JAX package's `shard_map`
+over `jax.local_devices()`): single-controller, collective-free.  The Γ
+solve's rows split over the local devices (`launch.mesh.local_devices`:
+every visible card, or `emulate_devices(n)` copies of one), one block per
+device, and each group's cells likewise (`_dispatch_group`: padded to a
+multiple of the device count by repeating cell 0, the pads dropped), every
+block on a thread of its own so that all devices have work queued before
+any shard's host waits.  Each cell stays bitwise its solo run.
+
 The learning plane's random draws all go through `training_draws`: the
 initial parameters, then one (K, local_steps, batch) block of minibatch
 uniforms per round (or event) in which some device transmits.  A CPU
@@ -51,6 +60,7 @@ function with the JAX package's exact draws.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Callable, Sequence
@@ -66,6 +76,7 @@ from ..core.monotonic_torch import check_ra_backend, solve_pairs_fused, solve_pa
 from ..data.fl_datasets import (Dataset, FLPartition, make_dataset,
                                 partition_dirichlet, partition_imbalanced_iid)
 from ..device import resolve_device
+from ..launch.mesh import local_devices, map_shards, split_padded, use_shards
 from ..models.small import SmallModel, get_small_model
 from ..scenarios import (Scenario, apply_dynamics, compose_gains, get_scenario,
                          sample_churn, sample_distances, sample_energy,
@@ -261,7 +272,8 @@ def _prepare(cfg: SimConfig, device: torch.device,
 
 
 def _solve_horizons(preps: Sequence[_Prepared], solver: str, device: torch.device,
-                    backend: str | None = None) -> tuple[list[RAResult], list[float]]:
+                    backend: str | None = None, shard: bool | None = None
+                    ) -> tuple[list[RAResult], list[float]]:
     """Algorithm 1 for every round of every prepared simulation, batched.
 
     All MO-RA horizons that share their wireless constants are flattened
@@ -269,7 +281,9 @@ def _solve_horizons(preps: Sequence[_Prepared], solver: str, device: torch.devic
     per-element operand); FIX-RA horizons are a closed form.  Sims sharing
     a `_Prepared` world and RA scheme alias one solve.  Returns the per-sim
     RAResults and each sim's share of planning wall time.  `backend` is the
-    solver's projection backend (`core.monotonic_torch.RA_BACKENDS`).
+    solver's projection backend (`core.monotonic_torch.RA_BACKENDS`);
+    `shard` shards the fused solver's rows over the local devices (the step
+    driver has no row-shard path, as in the JAX package).
     """
     out: list[RAResult | None] = [None] * len(preps)
     secs = [0.0] * len(preps)
@@ -293,7 +307,8 @@ def _solve_horizons(preps: Sequence[_Prepared], solver: str, device: torch.devic
         if p.cfg.policy.ra == "mo" and dup_of[i] is None:
             groups.setdefault(solver_key(p.wcfg), []).append(i)
 
-    solve = solve_pairs_fused if solver == "fused" else solve_pairs_step
+    solve = (functools.partial(solve_pairs_fused, shard=shard) if solver == "fused"
+             else solve_pairs_step)
     for mo in groups.values():
         h2_cat = np.concatenate([preps[i].h2_all.reshape(-1) for i in mo])
         beta_cat = np.concatenate([
@@ -492,7 +507,8 @@ def _scan_inputs(prep: _Prepared, ra: RAResult, device: torch.device,
         next_uniforms=next_uniforms,
         policy_idx=policy_idx,
         beta=f32(prep.beta),
-        x_all=prep.x_all, y_all=prep.y_all, m_all=prep.m_all,
+        x_all=prep.x_all.to(device), y_all=prep.y_all.to(device),
+        m_all=prep.m_all.to(device),
         x_full=torch.from_numpy(prep.ds.x).to(device),
         y_full=torch.from_numpy(prep.ds.y).to(device),
         clusters=i64(prep.clusters),
@@ -691,6 +707,35 @@ def _run_group(mode: str, cfgs: Sequence[SimConfig], preps: Sequence[_Prepared],
     return out
 
 
+def _dispatch_group(run_group: Callable, cfgs: Sequence, preps: Sequence, ras: Sequence,
+                    plan_walls: Sequence[float], device: torch.device,
+                    shard: bool | None) -> list[SimHistory]:
+    """One group on one device, or — when `shard` allows and more than one
+    local device is visible (`launch.mesh.local_devices`) — the port of the
+    JAX package's `shard_map` over the group's cell axis: the cells are
+    padded to a multiple of the device count by repeating cell 0, each
+    device runs its contiguous block as a group of its own
+    (`run_group(cfgs, preps, ras, plan_walls, device)`, all blocks at once,
+    `launch.mesh.map_shards`), and the pad cells are dropped.  A cell is
+    bitwise its solo run whatever block it lands in.  A member's `wall_s`
+    is the whole dispatch's wall time over the group's size plus its own
+    `plan_wall_s`, as unsharded."""
+    devices = local_devices(device)
+    if len(cfgs) == 1 or not use_shards(shard, devices):
+        return run_group(cfgs, preps, ras, plan_walls, device)
+    t_start = time.perf_counter()
+    blocks = split_padded(len(cfgs), len(devices))
+    parts = map_shards(lambda idx, dev: run_group([cfgs[i] for i in idx], [preps[i] for i in idx],
+                                                  [ras[i] for i in idx],
+                                                  [plan_walls[i] for i in idx], dev),
+                       blocks, devices)
+    out = [h for part in parts for h in part][:len(cfgs)]
+    wall_each = (time.perf_counter() - t_start) / len(cfgs)
+    for h, w in zip(out, plan_walls):
+        h.wall_s = wall_each + w
+    return out
+
+
 # ---------------------------------------------------------------------------
 # engine="async": the buffered event-timeline loop
 # ---------------------------------------------------------------------------
@@ -723,7 +768,7 @@ def _history_from_async(cfg: SimConfig, beta: np.ndarray, ys: dict,
 
 def run_many(cfgs: Sequence[SimConfig], *, ra_backend: str | None = None,
              ra_solver: str = "fused", engine: str = "loop",
-             device=None) -> list[SimHistory]:
+             device=None, shard: bool | None = None) -> list[SimHistory]:
     """Run several simulations, sharing ONE batched whole-horizon Γ solve.
 
     Configs identical up to the policy (and aggregation) share one
@@ -751,6 +796,13 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_backend: str | None = None,
         full-buffer barrier and reproduce the scan engine bit for bit.
       device: "cuda[:i]" or "cpu"; None means the current CUDA device and
         raises when none is visible.
+      shard: shard the scan / async groups' cell axis — and the fused Γ
+        solve's rows — over the local devices (`launch.mesh.local_devices`:
+        every visible card, or `emulate_devices(n)` copies of one), one
+        block per device, each cell bitwise its solo run.  None (default)
+        shards when more than one device is visible; False never; True on
+        one device is the unsharded path.  engine="loop" cells ignore it
+        except in the Γ solve.
     """
     if engine not in ("loop", "scan", "async"):
         raise ValueError(f"unknown engine: {engine}")
@@ -774,7 +826,7 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_backend: str | None = None,
         preps.append(shared if shared.cfg == c
                      else dataclasses.replace(shared, cfg=c))
 
-    ras, plan_walls = _solve_horizons(preps, ra_solver, device, ra_backend)
+    ras, plan_walls = _solve_horizons(preps, ra_solver, device, ra_backend, shard)
     # Churn availability and straggler slowdowns fold into the solved
     # horizon once (Γ-deduped sims alias one RAResult, transformed once).
     transformed: dict[int, RAResult] = {}
@@ -792,8 +844,9 @@ def run_many(cfgs: Sequence[SimConfig], *, ra_backend: str | None = None,
         else:
             groups.setdefault((mode, _scan_group_key(c)), []).append(i)
     for (mode, _), idx in groups.items():
-        hists = _run_group(mode, [cfgs[i] for i in idx], [preps[i] for i in idx],
-                           [ras[i] for i in idx], [plan_walls[i] for i in idx], device)
+        hists = _dispatch_group(functools.partial(_run_group, mode), [cfgs[i] for i in idx],
+                                [preps[i] for i in idx], [ras[i] for i in idx],
+                                [plan_walls[i] for i in idx], device, shard)
         for i, h in zip(idx, hists):
             out[i] = h
     return out

@@ -24,8 +24,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load", "load_polyblock", "load_fedavg", "build_info", "check_launch", "check_no_grad",
-           "nvcc_flags", "sass_opcodes", "LIBRARIES", "NVCC_FLAGS"]
+__all__ = ["load", "load_polyblock", "load_fedavg", "build_info", "check_launch",
+           "count_launches", "check_no_grad", "nvcc_flags", "sass_opcodes", "LIBRARIES",
+           "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -166,6 +167,17 @@ def sass_opcodes(name: str, opcodes: tuple[str, ...]) -> dict[str, dict[str, int
             for op in opcodes:
                 current[op] += sum(w == op or w.startswith(op + ".") for w in words)
     return counts
+
+
+_count_lock = threading.Lock()
+
+
+def count_launches(wrapper, n: int = 1) -> None:
+    """Add n to `wrapper.launches`, the count of the kernel launches it made,
+    under a lock: the simulation's shards launch from threads of their own
+    (`launch.mesh.map_shards`)."""
+    with _count_lock:
+        wrapper.launches += n
 
 
 def check_launch(err: int, what: str) -> None:

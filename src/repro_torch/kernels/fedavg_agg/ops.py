@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from .._build import check_launch, load_fedavg
+from .._build import check_launch, count_launches, load_fedavg
 from .ref import fedavg_agg_plain, fedavg_agg_plain_cells
 
 __all__ = ["fedavg_aggregate", "fedavg_aggregate_leaves",
@@ -111,7 +111,7 @@ def fedavg_aggregate_leaves(stacked: list, weights: torch.Tensor) -> list:
     lib, table, _ = _entry()
     _launch(lib.fedavg_agg_leaves_f32, dev, (ctypes.c_int64 * len(rows))(*rows), n_leaves,
             weights.data_ptr(), k)
-    fedavg_aggregate_leaves.launches += -(-n_leaves // table)
+    count_launches(fedavg_aggregate_leaves, -(-n_leaves // table))
     return means
 
 
@@ -195,7 +195,7 @@ def fedavg_aggregate_leaves_batched(stacked: list, weights: torch.Tensor) -> lis
     if n_leaves:
         _launch(lib.fedavg_agg_cells_f32, dev, (ctypes.c_int64 * len(rows))(*rows),
                 n_leaves, weights.data_ptr(), k, b)
-        fedavg_aggregate_leaves_batched.launches += -(-n_leaves // table)
+        count_launches(fedavg_aggregate_leaves_batched, -(-n_leaves // table))
     return means
 
 

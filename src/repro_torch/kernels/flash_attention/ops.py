@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check_launch, check_no_grad, load
+from .._build import check_launch, check_no_grad, count_launches, load
 from .ref import flash_attention_plain
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
@@ -77,7 +77,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, hq, hkv, d,
             d**-0.5, int(causal), int(window), torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, "flash_attention")
-    flash_attention.launches += 1
+    count_launches(flash_attention)
     return out
 
 

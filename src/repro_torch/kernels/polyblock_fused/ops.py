@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ...core.wireless import WirelessConfig, total_time
-from .._build import check_launch, load_polyblock
+from .._build import check_launch, count_launches, load_polyblock
 from ..polyblock_project.ops import LANES, project_bisect
 
 __all__ = ["polyblock_solve_plain", "polyblock_solve_fused", "coop_lanes", "first_max_lanes",
@@ -216,7 +216,7 @@ def polyblock_solve_fused(beta, h2, e_max, cfg: WirelessConfig, *,
                  cfg.model_bits, cfg.bandwidth_hz,
                  torch.cuda.current_stream(beta.device).cuda_stream)
     check_launch(err, "polyblock_solve_fused")
-    polyblock_solve_fused.launches += 1
+    count_launches(polyblock_solve_fused)
     return tau, p, time_s, iters
 
 

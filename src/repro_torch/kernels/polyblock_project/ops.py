@@ -35,7 +35,7 @@ import math
 import torch
 
 from ...core.wireless import WirelessConfig, _TorchOps, total_energy
-from .._build import check_launch, load_polyblock
+from .._build import check_launch, count_launches, load_polyblock
 from .ref import TINY, project_ref
 
 __all__ = ["project_bisect", "project_newton", "project_newton_mixed",
@@ -287,7 +287,7 @@ def polyblock_project(v, beta, h2, e_max, cfg: WirelessConfig, *,
                  cfg.cpu_hz, cfg.pt_w, cfg.model_bits, cfg.bandwidth_hz,
                  torch.cuda.current_stream(v.device).cuda_stream)
     check_launch(err, "polyblock_project")
-    polyblock_project.launches += 1
+    count_launches(polyblock_project)
     return out
 
 

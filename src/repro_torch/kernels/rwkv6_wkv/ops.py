@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check_launch, check_no_grad, load
+from .._build import check_launch, check_no_grad, count_launches, load
 from .ref import wkv6_plain
 
 __all__ = ["wkv6", "wkv6_plain", "HEAD_SIZES"]
@@ -63,7 +63,7 @@ def wkv6(r, k, v, w, u, state):
                            u.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
                            b, t, h, hs, torch.cuda.current_stream(r.device).cuda_stream)
     check_launch(err, "wkv6")
-    wkv6.launches += 1
+    count_launches(wkv6)
     return y, s_out
 
 

@@ -32,8 +32,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch jamba-v0.1-52b \\
       --shape decode_32k --override n_layers=16
 
-`--multi-pod`, `--detail` and `--attn-shard` need a mesh of cards and are
-not taken.
+`--multi-pod`, `--detail` and `--attn-shard` are not taken: the dry run on
+the production mesh (a fake process group at 256 and 512 ranks on meta
+tensors) is still to come.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Grouped-query attention, deepseek-style MLA and whisper-style
-cross-attention (PyTorch copy of the JAX package's `models/attention.py`,
-less its multi-card `sharded_causal_attention`): QKV bias, RoPE and
+cross-attention (PyTorch copy of the JAX package's `models/attention.py`):
+QKV bias, RoPE and
 qwen2-VL's M-RoPE, sliding window, chunked softmax for long prefill,
 non-causal (encoder) attention, the ring-buffer decode cache, and MLA's
 low-rank latent KV cache with its decoupled RoPE key.
@@ -31,6 +31,11 @@ package's `mla_forward` does (its q/k width 192 and v width 128 are not a
 shape K4 takes); so do non-causal attention (`gqa_forward(causal=False)`,
 the audio encoder) and `cross_attn`, through the plain `_sdpa` with no
 mask, as in the JAX package, which never sends them to its flash kernel.
+
+On a mesh (`sharding.ctx.ShardCtx`), K4 is never taken, as in the JAX
+package; with attn_shard="explicit" full-sequence causal attention (GQA
+and MLA) runs through `sharded_causal_attention`, partitioned over the
+`model` axis, else the plain path runs whole on every model rank.
 """
 from __future__ import annotations
 
@@ -38,10 +43,13 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
+from ..sharding import comm
+from ..sharding.ctx import meshed
 from .layers import DTYPE, apply_mrope, apply_rope, dense, dense_init
 
 __all__ = ["gqa_init", "gqa_forward", "gqa_decode", "init_kv_cache", "mla_init",
-           "mla_forward", "mla_decode", "init_mla_cache", "cross_attn_init", "cross_attn"]
+           "mla_forward", "mla_decode", "init_mla_cache", "cross_attn_init", "cross_attn",
+           "sharded_causal_attention"]
 
 NEG_INF = -1e30
 
@@ -71,25 +79,58 @@ def _causal_mask(sq: int, sk: int, q_offset, window: int, device):
     return m[None, None, None]
 
 
-def _chunked_sdpa(q, k, v, scale, window: int, chunk: int):
+def _chunked_sdpa(q, k, v, scale, window: int, chunk: int, q_offset: int = 0):
     """Flash-style: a loop over query chunks (the JAX package's lax.scan);
-    peak memory per step is (B,Hkv,G,chunk,Sk) instead of (...,Sq,Sk)."""
+    peak memory per step is (B,Hkv,G,chunk,Sk) instead of (...,Sq,Sk).
+    q_offset shifts the causal mask for a sequence-parallel query block."""
     sq = q.shape[1]
     assert sq % chunk == 0, (sq, chunk)
     outs = []
     for i in range(sq // chunk):
-        mask = _causal_mask(chunk, k.shape[1], i * chunk, window, q.device)
+        mask = _causal_mask(chunk, k.shape[1], i * chunk + q_offset, window, q.device)
         outs.append(_sdpa(q[:, i * chunk:(i + 1) * chunk], k, v, mask, scale))
     return torch.cat(outs, dim=1)
 
 
-def _full_attn(qg, k, v, scale, window: int, chunk: int):
+def _full_attn(qg, k, v, scale, window: int, chunk: int, q_offset: int = 0):
     """Dispatch: chunked loop for long sequences, one-shot otherwise."""
     s = qg.shape[1]
     if chunk and s > 2 * chunk:
-        return _chunked_sdpa(qg, k, v, scale, window, chunk)
-    mask = _causal_mask(s, k.shape[1], 0, window, qg.device)
+        return _chunked_sdpa(qg, k, v, scale, window, chunk, q_offset)
+    mask = _causal_mask(s, k.shape[1], q_offset, window, qg.device)
     return _sdpa(qg, k, v, mask, scale)
+
+
+def sharded_causal_attention(qg, k, v, scale, window: int, chunk: int, ctx):
+    """Full-sequence causal attention partitioned over the `model` axis
+    (the JAX package's shard_map version), as per-rank code; qg (B, S, Hkv,
+    G, Dh), k and v (B, S, Hkv, Dh*) enter whole on every model rank (the
+    residual stream is replicated over `model`):
+
+      * head-parallel when Hkv % model == 0: each rank attends with its
+        Hkv / model kv-head groups over the whole sequence; no collective
+        inside, one all-gather of the heads' outputs after;
+      * sequence-parallel otherwise, when S % model == 0: each rank takes
+        its S / model query rows at their offset against the whole K / V,
+        which every rank already holds (their gradient is all-reduced),
+        and the rows' outputs are all-gathered;
+      * else the plain path, whole on every rank.
+
+    The operators of `sharding.comm` give each rank the complete gradient
+    of the replicated q, k and v."""
+    group, mp = ctx.group("model"), ctx.size("model")
+    s, hkv = qg.shape[1], qg.shape[2]
+    if hkv % mp == 0:
+        q_l, k_l, v_l = (comm.split_to(t, group, 2) for t in (qg, k, v))
+        return comm.gather_from(_full_attn(q_l, k_l, v_l, scale, window, chunk), group, 2)
+    if s % mp == 0:
+        s_loc = s // mp
+        q_l = comm.split_to(qg, group, 1)
+        out = _full_attn(q_l, comm.copy_to(k, group), comm.copy_to(v, group), scale, window,
+                         min(chunk, s_loc) if chunk else 0, ctx.rank("model") * s_loc)
+        return comm.gather_from(out, group, 1)
+    return _full_attn(qg, k, v, scale, window, chunk)
+
 
 
 # --------------------------------------------------------------------------
@@ -130,7 +171,7 @@ def _mrope_sections(dh: int) -> tuple[int, int, int]:
 
 
 def gqa_forward(p, cfg: ArchConfig, x, *, positions=None, mrope_pos=None, chunk: int = 0,
-                causal: bool = True, return_kv: bool = False):
+                causal: bool = True, return_kv: bool = False, ctx=None):
     """Training / prefill self-attention: causal with an optional sliding
     window, or with causal=False unmasked (the audio encoder), through the
     plain `_sdpa` whatever `attn_impl` says.  q and k are rotated by M-RoPE
@@ -138,7 +179,9 @@ def gqa_forward(p, cfg: ArchConfig, x, *, positions=None, mrope_pos=None, chunk:
     `positions` (default arange(S)).
 
     With return_kv=True also returns the rotated (k, v) so the serving path
-    can seed a decode cache from prefill."""
+    can seed a decode cache from prefill.  `ctx` (`sharding.ctx.ShardCtx`):
+    on a mesh K4 is not taken, and attn_shard="explicit" routes causal
+    attention through `sharded_causal_attention`."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
@@ -147,8 +190,10 @@ def gqa_forward(p, cfg: ArchConfig, x, *, positions=None, mrope_pos=None, chunk:
     qg = q.reshape(b, s, hkv, cfg.n_heads // hkv, dh)
     if not causal:
         out = _sdpa(qg, k, v, None, dh**-0.5)
-    elif cfg.attn_impl == "pallas":
+    elif cfg.attn_impl == "pallas" and not meshed(ctx):
         out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    elif meshed(ctx) and ctx.attn_shard == "explicit":
+        out = sharded_causal_attention(qg, k, v, dh**-0.5, cfg.sliding_window, chunk, ctx)
     else:
         out = _full_attn(qg, k, v, dh**-0.5, cfg.sliding_window, chunk)
     y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * dh))
@@ -248,10 +293,12 @@ def _mla_latent(p, cfg: ArchConfig, x, positions):
 
 
 def mla_forward(p, cfg: ArchConfig, x, *, positions=None, chunk: int = 0,
-                return_kv: bool = False):
+                return_kv: bool = False, ctx=None):
     """Training / prefill MLA (causal, optional sliding window), through
-    `_full_attn` with one query head per key head.  With return_kv=True
-    also returns the latent (c_kv, k_pe) that seeds the decode cache."""
+    `_full_attn` with one query head per key head (on a mesh with
+    attn_shard="explicit", `sharded_causal_attention`, head-parallel where
+    the heads divide `model`).  With return_kv=True also returns the latent
+    (c_kv, k_pe) that seeds the decode cache."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
@@ -259,7 +306,12 @@ def mla_forward(p, cfg: ArchConfig, x, *, positions=None, chunk: int = 0,
     k, v = _mla_kv_from_latent(p, cfg, c_kv, k_pe)
     q = _mla_q(p, cfg, x, positions)
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
-    out = _full_attn(q[:, :, :, None, :], k, v, scale, cfg.sliding_window, chunk)[:, :, :, 0]
+    if meshed(ctx) and ctx.attn_shard == "explicit":
+        out = sharded_causal_attention(q[:, :, :, None, :], k, v, scale, cfg.sliding_window,
+                                       chunk, ctx)[:, :, :, 0]
+    else:
+        out = _full_attn(q[:, :, :, None, :], k, v, scale, cfg.sliding_window,
+                         chunk)[:, :, :, 0]
     y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
     if return_kv:
         return y, (c_kv, k_pe)

@@ -51,6 +51,7 @@ aux is the MoE layers' summed load-balance loss (f32; 0 without them).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -59,6 +60,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv6
+from ..sharding import comm
+from ..sharding.ctx import ShardCtx, meshed
+from ..sharding.params import gather_params
+from ..sharding.partition import param_shardings
 from .attention import (cross_attn, cross_attn_init, gqa_decode, gqa_forward, gqa_init,
                         init_kv_cache, init_mla_cache, mla_decode, mla_forward, mla_init)
 from .layers import (DTYPE, MetaGenerator, dense, dense_init, normal_bf16, rmsnorm,
@@ -73,6 +78,7 @@ __all__ = [
     "stage_plan",
     "init_params",
     "param_shapes",
+    "param_specs",
     "params_from_jax",
     "forward",
     "lm_loss",
@@ -176,7 +182,7 @@ def _ported_plan(cfg: ArchConfig) -> list[Stage]:
 # Parameters
 # ==========================================================================
 
-def _init_sublayer(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind):
+def _init_sublayer(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind, ep_size: int = 1):
     p: dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, gen.device)}
     if kind.mixer == "attn":
         p["attn"] = gqa_init(gen, cfg)
@@ -193,14 +199,15 @@ def _init_sublayer(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind):
     if kind.ffn == "dense":
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.ffn_dense)
     elif kind.ffn == "moe":
-        p["moe"] = moe_init(gen, cfg)
+        p["moe"] = moe_init(gen, cfg, ep_size=ep_size)
     return p
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator):
+def init_params(cfg: ArchConfig, gen: torch.Generator, *, ep_size: int = 1):
     """Random parameters on `gen`'s device, drawn from `gen` with the JAX
     package's distributions (normal * scale stored bf16, f32 norms, RWKV
-    w0 = -6 and u = 0; experts unpadded, as the JAX package's ep_size 1;
+    w0 = -6 and u = 0; experts zero-probability padded to a multiple of
+    the expert-parallel degree `ep_size`, as the JAX package pads them;
     with cfg.mtp the top-level `mtp_ln` and `mtp_head`; for an
     encoder-decoder the `encoder` layers and `enc_final_ln`).  The two
     frameworks draw different numbers from one seed: tests hand the JAX
@@ -213,7 +220,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
     }
     for si, st in enumerate(stages):
         for li, kind in enumerate(st.pattern):
-            p[f"s{si}_l{li}"] = [_init_sublayer(gen, cfg, kind) for _ in range(st.repeats)]
+            p[f"s{si}_l{li}"] = [_init_sublayer(gen, cfg, kind, ep_size)
+                                 for _ in range(st.repeats)]
     if cfg.is_encoder_decoder:
         p["encoder"] = [_init_sublayer(gen, cfg, ENCODER_KIND)
                         for _ in range(cfg.n_encoder_layers)]
@@ -224,11 +232,24 @@ def init_params(cfg: ArchConfig, gen: torch.Generator):
     return p
 
 
-def param_shapes(cfg: ArchConfig):
+def param_shapes(cfg: ArchConfig, *, ep_size: int = 1):
     """`init_params`' exact tree (keys, per-layer lists, shapes, dtypes) as
     tensors on the meta device: nothing drawn, no storage (the port's
     counterpart of `jax.eval_shape(init_params)`)."""
-    return init_params(cfg, MetaGenerator())
+    return init_params(cfg, MetaGenerator(), ep_size=ep_size)
+
+
+@functools.lru_cache(maxsize=16)
+def _param_specs(cfg: ArchConfig, mesh_items: tuple, ep_size: int) -> dict:
+    return param_shardings(param_shapes(cfg, ep_size=ep_size), dict(mesh_items))
+
+
+def param_specs(cfg: ArchConfig, mesh, ep_size: int) -> dict:
+    """{path: spec} (`sharding.partition.param_shardings`) of
+    `init_params(cfg, ep_size=ep_size)`'s tree at the shape of `mesh` (a
+    `DeviceMesh` or {axis: size}), from the shapes alone."""
+    from ..launch.mesh import mesh_shape
+    return _param_specs(cfg, tuple(sorted(mesh_shape(mesh).items())), ep_size)
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -290,6 +311,7 @@ class _Extras:
     mrope_pos: Any = None
     enc_out: Any = None
     chunk: int = 0
+    ctx: Any = None
 
 
 def _sublayer_full(cfg, kind: LayerKind, p, x, ex: _Extras, want_cache: bool):
@@ -300,18 +322,20 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, ex: _Extras, want_cache: bool):
     if kind.mixer == "attn":
         if want_cache:
             h, (k_, v_) = gqa_forward(p["attn"], cfg, h_in, positions=ex.positions,
-                                      mrope_pos=ex.mrope_pos, chunk=ex.chunk, return_kv=True)
+                                      mrope_pos=ex.mrope_pos, chunk=ex.chunk, return_kv=True,
+                                      ctx=ex.ctx)
             cache = {"k": k_, "v": v_}
         else:
             h = gqa_forward(p["attn"], cfg, h_in, positions=ex.positions,
-                            mrope_pos=ex.mrope_pos, chunk=ex.chunk)
+                            mrope_pos=ex.mrope_pos, chunk=ex.chunk, ctx=ex.ctx)
     elif kind.mixer == "mla":
         if want_cache:
             h, (ckv, kpe) = mla_forward(p["attn"], cfg, h_in, positions=ex.positions,
-                                        chunk=ex.chunk, return_kv=True)
+                                        chunk=ex.chunk, return_kv=True, ctx=ex.ctx)
             cache = {"c_kv": ckv, "k_pe": kpe}
         else:
-            h = mla_forward(p["attn"], cfg, h_in, positions=ex.positions, chunk=ex.chunk)
+            h = mla_forward(p["attn"], cfg, h_in, positions=ex.positions, chunk=ex.chunk,
+                            ctx=ex.ctx)
     elif kind.mixer == "mamba":
         h, st = mamba_forward(p["mamba"], cfg, h_in)
         if want_cache:
@@ -327,7 +351,7 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, ex: _Extras, want_cache: bool):
     if kind.ffn == "dense":
         x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
     elif kind.ffn == "moe":
-        y, aux = moe_apply(p["moe"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
+        y, aux = moe_apply(p["moe"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps), ex.ctx)
         x = x + y
     else:
         cm_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -371,7 +395,7 @@ def _encode_audio(cfg: ArchConfig, params, frames, *, remat: bool = False):
 
 
 def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headroom: int = 0,
-            remat: bool = False):
+            remat: bool = False, ctx: ShardCtx | None = None):
     """mode: "train" -> (logits, aux), with cfg.mtp (logits, aux,
     mtp_logits), the MTP head on the final normed hidden state; "prefill"
     -> (logits, aux, cache).
@@ -384,8 +408,19 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
     cache_headroom: extra decode slots to allocate in the prefill cache
     (full-attention configs need >= the number of tokens to decode).
     remat (train mode): keep only each sublayer's input for the backward
-    pass and recompute the sublayer there (torch.utils.checkpoint)."""
+    pass and recompute the sublayer there (torch.utils.checkpoint).
+    ctx (`sharding.ctx.ShardCtx`): None or mesh=None is the single-device
+    path; on a mesh, `params` are this rank's blocks
+    (`sharding.params.shard_tree`), gathered whole for the dense layers
+    (`sharding.params.gather_params`), the batch is this rank's data shard,
+    the MoE expert-parallel and, with attn_shard="explicit", attention
+    sharded over `model`.  The residual stream and the logits stay this
+    rank's data shard, whole over `model` on every model rank: the layout
+    the JAX package's `_shard_act` and logits constraints ask of GSPMD,
+    held by the per-rank code itself."""
     stages = _ported_plan(cfg)
+    if meshed(ctx):
+        params = gather_params(params, param_specs(cfg, ctx.mesh, ctx.ep_size), ctx)
     want_cache = mode == "prefill"
     h = _embed(cfg, params, batch)
     b, s, _ = h.shape
@@ -395,7 +430,7 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
         mrope_pos=batch.get("mrope_pos"),
         enc_out=(_encode_audio(cfg, params, batch["enc_frames"], remat=remat)
                  if cfg.is_encoder_decoder else None),
-        chunk=ATTN_CHUNK if s > 2 * ATTN_CHUNK else 0)
+        chunk=ATTN_CHUNK if s > 2 * ATTN_CHUNK else 0, ctx=ctx)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     all_caches = []
     for si, st in enumerate(stages):
@@ -423,7 +458,8 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
                                                 ex.enc_out)
 
 
-def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False):
+def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False,
+            ctx: ShardCtx | None = None):
     """Selection-weighted causal-LM loss: the FL aggregation of eq. (34)
     folded into the loss, so one backward pass gives the weighted FedAvg
     gradient.  batch["fl_weights"] (B,) f32 carries alpha_n * beta_n * S_n
@@ -432,8 +468,14 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False):
     (its logits at t against labels at t + 1) adds mtp_weight times its
     weighted mean.  Returns (loss + router_aux_coef * aux, {"aux": aux});
     aux is the MoE layers' summed load-balance loss (0 without MoE
-    layers)."""
-    out = forward(cfg, params, batch, mode="train", remat=remat)
+    layers).
+
+    With a meshed `ctx` the batch is this rank's data shard and the loss
+    returned is this rank's share: its rows' weighted NLL over the whole
+    batch's weight sum (all-reduced over the data axes), plus the aux term
+    over the data shard count, so the shares sum over the data axes to the
+    whole batch's loss and their gradients to its gradient."""
+    out = forward(cfg, params, batch, mode="train", remat=remat, ctx=ctx)
     logits, aux = out[0], out[1]
     labels = batch["labels"].long()
     w = batch.get("fl_weights")
@@ -441,12 +483,17 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False):
         w = torch.ones(labels.shape[0], dtype=torch.float32, device=logits.device)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]            # (B, S)
-    wsum = torch.clamp(w.sum(), min=1e-9)
+    wsum, n_shares = w.sum(), 1
+    if meshed(ctx) and ctx.batch_sharded:
+        wsum, n_shares = comm.all_reduce_(wsum.detach().clone(), ctx.dp_group()), ctx.dp_size
+    wsum = torch.clamp(wsum, min=1e-9)
     loss = (nll.mean(dim=-1) * w).sum() / wsum
     if cfg.mtp:
         lp2 = torch.log_softmax(out[2][:, :-1].float(), dim=-1)
         nll2 = -torch.gather(lp2, -1, labels[:, 1:, None])[..., 0]
         loss = loss + cfg.mtp_weight * (nll2.mean(dim=-1) * w).sum() / wsum
+    if n_shares > 1:
+        return loss + cfg.router_aux_coef * aux / n_shares, {"aux": aux}
     return loss + cfg.router_aux_coef * aux, {"aux": aux}
 
 
@@ -588,7 +635,7 @@ def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos, ex: _Extras
     if kind.ffn == "dense":
         x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
     elif kind.ffn == "moe":   # aux computed and dropped, as in the JAX package's decode
-        x = x + moe_apply(p["moe"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))[0]
+        x = x + moe_apply(p["moe"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps), ex.ctx)[0]
     else:
         cm_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
         y, prev = rwkv6_channel_mix(p["rwkv"], cfg, cm_in, c["cm_prev"][i])
@@ -597,17 +644,21 @@ def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos, ex: _Extras
     return x
 
 
-def decode_step(cfg: ArchConfig, params, batch, cache):
+def decode_step(cfg: ArchConfig, params, batch, cache, ctx: ShardCtx | None = None):
     """One-token decode. batch: {"token": (B, 1) integer tensor, "pos": ()
     integer tensor, the global position, and with cfg.use_mrope
     "mrope_pos": (B, 1, 3), all on the parameters' device}.
     Updates `cache` IN PLACE (ring writes, write index, recurrent states;
     an encoder-decoder's cache["enc_out"] is read by every cross-attention
     and never written) and returns (logits (B, 1, V), cache); pass
-    `clone_cache(cache)` to keep the old one."""
+    `clone_cache(cache)` to keep the old one.  A meshed `ctx` works as in
+    `forward`: this rank's parameter blocks and batch shard, the MoE
+    expert-parallel."""
     cur_pos = batch["pos"]
+    if meshed(ctx):
+        params = gather_params(params, param_specs(cfg, ctx.mesh, ctx.ep_size), ctx)
     h = params["embed"]["w"][batch["token"].long()]
-    ex = _Extras(mrope_pos=batch.get("mrope_pos"), enc_out=cache.get("enc_out"))
+    ex = _Extras(mrope_pos=batch.get("mrope_pos"), enc_out=cache.get("enc_out"), ctx=ctx)
     for si, st in enumerate(_ported_plan(cfg)):
         for rep in range(st.repeats):
             for li, kind in enumerate(st.pattern):

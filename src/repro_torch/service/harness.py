@@ -201,8 +201,9 @@ class SustainedService:
         beta_b = np.broadcast_to(self._beta[None, None, :], shp)
         solve = (solve_pairs_fused if self._ra_solver == "fused"
                  else solve_pairs_step)
+        kw = {"shard": False} if self._ra_solver == "fused" else {}
         flat = solve(beta_b.reshape(-1), tr.h2_all.reshape(-1), self.wcfg,
-                     emax_b.reshape(-1), backend=self._ra_backend, device=self.device)
+                     emax_b.reshape(-1), backend=self._ra_backend, device=self.device, **kw)
         return RAResult(**{f.name: np.asarray(getattr(flat, f.name)).reshape(shp)
                            for f in dataclasses.fields(RAResult)})
 

@@ -7,22 +7,86 @@ contribution is scaled by its Stackelberg selection weight
 (batch["fl_weights"]), so one backward pass gives the weighted FedAvg
 gradient.  The serving steps live in `serve_step.py` and are re-exported
 here, where the JAX package has them.
+
+On a mesh (`ctx=ShardCtx(mesh=...)`, per-rank code under
+`torch.distributed`), each rank holds its blocks of the parameters and
+optimizer state (`sharding.params.shard_tree`) and its data shard of the
+batch; the step all-reduces every gradient over the data axes (each
+parameter is replicated over them; the gradient of its `model` block is
+already complete, `sharding.comm`), takes the global norm over each
+sharded leaf's blocks once (their squares summed over `model`) and each
+replicated leaf once, and updates its blocks in place or functionally as
+unsharded.  The JAX package gets the same from the gradient all-reduce
+XLA inserts.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ArchConfig
-from ..models.transformer import lm_loss
+from ..models.transformer import lm_loss, param_specs
+from ..sharding import comm
+from ..sharding.ctx import ShardCtx, meshed
+from ..sharding.partition import leaves_with_path
 from .optimizer import Optimizer, _clip_scale, apply_updates, global_norm
 from .serve_step import make_prefill_step, make_serve_step
 from .tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["make_train_step", "make_prefill_step", "make_serve_step"]
+__all__ = ["make_train_step", "make_grad_fn", "make_prefill_step", "make_serve_step"]
+
+
+def _meshed_reduce(grads: list, loss: torch.Tensor, sharded: list[bool], ctx: ShardCtx):
+    """The meshed step's reductions, in place on `grads`: each gradient
+    summed over the data axes, the loss's shares likewise; the global norm
+    over every sharded leaf's blocks (summed over `model`) and every
+    replicated leaf once.  Returns (loss, grad_norm)."""
+    loss = loss.detach().clone()
+    if ctx.batch_sharded:
+        group = ctx.dp_group()
+        for g in grads:
+            comm.all_reduce_(g, group)
+        comm.all_reduce_(loss, group)
+    sq = [torch.zeros((), dtype=torch.float32, device=loss.device) for _ in range(2)]
+    for g, is_sharded in zip(grads, sharded):
+        sq[is_sharded] = sq[is_sharded] + torch.sum(torch.square(g.to(torch.float32)))
+    comm.all_reduce_(sq[1], ctx.group("model"))
+    return loss, torch.sqrt(sq[0] + sq[1])
+
+
+def make_grad_fn(cfg: ArchConfig, *, remat: bool = True, ctx: ShardCtx | None = None):
+    """Returns grad_fn(params, batch) -> (grads, metrics): the gradient of
+    `lm_loss` by autograd as a list in `tree_leaves(params)` order (zeros
+    for a leaf the loss does not reach) and the metrics {"loss",
+    "grad_norm", "aux"} on the parameters' device.  The gradient half of
+    `make_train_step`'s step.  With a meshed `ctx`: this rank's blocks of
+    the gradient, summed over the data axes, the whole batch's loss and
+    the global norm (the module docstring)."""
+    if meshed(ctx):
+        specs = param_specs(cfg, ctx.mesh, ctx.ep_size)
+
+    def grad_fn(params, batch):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, extras = lm_loss(cfg, tree_unflatten(params, leaves), batch, remat=remat,
+                                   ctx=ctx)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        del leaves
+        if meshed(ctx):
+            sharded = [any(e is not None for e in specs[path])
+                       for path, _ in leaves_with_path(params)]
+            loss, gnorm = _meshed_reduce(grads, loss, sharded, ctx)
+        else:
+            gnorm = global_norm(tree_unflatten(params, grads))
+        return grads, {"loss": loss.detach(), "grad_norm": gnorm,
+                       "aux": extras["aux"].detach()}
+
+    return grad_fn
 
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
-                    clip_norm: float = 1.0, donate: bool = False):
+                    clip_norm: float = 1.0, donate: bool = False,
+                    ctx: ShardCtx | None = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): the loss and its gradient by autograd, the gradient's global
     norm, the clip to `clip_norm` (none if 0), the optimizer update.  The
@@ -39,7 +103,13 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
 
     The port's K4 and K5 kernels have no backward, nor do the JAX
     package's Pallas kernels, so a config with attn_impl or rwkv_wkv_impl
-    "pallas" is refused: training runs the "ref" paths."""
+    "pallas" is refused: training runs the "ref" paths.
+
+    ctx: None (or mesh=None) is the single-device step above; a meshed
+    ShardCtx runs the per-rank step of the module docstring on this rank's
+    parameter and state blocks and batch shard (the metrics: the whole
+    batch's loss, the global gradient norm, the whole batch's aux).  Its
+    donated form is bitwise its functional form on the same mesh."""
     for field, kernel in (("attn_impl", "flash_attention (K4)"),
                           ("rwkv_wkv_impl", "rwkv6_wkv (K5)")):
         if getattr(cfg, field) == "pallas":
@@ -52,15 +122,11 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
                          "needs an elementwise optimizer (sgd, momentum, adam, adamw); this "
                          "one (Adafactor, or a chain) has no in-place update: pass donate=False")
 
+    grad_fn = make_grad_fn(cfg, remat=remat, ctx=ctx)
+
     def train_step(params, opt_state, batch):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        with torch.enable_grad():
-            loss, extras = lm_loss(cfg, tree_unflatten(params, leaves), batch, remat=remat)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        del leaves
-        gnorm = global_norm(tree_unflatten(params, grads))
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "aux": extras["aux"].detach()}
+        grads, metrics = grad_fn(params, batch)
+        gnorm = metrics["grad_norm"]
         if donate:
             scale = _clip_scale(gnorm, clip_norm, 1e-9) if clip_norm > 0 else None
             opt_state, updates = opt.donate(opt_state, params)

@@ -1,0 +1,151 @@
+"""Rank functions of tests/test_torch_multidevice.py: what each rank of a
+(data=2, model=2) gloo world runs.  Spawned processes import this module
+by name, so it imports torch and the port only (no JAX): the oracles are
+computed by the test process, which hands inputs over as torch tensors
+and takes results back as float64 numpy.
+"""
+from __future__ import annotations
+
+import copy
+import time
+
+import numpy as np
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import smoke_mesh
+from repro_torch.launch.multidevice_demo import demo_ctx, leaf_gaps, shard_rows
+from repro_torch.models import moe as TM
+from repro_torch.models.attention import sharded_causal_attention
+from repro_torch.models.transformer import decode_step, forward, param_specs
+from repro_torch.sharding.ctx import ShardCtx
+from repro_torch.sharding.params import shard_tree
+from repro_torch.sharding.partition import leaves_with_path
+from repro_torch.train.optimizer import make_optimizer
+from repro_torch.train.train_step import make_grad_fn, make_train_step
+from repro_torch.train.tree import tree_leaves, tree_unflatten
+
+DATA, MODEL = 2, 2
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().numpy().astype(np.float64)
+
+
+def _ctx(attn_shard: str = "auto", multi_pod: bool = False) -> ShardCtx:
+    """(data=2, model=2), or with multi_pod (pod=2, data=1, model=2) whose
+    batch axes are ("pod", "data"): the same ranks in the same places."""
+    torch.set_num_threads(1)
+    if multi_pod:
+        mesh = init_device_mesh("cpu", (DATA, 1, MODEL), mesh_dim_names=("pod", "data", "model"))
+        return ShardCtx(mesh=mesh, dp_axes=("pod", "data"), attn_shard=attn_shard)
+    return ShardCtx(mesh=smoke_mesh(DATA, MODEL, "cpu"), attn_shard=attn_shard)
+
+
+def moe_rank(rank, cfg, moe_p: dict, x: torch.Tensor, cot: torch.Tensor) -> dict:
+    """The expert-parallel `moe_apply` on this rank's data shard with its
+    experts: y, aux, the routes, and the gradients of <y, cot> + aux of
+    the input, the router and this rank's experts (aux counted once over
+    the data shards)."""
+    ctx = _ctx()
+    nl = moe_p["gate"].shape[0] // MODEL
+    r = ctx.rank("model")
+    p = {"router": {"w": moe_p["router"]["w"].clone().requires_grad_(True)}}
+    for name in ("gate", "up", "down"):
+        p[name] = moe_p[name][r * nl:(r + 1) * nl].clone().requires_grad_(True)
+    x_l = shard_rows(x, ctx).clone().requires_grad_(True)
+    y, aux = TM.moe_apply(p, cfg, x_l, ctx)
+    # Each data shard adds its share of the one aux, as `lm_loss` does.
+    (torch.sum(y.float() * shard_rows(cot, ctx)) + aux / DATA).backward()
+    _, _, top_e = TM._route(x_l.reshape(-1, x.shape[-1]), p["router"]["w"], cfg.top_k)
+    return {"y": _np(y), "aux": float(aux), "top_e": top_e.numpy(), "e_off": r * nl,
+            "data": ctx.dp_rank, "model": r, "gx": _np(x_l.grad),
+            "grouter": _np(p["router"]["w"].grad),
+            **{f"g{name}": _np(p[name].grad) for name in ("gate", "up", "down")}}
+
+
+def attn_rank(rank, qg, k, v, window: int, chunk: int, cot) -> dict:
+    """`sharded_causal_attention` on this rank's data shard, and the
+    gradients of <out, cot> of q, k and v."""
+    ctx = _ctx("explicit")
+    q_l, k_l, v_l = (shard_rows(t, ctx).clone().requires_grad_(True) for t in (qg, k, v))
+    out = sharded_causal_attention(q_l, k_l, v_l, qg.shape[-1] ** -0.5, window, chunk, ctx)
+    torch.sum(out * shard_rows(cot, ctx)).backward()
+    return {"out": _np(out), "gq": _np(q_l.grad), "gk": _np(k_l.grad), "gv": _np(v_l.grad),
+            "data": ctx.dp_rank}
+
+
+def train_rank(rank, arch: str, params: dict, batch: dict, attn_shard: str,
+               lr: float, multi_pod: bool = False) -> dict:
+    """One meshed AdamW step on this rank's blocks, functional and donated
+    (from one copy each): the metrics, this rank's blocks after the step
+    (paths as `leaves_with_path` gives them), and whether the donated step
+    gave the functional one's bits."""
+    ctx = _ctx(attn_shard, multi_pod)
+    cfg = get_config(arch)
+    local = shard_tree(params, param_specs(cfg, ctx.mesh, MODEL), ctx.mesh)
+    ex = {name: shard_rows(t, ctx) for name, t in batch.items()}
+    opt = make_optimizer("adamw", lr)
+    outs = {}
+    for donate in (False, True):
+        p0 = copy.deepcopy(local)
+        step = make_train_step(cfg, opt, remat=False, donate=donate, ctx=ctx)
+        outs[donate] = step(p0, opt.init(p0), ex)
+    bitwise = all(torch.equal(a, b) for (_, a), (_, b) in
+                  zip(leaves_with_path(outs[False][:2]), leaves_with_path(outs[True][:2])))
+    bitwise &= all(torch.equal(outs[False][2][k], outs[True][2][k]) for k in outs[False][2])
+    new, _, m = outs[True]
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "aux": float(m["aux"]), "donated_bitwise": bool(bitwise),
+            "params": {path: _np(t) for path, t in leaves_with_path(new)}}
+
+
+def grad_rank(rank, cfg, params: dict, batch: dict, want: list, data: int,
+              model: int) -> dict:
+    """The meshed gradient (`make_grad_fn`, attn_shard="explicit") on this
+    rank's blocks and data shard of a (data, model) mesh: the whole
+    batch's loss, the gradient norm, and each leaf's
+    ||g - want|| / ||want|| against this rank's blocks of `want` (whole
+    leaves in `tree_leaves` order)."""
+    torch.set_num_threads(1)
+    b, s = batch["tokens"].shape
+    ctx = demo_ctx(data, model, b, s, "explicit", "cpu")
+    specs = param_specs(cfg, ctx.mesh, model)
+    got, m = make_grad_fn(cfg, remat=False, ctx=ctx)(
+        shard_tree(params, specs, ctx.mesh), {k: shard_rows(v, ctx) for k, v in batch.items()})
+    want = tree_leaves(shard_tree(tree_unflatten(params, want), specs, ctx.mesh))
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "gaps": leaf_gaps(got, want)}
+
+
+def serve_rank(rank, arch: str, params: dict, tokens: torch.Tensor, prompt: int) -> dict:
+    """A meshed prefill of this rank's rows of tokens[:, :prompt], then
+    teacher-forced decode steps over the rest: the prefill's last logits
+    and every step's."""
+    ctx = _ctx("explicit")
+    cfg = get_config(arch)
+    local = shard_tree(params, param_specs(cfg, ctx.mesh, MODEL), ctx.mesh)
+    toks = shard_rows(tokens, ctx)
+    n_new = toks.shape[1] - prompt
+    logits, _, cache = forward(cfg, local, {"tokens": toks[:, :prompt]}, mode="prefill",
+                               cache_headroom=n_new, ctx=ctx)
+    steps = []
+    for d in range(n_new):
+        got, cache = decode_step(cfg, local, {"token": toks[:, prompt + d:prompt + d + 1],
+                                              "pos": torch.tensor(prompt + d)}, cache, ctx)
+        steps.append(_np(got[:, 0]))
+    return {"prefill": _np(logits), "decode": np.stack(steps, 1), "data": ctx.dp_rank}
+
+
+def hang_rank(rank, seconds: float):
+    """Rank 1 sleeps past any sensible timeout; the others return."""
+    if rank == 1:
+        time.sleep(seconds)
+    return rank
+
+
+def fail_rank(rank):
+    if rank == 1:
+        raise ValueError("rank 1 failed on purpose")
+    return rank

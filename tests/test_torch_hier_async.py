@@ -162,8 +162,8 @@ def test_uniform_clocks_any_buffers_degenerate_to_sync(monkeypatch):
     one at both tiers still commit everything together."""
     orig = hier._solve_hier_horizons
 
-    def flat_gamma(preps, solver, device, backend=None):
-        ras_list, secs = orig(preps, solver, device, backend)
+    def flat_gamma(*args, **kw):
+        ras_list, secs = orig(*args, **kw)
         return [[dataclasses.replace(ra, time_s=np.where(ra.feasible, 1.0, np.inf))
                  for ra in ras] for ras in ras_list], secs
 

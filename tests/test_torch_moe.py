@@ -302,8 +302,16 @@ def test_moe_gradients_match_jax():
 
 
 def test_ep_size_other_than_one_raises():
-    with pytest.raises(NotImplementedError, match="Across cards"):
-        TM.moe_init(torch.Generator().manual_seed(0), get_config(ARCH), ep_size=16)
+    """ep_size other than one pads the expert banks to a multiple of it, as
+    the JAX package's `moe_init` pads them (shapes and dtypes leaf for leaf);
+    nothing is refused."""
+    cfg = get_config(ARCH)
+    got = TM.moe_init(torch.Generator().manual_seed(0), cfg, ep_size=16)
+    want = jax.eval_shape(lambda: JM.moe_init(jax.random.PRNGKey(0), cfg, ep_size=16))
+    for name in ("gate", "up", "down"):
+        assert tuple(got[name].shape) == tuple(want[name].shape), name
+        assert got[name].shape[0] == TM.pad_experts(cfg.n_experts, 16)
+    assert tuple(got["router"]["w"].shape) == tuple(want["router"]["w"].shape)
     assert TM.pad_experts(40, 16) == JM.pad_experts(40, 16) == 48
 
 
