@@ -266,6 +266,20 @@ Phases, in order:
      one leaf by leaf (1e-3 of each leaf's norm, the gradient norm 1e-5),
      no kernel launched on it, the dry run's peak beside
      max_memory_allocated, then four demo steps; each part's wall time;
+ 19. the production mesh (run before the kernel list): (a) in phase 18's
+     world-of-one NCCL group, the meshed serving steps
+     (`make_prefill_step` / `make_serve_step` with a (1, 1) `ShardCtx`:
+     the per-sublayer gathers, the cache in `cache_shardings`' layout and
+     its flash-decoding combine) for granite-moe-3b-a800m at phase 18's
+     width and depth, a prefill and four greedy decode steps, held bitwise
+     to the unmeshed steps on the card (tokens, logits, every cache leaf),
+     no kernel launched on either; (b) in a subprocess (its fake process
+     group cannot share a process with the NCCL group), the dry run on the
+     production mesh, `python -m repro_torch.launch.dryrun --arch qwen2-7b
+     --shape train_4k` on 16x16 (rank 0 of a fake 256-rank group, meta
+     tensors): per-device arguments, temp, collective bytes by op and
+     `fits`, gated against this card's total memory (started beside phase
+     18, on the host's other cores); the phase's wall time;
  17. the kernel list as one JSON line (K4's launches per served arch,
      `serve_launches`, its D 80 check, `d80`, and its checks at
      whisper-base's and qwen2-vl-2b's shapes, `whisper_d64` and
@@ -292,6 +306,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -346,6 +361,7 @@ from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.train.optimizer import adamw, sgd  # noqa: E402
+from repro_torch.train.serve_step import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.train.train_step import make_grad_fn, make_train_step  # noqa: E402
 from repro_torch.train.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
@@ -356,6 +372,8 @@ from repro_torch.models.transformer import (forward, init_params, param_count,  
                                             param_specs)
 from repro_torch.models.small import get_small_model  # noqa: E402
 from repro_torch.scenarios import ScenarioStream  # noqa: E402
+from repro_torch.launch.mesh import smoke_mesh  # noqa: E402
+from repro_torch.sharding.ctx import ShardCtx  # noqa: E402
 from repro_torch.sharding.params import shard_tree  # noqa: E402
 from repro_torch.sharding.partition import leaves_with_path  # noqa: E402
 from repro_torch.service import ServiceConfig, SustainedService  # noqa: E402
@@ -3317,7 +3335,7 @@ class CallCount:
         setattr(self.owner, self.name, self.inner)
 
 
-def meshed_model_phase() -> dict:
+def meshed_model_phase(t_all: float) -> dict:
     """The meshed model as a world of one (NCCL, a (1, 1) mesh, HashStore):
     granite-moe-3b-a800m at full width and MESH["layers"] layers.  One
     `multidevice_demo.run_rank` step (attn_shard="explicit": the
@@ -3428,20 +3446,150 @@ def meshed_model_phase() -> dict:
         del demo
         gc.collect()
         torch.cuda.empty_cache()
+        phase_mark(19, t_all)
+        t19 = time.perf_counter()
+        serve = meshed_serve_phase(cfg)
+        line(f"phase 19 (a) wall_s={time.perf_counter() - t19:.1f} [{CARD}]")
     finally:
         dist.destroy_process_group()
-    return dict(loss_rel=loss_rel, max_diff=max_diff, grad_gap=gaps[worst], launches=launches)
+    return dict(loss_rel=loss_rel, max_diff=max_diff, grad_gap=gaps[worst], launches=launches,
+                serve=serve)
 
 
-def shard_phase(pair_sets: dict, batch: dict, hier_batch: dict) -> dict:
+# Phase 19 (a): granite at phase 18's width and depth, a prompt of
+# MESH_SERVE["prompt"] tokens for MESH_SERVE["batch"] rows, then
+# MESH_SERVE["new"] greedy decode steps.
+MESH_SERVE = dict(batch=4, prompt=256, new=4, seed=7)
+
+
+def meshed_serve_phase(cfg) -> dict:
+    """Phase 19 (a), inside phase 18's world-of-one NCCL group: the meshed
+    serving steps on a (1, 1) mesh (this rank's blocks, the per-sublayer
+    gathers, the cache in `cache_shardings`' layout read through the
+    flash-decoding combine) against the unmeshed steps from the same
+    weights: tokens, logits and every cache leaf after the prefill and
+    after each greedy step bitwise; no kernel launched on either."""
+    b, prompt, new = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_SERVE["new"]
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    gen = torch.Generator(DEV).manual_seed(MESH_SERVE["seed"])
+    tokens = torch.randint(0, cfg.vocab, (b, prompt), generator=gen, device=DEV)
+    ctx = ShardCtx(mesh=smoke_mesh(1, 1, "cuda"), attn_shard="explicit")
+    blocks = shard_tree(params, param_specs(cfg, ctx.mesh, 1), ctx.mesh)
+
+    def serve(weights, step_ctx) -> tuple[list, float]:
+        """[(token, logits, cache copy) after the prefill and each step],
+        the decode steps' mean milliseconds."""
+        prefill = make_prefill_step(cfg, cache_headroom=new, ctx=step_ctx)
+        step = make_serve_step(cfg, ctx=step_ctx)
+        with torch.no_grad():
+            logits, cache = prefill(weights, {"tokens": tokens})
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out = [(tok, logits, tf_mod.clone_cache(cache))]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(new):
+                tok, logits, cache = step(weights, {"token": tok,
+                                                    "pos": torch.tensor(prompt + i, device=DEV)},
+                                          cache)
+                out.append((tok, logits, tf_mod.clone_cache(cache)))
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / new * 1e3
+
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    meshed, meshed_ms = serve(blocks, ctx)
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    plain, plain_ms = serve(params, None)
+    equal = []
+    for (t1, l1, c1), (t2, l2, c2) in zip(meshed, plain):
+        leaves = [(a, c) for (_, a), (_, c) in zip(leaves_with_path(c1), leaves_with_path(c2))]
+        equal.append(torch.equal(t1, t2) and torch.equal(l1, l2)
+                     and len(leaves) == len(leaves_with_path(c2))
+                     and all(a.shape == c.shape and torch.equal(a, c) for a, c in leaves))
+    line(f"phase 19 (a) meshed serving {cfg.name} (full width, {cfg.n_layers} layers) on a "
+         f"(1, 1) mesh in phase 18's NCCL group: prefill {b} x {prompt} + {new} greedy steps, "
+         f"tokens, logits and every cache leaf bitwise the unmeshed steps after the prefill and "
+         f"each step: {all(equal)} ({sum(equal)} of {len(equal)}); decode ms/step meshed "
+         f"{meshed_ms:.2f} unmeshed {plain_ms:.2f}; kernel launches on the meshed serving path: "
+         + " ".join(f"{k}={v}" for k, v in launches.items()) + f" [{CARD}]")
+    if not all(equal):
+        raise AssertionError("phase 19 (a): the meshed serving steps differ from the unmeshed "
+                             "ones on a (1, 1) mesh")
+    if any(launches.values()):
+        raise AssertionError("phase 19 (a): a kernel launched on the meshed serving path")
+    del params, blocks, meshed, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(bitwise=all(equal), meshed_ms=meshed_ms, plain_ms=plain_ms)
+
+
+class MeshDryrun:
+    """Phase 19 (b): the dry run on the production mesh in a subprocess
+    (`python -m repro_torch.launch.dryrun`, 16x16, meta tensors on a fake
+    256-rank group; it touches no card).  Started on entering the block, so
+    it runs on the host's other cores beside phase 18; `finish` waits for
+    it, prints its lines and gates `fits`: 80 GiB and this card's total
+    memory.  Leaving the block kills it if it still runs."""
+
+    def __enter__(self):
+        src = str(Path(__file__).resolve().parent / "src")
+        env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        self.tmp = tempfile.TemporaryDirectory(prefix="mesh_dryrun_")
+        self.out = Path(self.tmp.name) / "dry.json"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen2-7b", "--shape",
+             "train_4k", "--detail", "--json", str(self.out)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+            cwd=self.tmp.name)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        self.tmp.cleanup()
+
+    def finish(self) -> dict:
+        t_wait = time.perf_counter()
+        stdout, stderr = self.proc.communicate(timeout=600)
+        waited = time.perf_counter() - t_wait
+        wall = time.perf_counter() - self.t0
+        for ln in stdout.splitlines():
+            line("  dryrun: " + ln)
+        if self.proc.returncode != 0:
+            line(stderr[-4000:])
+            raise AssertionError(f"phase 19 (b): the mesh dry run exited {self.proc.returncode}")
+        res = json.loads(self.out.read_text())["results"][0]
+        total = torch.cuda.get_device_properties(0).total_memory
+        need = res["argument_size_in_bytes"] + res["temp_size_in_bytes"]
+        coll = res["collectives"]
+        line(f"phase 19 (b) dry run on the production mesh (meta, fake group of "
+             f"{res['devices']} ranks, mesh {res['mesh']}, a subprocess beside phase 18: "
+             f"wall_s={wall:.1f}, waited for after it {waited:.1f}): qwen2-7b train_4k per device "
+             f"args {res['argument_size_in_bytes'] / 2**30:.2f} GiB + temp "
+             f"{res['temp_size_in_bytes'] / 2**30:.2f} GiB = {need / 2**30:.2f} GiB; collectives "
+             + " ".join(f"{k}={coll[k] / 2**20:.1f}MiB" for k in
+                        ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                         "collective-permute", "total"))
+             + f" count={coll['count']}; fits 80 GiB: {res['fits']}; this card's total_memory "
+             f"{total / 2**30:.2f} GiB: fits={need <= total} [{CARD}]")
+        if not (res["fits"] and need <= total):
+            raise AssertionError("phase 19 (b): qwen2-7b train_4k does not fit one card per "
+                                 "device on the production mesh")
+        return dict(res=res, total_memory=total, wall_s=wall, waited_s=waited)
+
+
+def shard_phase(pair_sets: dict, batch: dict, hier_batch: dict, t_all: float) -> dict:
     """Phase 18: the simulation's shard= (Γ and the groups) and the meshed
-    model, each part's wall time printed."""
+    model, each part's wall time printed; phase 19 (a) runs at its end, in
+    its NCCL group."""
     t0 = time.perf_counter()
     gamma = gamma_shard_phase(pair_sets)
     t1 = time.perf_counter()
     groups = group_shard_phase(batch, hier_batch)
     t2 = time.perf_counter()
-    model = meshed_model_phase()
+    model = meshed_model_phase(t_all)
     t3 = time.perf_counter()
     line(f"shard phase wall_s: gamma={t1 - t0:.1f} groups={t2 - t1:.1f} "
          f"meshed_model={t3 - t2:.1f} (sum {t3 - t0:.1f}) [{CARD}]")
@@ -3741,9 +3889,14 @@ def main() -> None:
     rng = np.random.default_rng(17)
     h2_77 = rng.exponential(size=(3, 4, 77)) * 3
     beta_77 = np.broadcast_to(rng.integers(5, 60, 77).astype(np.float64), h2_77.shape)
-    shard = shard_phase({"77x(3,4)": (beta_77, h2_77, None, None),
-                         "main path": (mb, mh, me, mcfg), "service segment": service["pairs"]},
-                        batch, hier_batch)
+    # 19 (b), the dry run on the production mesh, runs in a subprocess beside
+    # phase 18 (19 (a) runs in phase 18's NCCL group).
+    with MeshDryrun() as mesh_dry:
+        shard = shard_phase({"77x(3,4)": (beta_77, h2_77, None, None),
+                             "main path": (mb, mh, me, mcfg),
+                             "service segment": service["pairs"]},
+                            batch, hier_batch, t_all)
+        mesh_dry.finish()
 
     # ---- 17. kernel list ----------------------------------------------------
     phase_mark(17, t_all)

@@ -14,6 +14,13 @@ Two kinds of "across devices" live here:
     that every device has work queued before any shard's host waits
     (`map_shards`).  No collective is involved.
 
+`fake_mesh` is the dry run's mesh: torch's fake process group (rank 0
+of a 256- or 512-rank world, or any shape asked for; every collective is
+dispatched and returns at once) and a `DeviceMesh` of that shape on it,
+for per-rank code on meta tensors: the counterpart of the JAX dry run's
+512 forced host devices.  It is scoped: it refuses to start beside a
+process group already made, and destroys its own on exit.
+
 `emulate_devices(n)` is the counterpart of XLA's
 `--xla_force_host_platform_device_count`: inside it, `local_devices`
 returns n copies of the one device asked for, so the sharded paths run
@@ -34,7 +41,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["make_production_mesh", "dp_axes_of", "smoke_mesh", "mesh_shape",
+__all__ = ["make_production_mesh", "dp_axes_of", "smoke_mesh", "mesh_shape", "fake_mesh",
            "local_devices", "emulate_devices", "use_shards", "map_shards", "split_padded"]
 
 PRODUCTION_SHAPE = {False: (16, 16), True: (2, 16, 16)}
@@ -52,6 +59,33 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = N
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type or _device_type(), PRODUCTION_SHAPE[multi_pod],
                             mesh_dim_names=PRODUCTION_AXES[multi_pod])
+
+
+@contextlib.contextmanager
+def fake_mesh(*, multi_pod: bool = False, shape: dict | None = None):
+    """Within this block, the default process group is torch's fake one,
+    rank 0 of a world of the mesh's size, and the block gets its
+    `DeviceMesh` on "cpu": the production mesh ((data=16, model=16), or
+    with multi_pod (pod=2, data=16, model=16)), or `shape` ({axis: size})
+    when given.  Refuses (RuntimeError) when a default process group
+    already exists; destroys its own on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a default process group already exists; the dry run's "
+                           "fake group runs only in a process of its own")
+    if shape is None:
+        shape = dict(zip(PRODUCTION_AXES[multi_pod], PRODUCTION_SHAPE[multi_pod]))
+    world = 1
+    for n in shape.values():
+        world *= n
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield init_device_mesh("cpu", tuple(shape.values()), mesh_dim_names=tuple(shape))
+    finally:
+        dist.destroy_process_group()
 
 
 def dp_axes_of(mesh) -> tuple:

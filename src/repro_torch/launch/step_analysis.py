@@ -1,5 +1,6 @@
-"""Counted FLOPs and peak live bytes of one step, run on meta tensors (the
-port's counterpart of the JAX package's `launch/hlo_analysis.py`).
+"""Counted FLOPs, peak live bytes and collective bytes of one step, run on
+meta tensors (the port's counterpart of the JAX package's
+`launch/hlo_analysis.py`).
 
 The JAX package parses compiled HLO for two reasons: XLA's static cost
 analysis counts a scanned layer's body once, not once per layer, and it
@@ -33,11 +34,26 @@ its stacked copy), as at the smoke sizes the tests run it at.  `dryrun.py`
 uses it for the train and prefill steps of configs whose layers loop over
 tokens (`loops_over_tokens`).
 
-`collective_stats` keeps the JAX result's keys; on one card each is 0.
+The collectives of a meshed step are counted as they are dispatched
+(`CollectiveBytes`, the counterpart of `hlo_analysis.collective_stats`'
+reading of the post-SPMD HLO): every `c10d` collective (all-reduce,
+all-gather, reduce-scatter, all-to-all, broadcast) and every
+`_c10d_functional` one that reaches the dispatcher, on meta tensors under
+torch's fake process group (the dry run on the production mesh) as on a
+real one.  Each is priced as the JAX result prices it: the bytes of the
+op's result on one device (the gathered tensor of an all-gather, the
+tensor of an all-reduce, the scattered block of a reduce-scatter, the
+output of an all-to-all; a broadcast, which the JAX result has no key
+for, counts under "collective-permute").  `depth_scaled` scales them by
+the stage's repeats as `hlo_analysis` scales a while body by its trip
+count.  `collective_stats(counted)` returns the JAX result's keys; with
+no run every one is 0, as on one card.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import sys
 import weakref
 
 import torch
@@ -45,18 +61,117 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
-__all__ = ["COLLECTIVES", "collective_stats", "LiveBytes", "analyze_step", "depth_scaled",
-           "loops_over_tokens", "tree_nbytes"]
+__all__ = ["COLLECTIVES", "collective_stats", "CollectiveBytes", "LiveBytes", "analyze_step",
+           "depth_scaled", "loops_over_tokens", "tree_nbytes"]
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 
+# Dispatcher op name -> (JAX result key, where the op's result is: "args0"
+# the first argument (the c10d ops write into it), "out" the return value).
+_OPS = {
+    "c10d::allreduce_": ("all-reduce", "args0"),
+    "c10d::allreduce_coalesced_": ("all-reduce", "args0"),
+    "c10d::allgather_": ("all-gather", "args0"),
+    "c10d::_allgather_base_": ("all-gather", "args0"),
+    "c10d::allgather_coalesced_": ("all-gather", "args0"),
+    "c10d::allgather_into_tensor_coalesced_": ("all-gather", "args0"),
+    "c10d::reduce_scatter_": ("reduce-scatter", "args0"),
+    "c10d::_reduce_scatter_base_": ("reduce-scatter", "args0"),
+    "c10d::reduce_scatter_tensor_coalesced_": ("reduce-scatter", "args0"),
+    "c10d::alltoall_": ("all-to-all", "args0"),
+    "c10d::alltoall_base_": ("all-to-all", "args0"),
+    "c10d::broadcast_": ("collective-permute", "args0"),
+    "_c10d_functional::all_reduce": ("all-reduce", "out"),
+    "_c10d_functional::all_reduce_coalesced": ("all-reduce", "out"),
+    "_c10d_functional::all_gather_into_tensor": ("all-gather", "out"),
+    "_c10d_functional::all_gather_into_tensor_coalesced": ("all-gather", "out"),
+    "_c10d_functional::reduce_scatter_tensor": ("reduce-scatter", "out"),
+    "_c10d_functional::reduce_scatter_tensor_coalesced": ("reduce-scatter", "out"),
+    "_c10d_functional::all_to_all_single": ("all-to-all", "out"),
+    "_c10d_functional::broadcast": ("collective-permute", "out"),
+}
+_PACKAGE = __name__.rsplit(".", 2)[0]          # "repro_torch"
+_COMM = f"{_PACKAGE}.sharding.comm"
 
-def collective_stats(*_args, **_kw) -> dict:
-    """The JAX package's `collective_stats` keys for a one-card step: no
-    collective runs, so every byte count and the count are 0."""
+
+_PLUMBING = (f"{_PACKAGE}.sharding.", f"{_PACKAGE}.models.transformer._whole")
+
+
+def _call_site() -> str:
+    """The port's code that called the collective: the innermost frame of
+    the package outside `sharding.comm` ("models.moe._ep_moe"); behind a
+    parameter gather, the gather and the code it gathers for
+    ("sharding.params.gather_params < models.transformer._sublayer_full");
+    in a backward pass the `sharding.comm` operator whose backward called
+    it ("sharding.comm._CopyTo.backward"); marked "[remat]" where a remat
+    boundary's recompute ran it."""
+    frame, site, remat = sys._getframe(2), None, False
+    while frame is not None:
+        mod, code = frame.f_globals.get("__name__", ""), frame.f_code
+        name = f"{mod[len(_PACKAGE) + 1:]}.{code.co_qualname.split('.<locals>')[0]}"
+        if mod == "torch.utils.checkpoint":
+            remat |= code.co_name == "recompute_fn"
+        elif mod == _COMM:
+            if code.co_name == "backward" and site is None:
+                site = name
+                break
+        elif mod.startswith(_PACKAGE + ".") and mod != __name__:
+            plumbing = f"{mod}.{code.co_qualname}".startswith(_PLUMBING)
+            if site is None:
+                site = name if plumbing else None
+                if not plumbing:
+                    site = name
+                    break
+            elif not plumbing:
+                site = f"{site} < {name}"
+                break
+        frame = frame.f_back
+    while frame is not None and not remat:
+        remat = (frame.f_globals.get("__name__") == "torch.utils.checkpoint"
+                 and frame.f_code.co_name == "recompute_fn")
+        frame = frame.f_back
+    return (site or "?") + (" [remat]" if remat else "")
+
+
+class CollectiveBytes(TorchDispatchMode):
+    """Counts the collectives dispatched while the mode is on: `calls`
+    {(JAX op key, call site, bytes of the result on this device): number
+    of calls} (`_OPS`, `_call_site`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: collections.Counter = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        op = _OPS.get(func._schema.name)
+        if op is not None:
+            key, where = op
+            nbytes = sum(t.nbytes for t in _tensors(args[0] if where == "args0" else out))
+            self.calls[(key, _call_site(), int(nbytes))] += 1
+        return out
+
+
+def collective_stats(calls: dict | None = None, *, detail: bool = False,
+                     raw: dict | None = None) -> dict:
+    """The JAX package's `collective_stats` keys from counted collectives
+    ({(op, site, bytes): calls}, `CollectiveBytes.calls`, depth-scaled
+    where the step was): each op's bytes per device, "total", "raw_total"
+    (the bytes of `raw`, the calls as they ran, default `calls`) and
+    "count" (the number of calls in `raw`); with `detail` "top", the 15
+    largest as (op, bytes, repeats, site), repeats the calls of that op,
+    site and size.  With no calls (one card) every number is 0."""
+    calls, raw = dict(calls or {}), dict(raw if raw is not None else calls or {})
     out = {k: 0 for k in COLLECTIVES}
-    out.update(total=0, raw_total=0, count=0)
+    for (op, _, nbytes), n in calls.items():
+        out[op] += nbytes * n
+    out["total"] = sum(out[k] for k in COLLECTIVES)
+    out["raw_total"] = sum(nbytes * n for (_, _, nbytes), n in raw.items())
+    out["count"] = sum(raw.values())
+    if detail:
+        items = [(op, nbytes * n, n, site) for (op, site, nbytes), n in calls.items()]
+        out["top"] = sorted(items, key=lambda t: (-t[1], t[0], t[3]))[:15]
     return out
 
 
@@ -109,13 +224,18 @@ class LiveBytes(TorchDispatchMode):
 
 def analyze_step(fn, *args) -> dict:
     """Run fn(*args) once, every tensor on the meta device, under
-    FlopCounterMode and `LiveBytes`: {"flops": counted FLOPs,
-    "flops_by_op": {op: FLOPs}, "temp_size_in_bytes": peak bytes of the
-    storages the step allocated (outputs included), "output_size_in_bytes":
-    the outputs' bytes outside the arguments}."""
+    FlopCounterMode, `LiveBytes` and `CollectiveBytes`: {"flops": counted
+    FLOPs, "flops_by_op": {op: FLOPs}, "temp_size_in_bytes": peak bytes of
+    the storages the step allocated (outputs included),
+    "output_size_in_bytes": the outputs' bytes outside the arguments,
+    "collective_calls": `CollectiveBytes.calls` (empty off a mesh) and
+    "raw_collective_calls", the calls as they ran (the same here;
+    `depth_scaled` scales the first and keeps its one-repeat run's as the
+    second, as an HLO module holds a while body once)}."""
     counter = FlopCounterMode(display=False)
     live = LiveBytes(known=args)
-    with counter, live:
+    coll = CollectiveBytes()
+    with counter, live, coll:
         out = fn(*args)
     arg_keys = live.known
     outs = {t.untyped_storage()._cdata: t.untyped_storage().nbytes() for t in _tensors(out)}
@@ -123,7 +243,9 @@ def analyze_step(fn, *args) -> dict:
     return {"flops": int(counter.get_total_flops()),
             "flops_by_op": by_op,
             "temp_size_in_bytes": int(live.peak),
-            "output_size_in_bytes": int(sum(n for k, n in outs.items() if k not in arg_keys))}
+            "output_size_in_bytes": int(sum(n for k, n in outs.items() if k not in arg_keys)),
+            "collective_calls": dict(coll.calls),
+            "raw_collective_calls": dict(coll.calls)}
 
 
 def loops_over_tokens(cfg, kind: str) -> bool:
@@ -163,10 +285,14 @@ def depth_scaled(cfg, run) -> dict:
         return x1 + (reps - 1) * (x2 - x1)
 
     ops = set(r1["flops_by_op"]) | set(r2["flops_by_op"])
+    c1, c2 = r1["collective_calls"], r2["collective_calls"]
+    calls = {key: scale(c1.get(key, 0), c2.get(key, 0)) for key in set(c1) | set(c2)}
     return {"flops": scale(r1["flops"], r2["flops"]),
             "flops_by_op": {op: scale(r1["flops_by_op"].get(op, 0), r2["flops_by_op"].get(op, 0))
                             for op in ops},
             "temp_size_in_bytes": scale(r1["temp_size_in_bytes"], r2["temp_size_in_bytes"]),
             "output_size_in_bytes": scale(r1["output_size_in_bytes"],
                                           r2["output_size_in_bytes"]),
+            "collective_calls": {key: n for key, n in calls.items() if n},
+            "raw_collective_calls": c1,
             "depth_scaled": reps}

@@ -35,11 +35,21 @@ mask, as in the JAX package, which never sends them to its flash kernel.
 On a mesh (`sharding.ctx.ShardCtx`), K4 is never taken, as in the JAX
 package; with attn_shard="explicit" full-sequence causal attention (GQA
 and MLA) runs through `sharded_causal_attention`, partitioned over the
-`model` axis, else the plain path runs whole on every model rank.
+`model` axis, else the plain path runs whole on every model rank.  A
+meshed decode cache holds this rank's block of the cache length (the
+layout of `sharding.partition.cache_shardings`: "k" / "v" / "c_kv" /
+"k_pe" along C, "pos" and "idx" whole): the token's slot is written by the
+rank that owns it (`_ring_write`, an owner mask, no host read), and each
+rank's softmax over its slots is combined over `model` in flash-decoding
+order (`_decode_softmax`: the max, then each rank's share of the mass,
+then the weighted outputs, three all-reduces of a (B, H, 1) statistic or
+the output).  A cache whose length `model` does not divide is held whole
+and read as on one device.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
@@ -79,26 +89,42 @@ def _causal_mask(sq: int, sk: int, q_offset, window: int, device):
     return m[None, None, None]
 
 
-def _chunked_sdpa(q, k, v, scale, window: int, chunk: int, q_offset: int = 0):
+def _chunked_sdpa(q, k, v, scale, window: int, chunk: int, q_offset: int = 0,
+                  remat: bool = False):
     """Flash-style: a loop over query chunks (the JAX package's lax.scan);
     peak memory per step is (B,Hkv,G,chunk,Sk) instead of (...,Sq,Sk).
-    q_offset shifts the causal mask for a sequence-parallel query block."""
+    q_offset shifts the causal mask for a sequence-parallel query block.
+    remat: keep only each chunk's inputs for the backward pass and
+    recompute its scores there (torch.utils.checkpoint; the same bits),
+    so a backward pass holds one chunk's scores, not every chunk's."""
     sq = q.shape[1]
     assert sq % chunk == 0, (sq, chunk)
     outs = []
     for i in range(sq // chunk):
         mask = _causal_mask(chunk, k.shape[1], i * chunk + q_offset, window, q.device)
-        outs.append(_sdpa(q[:, i * chunk:(i + 1) * chunk], k, v, mask, scale))
+        q_i = q[:, i * chunk:(i + 1) * chunk]
+        outs.append(checkpoint(_sdpa, q_i, k, v, mask, scale, use_reentrant=False) if remat
+                    else _sdpa(q_i, k, v, mask, scale))
     return torch.cat(outs, dim=1)
 
 
-def _full_attn(qg, k, v, scale, window: int, chunk: int, q_offset: int = 0):
-    """Dispatch: chunked loop for long sequences, one-shot otherwise."""
+def _full_attn(qg, k, v, scale, window: int, chunk: int, q_offset: int = 0,
+               remat: bool = False):
+    """Dispatch: chunked loop for long sequences (its chunks rematerialised
+    with `remat`), one-shot otherwise."""
     s = qg.shape[1]
     if chunk and s > 2 * chunk:
-        return _chunked_sdpa(qg, k, v, scale, window, chunk, q_offset)
+        return _chunked_sdpa(qg, k, v, scale, window, chunk, q_offset, remat)
     mask = _causal_mask(s, k.shape[1], q_offset, window, qg.device)
     return _sdpa(qg, k, v, mask, scale)
+
+
+def _remat_chunks(ctx) -> bool:
+    """Whether full-sequence attention rematerialises its query chunks: on
+    a mesh under autograd, where attn_shard="auto" runs it whole on every
+    model rank (one-device training keeps every chunk's scores, as the JAX
+    package's scan does)."""
+    return meshed(ctx) and torch.is_grad_enabled()
 
 
 def sharded_causal_attention(qg, k, v, scale, window: int, chunk: int, ctx):
@@ -195,7 +221,8 @@ def gqa_forward(p, cfg: ArchConfig, x, *, positions=None, mrope_pos=None, chunk:
     elif meshed(ctx) and ctx.attn_shard == "explicit":
         out = sharded_causal_attention(qg, k, v, dh**-0.5, cfg.sliding_window, chunk, ctx)
     else:
-        out = _full_attn(qg, k, v, dh**-0.5, cfg.sliding_window, chunk)
+        out = _full_attn(qg, k, v, dh**-0.5, cfg.sliding_window, chunk,
+                         remat=_remat_chunks(ctx))
     y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * dh))
     if return_kv:
         return y, (k, v)
@@ -212,14 +239,39 @@ def init_kv_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
     }
 
 
-def _ring_write(cache, entries: dict, cur_pos, window: int):
+def _length_block(cache, name: str, ctx):
+    """(offset, length) of this rank's block of the ring's slots when the
+    meshed cache holds its block of the cache length along axis 1 of
+    `name` (it is 1 / model of "pos"), else None (one device, or a cache
+    length `model` does not divide, held whole)."""
+    if not meshed(ctx):
+        return None
+    c, c_loc, mp = cache["pos"].shape[0], cache[name].shape[1], ctx.size("model")
+    if c_loc * mp != c:
+        return None
+    return ctx.rank("model") * c_loc, c_loc
+
+
+def _ring_write(cache, entries: dict, cur_pos, window: int, block=None):
     """Write `entries` (name -> (B, 1, ...)) at slot idx % C of the ring (its
     sequence axis 1) and cur_pos at that slot of "pos", advance idx, all in
-    place; returns the (C,) mask of the slots a query at cur_pos sees."""
+    place; returns the (C,) mask of the slots a query at cur_pos sees.
+    With `block` = (offset, length) the entries hold this rank's slots
+    only: the owner of the slot writes the token there, every other rank
+    rewrites its own slot (clamped into its block) with what it holds."""
     c = cache["pos"].shape[0]
     slot = (cache["idx"] % c).reshape(1).long()
-    for name, value in entries.items():
-        cache[name].index_copy_(1, slot, value)
+    if block is None:
+        for name, value in entries.items():
+            cache[name].index_copy_(1, slot, value)
+    else:
+        off, c_loc = block
+        local = slot - off
+        own = (local >= 0) & (local < c_loc)
+        local = local.clamp(0, c_loc - 1)
+        for name, value in entries.items():
+            held = cache[name].index_select(1, local)
+            cache[name].index_copy_(1, local, torch.where(own, value, held))
     cache["pos"].index_copy_(0, slot, cur_pos.reshape(1).to(torch.int32))
     cache["idx"].add_(1)
     pos = cache["pos"]
@@ -229,22 +281,61 @@ def _ring_write(cache, entries: dict, cur_pos, window: int):
     return valid
 
 
-def gqa_decode(p, cfg: ArchConfig, x, cache, cur_pos, *, mrope_pos=None):
+def _decode_softmax(logits, ctx):
+    """Flash-decoding's combine of a length-sharded softmax: `logits` (...,
+    C_local) f32 over this rank's slots (masked).  Returns (probs, share):
+    the softmax over this rank's slots alone, and share (...,) its slots'
+    part of the whole softmax mass, l_r exp(m_r - M) / sum_r' l_r'
+    exp(m_r' - M) with m_r its max, l_r its sum of exp(logits - m_r) and M
+    the max over `model`; the output is sum_r share_r (probs_r . V_r).  On
+    one model rank share is l / l = 1 exactly, so the output is the plain
+    softmax's bits."""
+    group = ctx.group("model")
+    probs = torch.softmax(logits, dim=-1)
+    m = logits.amax(-1)
+    m_all = comm.all_reduce_max_(m.clone(), group)
+    mass = torch.exp(logits - m[..., None]).sum(-1) * torch.exp(m - m_all)
+    return probs, mass / comm.all_reduce_(mass.clone(), group)
+
+
+def _combine(out, share, ctx):
+    """sum over `model` of share * out (f32), cast back to out's dtype."""
+    return comm.all_reduce_(out.float() * share, ctx.group("model")).to(out.dtype)
+
+
+def _sdpa_sharded(q, k, v, mask, scale, ctx):
+    """`_sdpa` over this rank's block of the slots (k, v: (B, C_local,
+    Hkv, Dh); mask over them), combined over `model` (`_decode_softmax`)."""
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    logits = torch.where(mask, logits, NEG_INF)
+    probs, share = _decode_softmax(logits, ctx)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return _combine(out, share.permute(0, 3, 1, 2)[..., None], ctx)
+
+
+def gqa_decode(p, cfg: ArchConfig, x, cache, cur_pos, *, mrope_pos=None, ctx=None):
     """One-token decode: x (B, 1, d); cur_pos a () int32 tensor, the global
     position, on x's device (no host read); with cfg.use_mrope, mrope_pos
     (B, 1, 3) the token's M-RoPE position.  Writes slot idx % C of the
-    cache in place, advances its idx, and returns (y, cache)."""
+    cache in place, advances its idx, and returns (y, cache).  On a mesh
+    whose cache holds this rank's block of the length, attention runs over
+    the block and is combined over `model` (module docstring)."""
     b = x.shape[0]
     dh = cfg.head_dim
     hkv = cfg.n_kv_heads
     g = cfg.n_heads // hkv
     positions = cur_pos.reshape(1, 1).expand(b, 1)
     q, k, v = _project_qkv(p, cfg, x, positions, mrope_pos)
-    valid = _ring_write(cache, {"k": k, "v": v}, cur_pos, cfg.sliding_window)
-    mask = valid[None, None, None, None, :]                    # (1,1,1,1,C)
+    block = _length_block(cache, "k", ctx)
+    valid = _ring_write(cache, {"k": k, "v": v}, cur_pos, cfg.sliding_window, block)
 
     qg = q.reshape(b, 1, hkv, g, dh)
-    out = _sdpa(qg, cache["k"], cache["v"], mask, dh**-0.5)
+    if block is None:
+        out = _sdpa(qg, cache["k"], cache["v"], valid[None, None, None, None, :], dh**-0.5)
+    else:
+        valid = valid[block[0]:block[0] + block[1]]
+        out = _sdpa_sharded(qg, cache["k"], cache["v"], valid[None, None, None, None, :],
+                            dh**-0.5, ctx)
     y = dense(p["wo"], out.reshape(b, 1, cfg.n_heads * dh))
     return y, cache
 
@@ -311,7 +402,7 @@ def mla_forward(p, cfg: ArchConfig, x, *, positions=None, chunk: int = 0,
                                        chunk, ctx)[:, :, :, 0]
     else:
         out = _full_attn(q[:, :, :, None, :], k, v, scale, cfg.sliding_window,
-                         chunk)[:, :, :, 0]
+                         chunk, remat=_remat_chunks(ctx))[:, :, :, 0]
     y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
     if return_kv:
         return y, (c_kv, k_pe)
@@ -328,7 +419,7 @@ def init_mla_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
     }
 
 
-def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos):
+def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos, ctx=None):
     """One-token MLA decode: x (B, 1, d), cur_pos a () int32 tensor on x's
     device.  Writes the token's latent at slot idx % C in place, advances
     idx, and returns (y, cache).  Two modes, as in the JAX package:
@@ -337,12 +428,19 @@ def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos):
       attention over the ring;
     * absorbed (cfg.mla_absorb): fold kv_up into the query and output
       projections (f32 einsums), so attention runs in the latent space and
-      no per-head K/V exists.  The same math in another order."""
+      no per-head K/V exists.  The same math in another order.
+
+    On a mesh whose cache holds this rank's block of the length, both run
+    over the block's latents and are combined over `model`."""
     b = x.shape[0]
     dn, dr, h, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.n_heads, cfg.v_head_dim
     positions = cur_pos.reshape(1, 1).expand(b, 1)
     c_new, k_pe_new = _mla_latent(p, cfg, x, positions)
-    valid = _ring_write(cache, {"c_kv": c_new, "k_pe": k_pe_new}, cur_pos, cfg.sliding_window)
+    block = _length_block(cache, "c_kv", ctx)
+    valid = _ring_write(cache, {"c_kv": c_new, "k_pe": k_pe_new}, cur_pos, cfg.sliding_window,
+                        block)
+    if block is not None:
+        valid = valid[block[0]:block[0] + block[1]]
     c_kv, k_pe = cache["c_kv"], cache["k_pe"]
     q = _mla_q(p, cfg, x, positions)
     scale = (dn + dr) ** -0.5
@@ -353,12 +451,20 @@ def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos):
         logits = torch.einsum("bqhr,bcr->bhqc", q_abs, c_kv.float())
         logits = logits + torch.einsum("bqhd,bcd->bhqc", q[..., dn:].float(), k_pe.float())
         logits = torch.where(valid, logits * scale, NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        o_lat = torch.einsum("bhqc,bcr->bqhr", probs, c_kv.float())
+        if block is None:
+            probs = torch.softmax(logits, dim=-1)
+            o_lat = torch.einsum("bhqc,bcr->bqhr", probs, c_kv.float())
+        else:
+            probs, share = _decode_softmax(logits, ctx)
+            o_lat = _combine(torch.einsum("bhqc,bcr->bqhr", probs, c_kv.float()),
+                             share.permute(0, 2, 1)[..., None], ctx)
         out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_v).to(x.dtype)
     else:
         k, v = _mla_kv_from_latent(p, cfg, c_kv, k_pe)
-        out = _sdpa(q[:, :, :, None, :], k, v, valid, scale)[:, :, :, 0]
+        if block is None:
+            out = _sdpa(q[:, :, :, None, :], k, v, valid, scale)[:, :, :, 0]
+        else:
+            out = _sdpa_sharded(q[:, :, :, None, :], k, v, valid, scale, ctx)[:, :, :, 0]
     return dense(p["wo"], out.reshape(b, 1, h * dv)), cache
 
 

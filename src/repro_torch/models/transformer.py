@@ -62,8 +62,8 @@ from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv6
 from ..sharding import comm
 from ..sharding.ctx import ShardCtx, meshed
-from ..sharding.params import gather_params
-from ..sharding.partition import param_shardings
+from ..sharding.params import block_of, gather_params
+from ..sharding.partition import MODEL_AXIS, cache_model_dim, param_shardings
 from .attention import (cross_attn, cross_attn_init, gqa_decode, gqa_forward, gqa_init,
                         init_kv_cache, init_mla_cache, mla_decode, mla_forward, mla_init)
 from .layers import (DTYPE, MetaGenerator, dense, dense_init, normal_bf16, rmsnorm,
@@ -87,6 +87,8 @@ __all__ = [
     "clone_cache",
     "cache_len_for",
     "param_count",
+    "vocab_parallel",
+    "whole_logits",
 ]
 
 ATTN_CHUNK = 1024  # query-chunked softmax ("ref") kicks in above 2x this seq length
@@ -306,16 +308,87 @@ def param_count(params) -> int:
 class _Extras:
     """What every sublayer of one forward pass or decode step shares, as
     the JAX package's `_Extras`: RoPE positions, M-RoPE positions (B, S, 3)
-    or None, the encoder's output (B, Se, d) or None, the "ref" chunk."""
+    or None, the encoder's output (B, Se, d) or None, the "ref" chunk; on
+    a mesh the sharding context, the parameters' specs ({path: spec},
+    `param_specs`) and whether the logits are vocab-parallel."""
     positions: Any = None
     mrope_pos: Any = None
     enc_out: Any = None
     chunk: int = 0
     ctx: Any = None
+    specs: Any = None
+    vocab_par: bool = False
 
 
-def _sublayer_full(cfg, kind: LayerKind, p, x, ex: _Extras, want_cache: bool):
-    """Returns (x, aux, cache contribution); aux is None without a MoE FFN."""
+def _extras(cfg: ArchConfig, ctx, **kw) -> _Extras:
+    if not meshed(ctx):
+        return _Extras(ctx=ctx, **kw)
+    specs = param_specs(cfg, ctx.mesh, ctx.ep_size)
+    vocab_par = specs[("lm_head", "w")][-1] is not None and ctx.size(MODEL_AXIS) > 1
+    return _Extras(ctx=ctx, specs=specs, vocab_par=vocab_par, **kw)
+
+
+def _whole(ex: _Extras, p, where: tuple):
+    """The parameters at `where` (a subtree of this rank's blocks on a
+    mesh) as the code computes with them: gathered whole where used, the
+    expert banks as held (`sharding.params.gather_params`); as given on
+    one device."""
+    return p if ex.specs is None else gather_params(p, ex.specs, ex.ctx, where)
+
+
+def _head(params, name: str, h, ex: _Extras):
+    """The logits of the head `name` ("lm_head" / "mtp_head"): on a mesh
+    whose rules shard the vocab, this rank's block of the vocab (V / model
+    columns; `comm.copy_to` sums h's gradient over the ranks' blocks),
+    else whole."""
+    if ex.vocab_par:
+        return _VocabHead.apply(h, params[name]["w"], ex.ctx.group(MODEL_AXIS))
+    return dense(_whole(ex, params[name], (name,)), h)
+
+
+class _VocabHead(torch.autograd.Function):
+    """h @ w for this rank's vocab block w (d, V / model) of a head, with
+    h replicated over `model`: h's gradient is the ranks' partial products
+    g @ w^T summed over `model` in float32 and rounded once (a bf16 sum of
+    bf16-rounded partials would round twice), w's is h^T g."""
+
+    @staticmethod
+    def forward(ctx, h, w, group):
+        ctx.save_for_backward(h, w)
+        ctx.group = group
+        return h @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        dh = comm.all_reduce_(g.float() @ w.float().t(), ctx.group).to(h.dtype)
+        dw = (h.reshape(-1, h.shape[-1]).t() @ g.reshape(-1, g.shape[-1])).to(w.dtype)
+        return dh, dw, None
+
+
+def vocab_parallel(cfg: ArchConfig, ctx) -> bool:
+    """Whether `forward` / `decode_step` under `ctx` return this rank's
+    vocab block of the logits: a mesh whose rules shard lm_head's vocab
+    on a `model` axis of more than one rank (the JAX package's logits
+    layout P(dp, None, "model")).  On one model rank the block is the
+    whole vocab, and the plain head and log-softmax run."""
+    return _extras(cfg, ctx).vocab_par
+
+
+def whole_logits(cfg: ArchConfig, logits, ctx):
+    """`logits` over the whole vocab: the ranks' vocab blocks gathered
+    (no gradient) where they are vocab-parallel, else as they are."""
+    if vocab_parallel(cfg, ctx):
+        return comm.gather_(logits, ctx.group(MODEL_AXIS), logits.ndim - 1)
+    return logits
+
+
+def _sublayer_full(cfg, kind: LayerKind, p, x, ex: _Extras, want_cache: bool,
+                   where: tuple = ()):
+    """Returns (x, aux, cache contribution); aux is None without a MoE FFN.
+    `p` is the sublayer's parameters at `where` in the tree (on a mesh
+    this rank's blocks, gathered here, inside any remat boundary)."""
+    p = _whole(ex, p, where)
     cache: dict[str, Any] = {}
     aux = None
     h_in = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -362,14 +435,14 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, ex: _Extras, want_cache: bool):
     return x, aux, cache
 
 
-def _sublayer_train(cfg, kind: LayerKind, p, x, ex: _Extras):
-    return _sublayer_full(cfg, kind, p, x, ex, False)[:2]
+def _sublayer_train(cfg, kind: LayerKind, p, x, ex: _Extras, where: tuple = ()):
+    return _sublayer_full(cfg, kind, p, x, ex, False, where)[:2]
 
 
-def _embed(cfg: ArchConfig, params, batch):
+def _embed(cfg: ArchConfig, params, batch, ex: _Extras = _Extras()):
     """Token embeddings; for the VLM family with batch["image_embeds"]
     (B, n_patches, d), those over the first n_patches positions."""
-    h = params["embed"]["w"][batch["tokens"].long()]
+    h = _whole(ex, params["embed"], ("embed",))["w"][batch["tokens"].long()]
     if cfg.family == "vlm" and "image_embeds" in batch:
         if h.shape[1] < cfg.n_patches:
             raise ValueError(f"{cfg.name}: a sequence of {h.shape[1]} tokens is shorter than "
@@ -378,20 +451,23 @@ def _embed(cfg: ArchConfig, params, batch):
     return h
 
 
-def _encoder_layer(cfg: ArchConfig, p, x):
+def _encoder_layer(cfg: ArchConfig, p, x, ex: _Extras = _Extras(), where: tuple = ()):
     """One pre-norm encoder layer: non-causal self-attention, then SwiGLU."""
+    p = _whole(ex, p, where)
     x = x + gqa_forward(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps), causal=False)
     return x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
 
 
-def _encode_audio(cfg: ArchConfig, params, frames, *, remat: bool = False):
+def _encode_audio(cfg: ArchConfig, params, frames, *, remat: bool = False,
+                  ex: _Extras = _Extras()):
     """Whisper-style encoder over the stubbed conv-frontend frames (B, Se,
     d): its layers (RoPE at arange(Se), no mask), then enc_final_ln."""
     x = frames.to(DTYPE)
-    for p in params["encoder"]:
-        x = (checkpoint(_encoder_layer, cfg, p, x, use_reentrant=False) if remat
-             else _encoder_layer(cfg, p, x))
-    return rmsnorm(params["enc_final_ln"], x, cfg.norm_eps)
+    for i, p in enumerate(params["encoder"]):
+        where = ("encoder", i)
+        x = (checkpoint(_encoder_layer, cfg, p, x, ex, where, use_reentrant=False) if remat
+             else _encoder_layer(cfg, p, x, ex, where))
+    return rmsnorm(_whole(ex, params["enc_final_ln"], ("enc_final_ln",)), x, cfg.norm_eps)
 
 
 def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headroom: int = 0,
@@ -410,52 +486,85 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
     remat (train mode): keep only each sublayer's input for the backward
     pass and recompute the sublayer there (torch.utils.checkpoint).
     ctx (`sharding.ctx.ShardCtx`): None or mesh=None is the single-device
-    path; on a mesh, `params` are this rank's blocks
-    (`sharding.params.shard_tree`), gathered whole for the dense layers
-    (`sharding.params.gather_params`), the batch is this rank's data shard,
-    the MoE expert-parallel and, with attn_shard="explicit", attention
-    sharded over `model`.  The residual stream and the logits stay this
-    rank's data shard, whole over `model` on every model rank: the layout
-    the JAX package's `_shard_act` and logits constraints ask of GSPMD,
-    held by the per-rank code itself."""
+    path.  On a mesh, `params` are this rank's blocks
+    (`sharding.params.shard_tree`) and the batch is this rank's data
+    shard.  Each sublayer gathers its dense weights whole where it runs
+    (inside the remat boundary, so the backward pass gathers them again
+    and keeps none), the embedding at the embedding; the MoE is
+    expert-parallel and, with attn_shard="explicit", attention sharded
+    over `model`.  The residual stream is this rank's data shard, whole
+    over `model`.  The logits are this rank's vocab block, (B, S, V /
+    model), where the rules shard the vocab (the JAX package's logits
+    constraint P(dp, None, "model"); `vocab_parallel`, `whole_logits`),
+    else whole.  The prefill cache is this rank's block of every leaf
+    `sharding.partition.cache_shardings` shards over `model` (the cache
+    length of "k" / "v" / "c_kv" / "k_pe", the heads or channels of the
+    recurrent states)."""
     stages = _ported_plan(cfg)
-    if meshed(ctx):
-        params = gather_params(params, param_specs(cfg, ctx.mesh, ctx.ep_size), ctx)
     want_cache = mode == "prefill"
-    h = _embed(cfg, params, batch)
+    ex0 = _extras(cfg, ctx)
+    h = _embed(cfg, params, batch, ex0)
     b, s, _ = h.shape
     remat = remat and not want_cache
-    ex = _Extras(
-        positions=torch.arange(s, dtype=torch.int32, device=h.device)[None, :],
+    ex = dataclasses.replace(
+        ex0, positions=torch.arange(s, dtype=torch.int32, device=h.device)[None, :],
         mrope_pos=batch.get("mrope_pos"),
-        enc_out=(_encode_audio(cfg, params, batch["enc_frames"], remat=remat)
+        enc_out=(_encode_audio(cfg, params, batch["enc_frames"], remat=remat, ex=ex0)
                  if cfg.is_encoder_decoder else None),
-        chunk=ATTN_CHUNK if s > 2 * ATTN_CHUNK else 0, ctx=ctx)
+        chunk=ATTN_CHUNK if s > 2 * ATTN_CHUNK else 0)
+    clen = cache_len_for(cfg, s + cache_headroom)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     all_caches = []
     for si, st in enumerate(stages):
-        layers = [params[f"s{si}_l{li}"] for li in range(len(st.pattern))]
+        names = [f"s{si}_l{li}" for li in range(len(st.pattern))]
         got: list[list] = [[] for _ in st.pattern]
         for rep in range(st.repeats):
             for li, kind in enumerate(st.pattern):
+                p, where = params[names[li]][rep], (names[li], rep)
                 if remat:
-                    h, a = checkpoint(_sublayer_train, cfg, kind, layers[li][rep], h, ex,
+                    h, a = checkpoint(_sublayer_train, cfg, kind, p, h, ex, where,
                                       use_reentrant=False)
                 else:
-                    h, a, c = _sublayer_full(cfg, kind, layers[li][rep], h, ex, want_cache)
-                    got[li].append(c)
+                    h, a, c = _sublayer_full(cfg, kind, p, h, ex, want_cache, where)
+                    if want_cache:
+                        got[li].append(_prefill_entry(kind, c, s, clen, ex.ctx))
                 if a is not None:
                     aux = aux + a
         all_caches.append(got)
-    h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
-    logits = dense(params["lm_head"], h)
+    h = rmsnorm(_whole(ex, params["final_ln"], ("final_ln",)), h, cfg.norm_eps)
+    logits = _head(params, "lm_head", h, ex)
     if mode == "train":
         if cfg.mtp:
-            return logits, aux, dense(params["mtp_head"],
-                                      rmsnorm(params["mtp_ln"], h, cfg.norm_eps))
+            mtp_ln = _whole(ex, params["mtp_ln"], ("mtp_ln",))
+            return logits, aux, _head(params, "mtp_head", rmsnorm(mtp_ln, h, cfg.norm_eps), ex)
         return logits, aux
-    return logits, aux, _assemble_prefill_cache(cfg, stages, all_caches, s, cache_headroom,
-                                                ex.enc_out)
+    return logits, aux, _assemble_prefill_cache(cfg, stages, all_caches, s, clen, ex.enc_out)
+
+
+def _vocab_parallel_nll(logits, labels, ctx):
+    """-log softmax(logits)[label] per token, (B, S) f32, from this rank's
+    vocab block of the logits (B, S, V / model): the max over `model`
+    (no gradient: it cancels), each rank's sum of exp and the label's logit
+    where this rank holds it, summed over `model` (`comm.reduce_from`: each
+    rank's backward takes its block's gradient)."""
+    group = ctx.group(MODEL_AXIS)
+    z = logits.float()
+    v_loc = z.shape[-1]
+    m = comm.all_reduce_max_(z.detach().amax(-1), group)
+    sum_exp = comm.reduce_from(torch.exp(z - m[..., None]).sum(-1), group)
+    local = labels - ctx.rank(MODEL_AXIS) * v_loc
+    mine = (local >= 0) & (local < v_loc)
+    picked = torch.gather(z, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    z_label = comm.reduce_from(torch.where(mine, picked, torch.zeros_like(picked)), group)
+    return torch.log(sum_exp) + m - z_label
+
+
+def _nll(logits, labels, ctx, vocab_par: bool):
+    """-log softmax(logits)[label] per token, (B, S) f32."""
+    if vocab_par:
+        return _vocab_parallel_nll(logits, labels, ctx)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, labels[..., None])[..., 0]
 
 
 def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False,
@@ -474,23 +583,27 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat: bool = False,
     returned is this rank's share: its rows' weighted NLL over the whole
     batch's weight sum (all-reduced over the data axes), plus the aux term
     over the data shard count, so the shares sum over the data axes to the
-    whole batch's loss and their gradients to its gradient."""
+    whole batch's loss and their gradients to its gradient.  Vocab-parallel
+    logits (`vocab_parallel`) take the log-softmax from each rank's
+    partials, combined over `model` (`_vocab_parallel_nll`); the MTP term
+    likewise."""
     out = forward(cfg, params, batch, mode="train", remat=remat, ctx=ctx)
-    logits, aux = out[0], out[1]
+    logits, aux, mtp_logits = out[0], out[1], (out[2] if cfg.mtp else None)
+    del out
+    vocab_par = vocab_parallel(cfg, ctx)
     labels = batch["labels"].long()
     w = batch.get("fl_weights")
     if w is None:
         w = torch.ones(labels.shape[0], dtype=torch.float32, device=logits.device)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]            # (B, S)
+    nll = _nll(logits, labels, ctx, vocab_par)                           # (B, S)
+    del logits
     wsum, n_shares = w.sum(), 1
     if meshed(ctx) and ctx.batch_sharded:
         wsum, n_shares = comm.all_reduce_(wsum.detach().clone(), ctx.dp_group()), ctx.dp_size
     wsum = torch.clamp(wsum, min=1e-9)
     loss = (nll.mean(dim=-1) * w).sum() / wsum
     if cfg.mtp:
-        lp2 = torch.log_softmax(out[2][:, :-1].float(), dim=-1)
-        nll2 = -torch.gather(lp2, -1, labels[:, 1:, None])[..., 0]
+        nll2 = _nll(mtp_logits[:, :-1], labels[:, 1:], ctx, vocab_par)
         loss = loss + cfg.mtp_weight * (nll2.mean(dim=-1) * w).sum() / wsum
     if n_shares > 1:
         return loss + cfg.router_aux_coef * aux / n_shares, {"aux": aux}
@@ -574,61 +687,128 @@ def _ring_positions(s, clen, repeats, device):
     return _stacked(pos, repeats)
 
 
-def _assemble_prefill_cache(cfg, stages, all_caches, s, headroom, enc_out):
-    """Convert prefill-collected K/V + states into decode ring caches (and
-    keep an encoder-decoder's encoder output)."""
-    clen = cache_len_for(cfg, s + headroom)
+def _model_block(t: torch.Tensor, name: str, ctx) -> torch.Tensor:
+    """This rank's block of one layer's whole cache leaf `name` along the
+    dim `cache_shardings` puts on `model` (its own storage), or `t` where
+    the rule keeps it whole or there is no mesh."""
+    if not meshed(ctx):
+        return t
+    d = cache_model_dim(name, tuple(t.shape), ctx.size(MODEL_AXIS))
+    if d is None:
+        return t
+    spec = tuple(MODEL_AXIS if i == d else None for i in range(t.ndim))
+    return block_of(t, spec, ctx.mesh)
+
+
+def _prefill_entry(kind: LayerKind, got: dict, s: int, clen: int, ctx) -> dict:
+    """One layer's prefill cache contribution as its decode cache holds it:
+    K/V (or MLA's latents) placed in the clen-slot ring, the recurrent
+    states as computed; on a mesh this rank's block of each
+    (`_model_block`)."""
+    if kind.mixer in ("attn", "mla"):
+        names = ("k", "v") if kind.mixer == "attn" else ("c_kv", "k_pe")
+        out: dict[str, Any] = {
+            name: _model_block(_ring_from_prefill(got[name], s, clen, 1), name, ctx)
+            for name in names}
+    else:
+        key = kind.mixer
+        out = {key: {name: _model_block(t, name, ctx) for name, t in got[key].items()}}
+    if "cm_prev" in got:
+        out["cm_prev"] = got["cm_prev"]
+    return out
+
+
+def _assemble_prefill_cache(cfg, stages, all_caches, s, clen, enc_out):
+    """Stack the layers' prefill entries (`_prefill_entry`) per stage
+    pattern slot into the decode caches, with the rings' positions and
+    write index (and keep an encoder-decoder's encoder output)."""
     cache: dict[str, Any] = {}
     for si, st in enumerate(stages):
         for li, kind in enumerate(st.pattern):
             got = all_caches[si][li]
-            stack = lambda f: torch.stack([f(g) for g in got])   # noqa: E731
+            c = _stack_entries(got)
             if kind.mixer in ("attn", "mla"):
-                names = ("k", "v") if kind.mixer == "attn" else ("c_kv", "k_pe")
-                device = got[0][names[0]].device
-                c: dict[str, Any] = {
-                    name: _ring_from_prefill(stack(lambda g: g[name]), s, clen, 2)
-                    for name in names}
+                device = c["k" if kind.mixer == "attn" else "c_kv"].device
                 c["pos"] = _ring_positions(s, clen, st.repeats, device)
                 c["idx"] = torch.full((st.repeats,), s, dtype=torch.int32, device=device)
-            elif kind.mixer == "mamba":
-                c = {"mamba": {"ssm": stack(lambda g: g["mamba"]["ssm"]),
-                               "conv": stack(lambda g: g["mamba"]["conv"])}}
-            else:
-                c = {"rwkv": {"wkv": stack(lambda g: g["rwkv"]["wkv"]),
-                              "prev_tok": stack(lambda g: g["rwkv"]["prev_tok"])}}
-            if kind.ffn == "rwkv_cm":
-                c["cm_prev"] = stack(lambda g: g["cm_prev"])
             cache[f"s{si}_l{li}"] = c
     if cfg.is_encoder_decoder:
         cache["enc_out"] = enc_out
     return cache
 
 
+def _stack_entries(entries: list):
+    """The layers' entries (dicts of tensors) stacked leaf by leaf on a new
+    leading axis."""
+    first = entries[0]
+    if isinstance(first, dict):
+        return {k: _stack_entries([e[k] for e in entries]) for k in first}
+    return torch.stack(entries)
+
+
 # ==========================================================================
 # Decode
 # ==========================================================================
 
-def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos, ex: _Extras):
+def _states_at_use(held: dict, whole: dict, ctx):
+    """A recurrent mixer's states as it reads them: each leaf of `held`
+    (views into the cache) that holds this rank's block over `model`
+    (`cache_shardings`: the RWKV heads of "wkv", the Mamba channels of
+    "ssm" and "conv") all-gathered whole; the others as held.  `whole` is
+    {name: whole shape}.  Returns (states, {name: the gathered dim or
+    None}) for `_write_back`."""
+    states, dims = {}, {}
+    for name, t in held.items():
+        d = None
+        if meshed(ctx):
+            mp = ctx.size(MODEL_AXIS)
+            d = cache_model_dim(name, whole[name], mp)
+            if d is not None and t.shape[d] * mp != whole[name][d]:
+                d = None                      # the cache holds it whole
+        states[name] = t if d is None else comm.gather_(t, ctx.group(MODEL_AXIS), d)
+        dims[name] = d
+    return states, dims
+
+
+def _write_back(held: dict, new: dict, dims: dict, ctx) -> None:
+    """Write the mixer's new states into the cache in place: this rank's
+    block where `held` is a block (`_states_at_use`), else whole."""
+    for name, t in held.items():
+        d = dims[name]
+        t.copy_(new[name] if d is None
+                else new[name].chunk(ctx.size(MODEL_AXIS), d)[ctx.rank(MODEL_AXIS)])
+
+
+def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos, ex: _Extras,
+                     where: tuple = ()):
     """Layer i of its group; reads and writes slice i of the group's cache
-    `c` in place."""
+    `c` in place.  On a mesh the sublayer's weights are gathered here, the
+    attention caches are read as this rank's block of the length
+    (`attention.gqa_decode` / `mla_decode`), and the recurrent states are
+    gathered at use, their new value's block written back (the RWKV and
+    Mamba mixers run whole on every model rank)."""
+    p = _whole(ex, p, where)
+    b = x.shape[0]
     h_in = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind.mixer == "attn":
         view = {name: c[name][i] for name in ("k", "v", "pos", "idx")}
-        h, _ = gqa_decode(p["attn"], cfg, h_in, view, cur_pos, mrope_pos=ex.mrope_pos)
+        h, _ = gqa_decode(p["attn"], cfg, h_in, view, cur_pos, mrope_pos=ex.mrope_pos,
+                          ctx=ex.ctx)
     elif kind.mixer == "mla":
         view = {name: c[name][i] for name in ("c_kv", "k_pe", "pos", "idx")}
-        h, _ = mla_decode(p["attn"], cfg, h_in, view, cur_pos)
+        h, _ = mla_decode(p["attn"], cfg, h_in, view, cur_pos, ctx=ex.ctx)
     elif kind.mixer == "mamba":
-        st = {"ssm": c["mamba"]["ssm"][i], "conv": c["mamba"]["conv"][i]}
+        held = {"ssm": c["mamba"]["ssm"][i], "conv": c["mamba"]["conv"][i]}
+        whole = {k: tuple(v.shape) for k, v in init_mamba_state(cfg, b, "meta").items()}
+        st, dims = _states_at_use(held, whole, ex.ctx)
         h, new = mamba_forward(p["mamba"], cfg, h_in, st)
-        st["ssm"].copy_(new["ssm"])
-        st["conv"].copy_(new["conv"])
+        _write_back(held, new, dims, ex.ctx)
     else:
-        st = {"wkv": c["rwkv"]["wkv"][i], "prev_tok": c["rwkv"]["prev_tok"][i]}
+        held = {"wkv": c["rwkv"]["wkv"][i], "prev_tok": c["rwkv"]["prev_tok"][i]}
+        whole = {k: tuple(v.shape) for k, v in init_rwkv6_state(cfg, b, "meta").items()}
+        st, dims = _states_at_use(held, whole, ex.ctx)
         h, new = rwkv6_time_mix(p["rwkv"], cfg, h_in, st, wkv_impl=_wkv_impl(cfg))
-        st["wkv"].copy_(new["wkv"])
-        st["prev_tok"].copy_(new["prev_tok"])
+        _write_back(held, new, dims, ex.ctx)
     x = x + h
     if kind.cross:
         x = x + cross_attn(p["cross"], cfg, rmsnorm(p["ln_c"], x, cfg.norm_eps), ex.enc_out)
@@ -652,17 +832,19 @@ def decode_step(cfg: ArchConfig, params, batch, cache, ctx: ShardCtx | None = No
     an encoder-decoder's cache["enc_out"] is read by every cross-attention
     and never written) and returns (logits (B, 1, V), cache); pass
     `clone_cache(cache)` to keep the old one.  A meshed `ctx` works as in
-    `forward`: this rank's parameter blocks and batch shard, the MoE
-    expert-parallel."""
+    `forward`: this rank's parameter blocks and batch shard, each
+    sublayer's weights gathered where it runs, the MoE expert-parallel, the
+    cache in `forward`'s prefill layout (this rank's block of the length
+    and of the recurrent states), and the logits this rank's vocab block
+    (B, 1, V / model) where they are vocab-parallel."""
     cur_pos = batch["pos"]
-    if meshed(ctx):
-        params = gather_params(params, param_specs(cfg, ctx.mesh, ctx.ep_size), ctx)
-    h = params["embed"]["w"][batch["token"].long()]
-    ex = _Extras(mrope_pos=batch.get("mrope_pos"), enc_out=cache.get("enc_out"), ctx=ctx)
+    ex = _extras(cfg, ctx, mrope_pos=batch.get("mrope_pos"), enc_out=cache.get("enc_out"))
+    h = _whole(ex, params["embed"], ("embed",))["w"][batch["token"].long()]
     for si, st in enumerate(_ported_plan(cfg)):
         for rep in range(st.repeats):
             for li, kind in enumerate(st.pattern):
-                h = _sublayer_decode(cfg, kind, params[f"s{si}_l{li}"][rep], h,
-                                     cache[f"s{si}_l{li}"], rep, cur_pos, ex)
-    h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
-    return dense(params["lm_head"], h), cache
+                name = f"s{si}_l{li}"
+                h = _sublayer_decode(cfg, kind, params[name][rep], h, cache[name], rep,
+                                     cur_pos, ex, (name, rep))
+    h = rmsnorm(_whole(ex, params["final_ln"], ("final_ln",)), h, cfg.norm_eps)
+    return _head(params, "lm_head", h, ex), cache

@@ -19,6 +19,10 @@ complete.  Each operator's backward is the one that keeps that true:
                                      statistic summed over data shards
                                      that every shard's loss reads.
 
+`all_reduce_` (sum), `all_reduce_max_` and `all_reduce_min_` reduce in
+place with no gradient: a decode step's softmax statistics and greedy
+token, the max a log-softmax subtracts (its gradient cancels).
+
 Every collective runs as called, whatever the group's size, so a world
 of one takes the same path as a mesh of many.
 """
@@ -28,13 +32,30 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["copy_to", "reduce_from", "mean_from", "split_to", "gather_from", "all_reduce",
-           "all_reduce_"]
+           "all_reduce_", "all_reduce_max_", "all_reduce_min_", "gather_"]
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """In-place sum over `group` (no autograd), returned."""
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+def all_reduce_max_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place max over `group` (no autograd), returned."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+def all_reduce_min_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place min over `group` (no autograd), returned."""
+    dist.all_reduce(x, op=dist.ReduceOp.MIN, group=group)
+    return x
+
+
+def gather_(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' blocks of `x` concatenated on `dim` (no autograd)."""
+    return _gather(x, group, dim)
 
 
 def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:

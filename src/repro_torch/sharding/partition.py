@@ -36,7 +36,7 @@ from typing import Any, Iterator
 import numpy as np
 
 __all__ = ["param_spec", "param_shardings", "opt_state_shardings", "cache_shardings",
-           "batch_shardings", "leaves_with_path", "map_with_path", "placements",
+           "cache_model_dim", "batch_shardings", "leaves_with_path", "map_with_path", "placements",
            "MODEL_AXIS"]
 
 MODEL_AXIS = "model"
@@ -196,6 +196,33 @@ def _dp_total(m: dict, dp: tuple) -> int:
     return int(np.prod([m[a] for a in dp]))
 
 
+def _cache_spec(name: str, shape: tuple, dp: tuple, dp_total: int, mp: int) -> tuple:
+    """The spec of one cache leaf named `name` at its stacked `shape`."""
+    nd = len(shape)
+
+    def ax_b(i):
+        return dp if shape[i] % dp_total == 0 else None
+
+    def ax_m(i):
+        return MODEL_AXIS if shape[i] % mp == 0 else None
+
+    if name in ("k", "v"):                 # (R, B, C, Hkv, dh)
+        return (None, ax_b(1), ax_m(2), None, None)
+    if name in ("c_kv", "k_pe"):           # (R, B, C, r)
+        return (None, ax_b(1), ax_m(2), None)
+    if name == "wkv":                      # (R, B, H, hs, hs)
+        return (None, ax_b(1), ax_m(2), None, None)
+    if name == "ssm":                      # (R, B, di, N)
+        return (None, ax_b(1), ax_m(2), None)
+    if name == "conv":                     # (R, B, kw - 1, di)
+        return (None, ax_b(1), None, ax_m(3))
+    if name in ("prev_tok", "cm_prev"):    # (R, B, d)
+        return (None, ax_b(1), None)
+    if name == "enc_out":                  # (B, Se, d), unstacked
+        return (dp if shape[0] % dp_total == 0 else None, None, None)
+    return (None,) * nd
+
+
 def cache_shardings(cache, mesh, dp_axes) -> dict:
     """{path: spec} for a decode cache (the JAX stage-stacked layout): the
     cache-length dim on `model` (robust for any kv-head count), batch on
@@ -203,33 +230,16 @@ def cache_shardings(cache, mesh, dp_axes) -> dict:
     m = _shape_of(mesh)
     dp = tuple(dp_axes)
     dp_total, mp = _dp_total(m, dp), m[MODEL_AXIS]
+    return {path: _cache_spec(str(path[-1]), tuple(leaf.shape), dp, dp_total, mp)
+            for path, leaf in leaves_with_path(cache)}
 
-    def spec(path: tuple, shape: tuple) -> tuple:
-        name, nd = str(path[-1]), len(shape)
 
-        def ax_b(i):
-            return dp if shape[i] % dp_total == 0 else None
-
-        def ax_m(i):
-            return MODEL_AXIS if shape[i] % mp == 0 else None
-
-        if name in ("k", "v"):                 # (R, B, C, Hkv, dh)
-            return (None, ax_b(1), ax_m(2), None, None)
-        if name in ("c_kv", "k_pe"):           # (R, B, C, r)
-            return (None, ax_b(1), ax_m(2), None)
-        if name == "wkv":                      # (R, B, H, hs, hs)
-            return (None, ax_b(1), ax_m(2), None, None)
-        if name == "ssm":                      # (R, B, di, N)
-            return (None, ax_b(1), ax_m(2), None)
-        if name == "conv":                     # (R, B, kw - 1, di)
-            return (None, ax_b(1), None, ax_m(3))
-        if name in ("prev_tok", "cm_prev"):    # (R, B, d)
-            return (None, ax_b(1), None)
-        if name == "enc_out":                  # (B, Se, d), unstacked
-            return (dp if shape[0] % dp_total == 0 else None, None, None)
-        return (None,) * nd
-
-    return {path: spec(path, tuple(leaf.shape)) for path, leaf in leaves_with_path(cache)}
+def cache_model_dim(name: str, shape: tuple, mp: int) -> int | None:
+    """The dim of one layer's cache leaf `name` (its shape without the
+    stacked `repeats` dim) that `cache_shardings` puts on a `model` axis
+    of size `mp`, or None where it keeps the leaf whole over `model`."""
+    spec = _cache_spec(name, (1,) + tuple(shape), (), 1, mp)[1:]
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
 
 
 def batch_shardings(batch, mesh, dp_axes) -> dict:

@@ -27,6 +27,16 @@ takes that leaf's gradient and writes the new moments and the new
 parameter into their own storage.  It computes the same expressions in the
 same order as `update` and `apply_updates`, so its results are their bits.
 Adafactor, whose clip spans a group's layers, has none.
+
+On a mesh (per-rank code over this rank's parameter blocks,
+`sharding.params.shard_tree`) the elementwise four run on the blocks as
+they are.  Adafactor's statistics span whole rows and columns, so it has a
+meshed form (`Optimizer.sharded`, `adafactor_sharded`): the state in the
+layout `sharding.partition.opt_state_shardings` gives it (the JAX
+package's mirroring rule: a factored moment takes its parameter's spec
+without the last dim), the row and column means and the update's RMS
+summed over `model`, so the update is the unsharded one up to summation
+order.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..sharding import comm
 from .tree import jax_leaves, map_jax_leaves, stacked, tree_leaves, tree_map, tree_slots
 
 __all__ = [
@@ -48,6 +59,7 @@ __all__ = [
     "adam",
     "adamw",
     "adafactor",
+    "adafactor_sharded",
     "clip_by_global_norm",
     "chain",
     "global_norm",
@@ -66,6 +78,10 @@ class Optimizer:
     # (state, params) -> (new state, one LeafUpdate per leaf of tree_leaves(params));
     # None where the update is not elementwise (Adafactor, the clip).
     donate: Callable[[Any, Any], tuple[Any, list[LeafUpdate]]] | None = None
+    # (param specs {path: spec}, ShardCtx) -> the optimizer over this rank's
+    # parameter blocks with its state in the sharding rules' layout; None
+    # where the update is elementwise and runs on blocks as it is.
+    sharded: Callable[[dict, Any], "Optimizer"] | None = None
 
 
 def apply_updates(params, updates):
@@ -286,6 +302,128 @@ def adafactor(lr: float = 1e-2, eps: float = 1e-30, clip_threshold: float = 1.0,
         for (path, g), (_, r), (_, c), (_, p) in zip(jax_leaves(grads), jax_leaves(state.row),
                                                      jax_leaves(state.col), p_leaves):
             out[path] = upd_leaf(stacked(g), r, c, len(shape(p)) >= 2)
+
+        def unstack(path, g):
+            u = out[path][0]
+            return list(u.unbind(0)) if isinstance(g, list) else u
+
+        upd = map_jax_leaves(unstack, grads)
+        row = map_jax_leaves(lambda path, _: out[path][1], state.row)
+        col = map_jax_leaves(lambda path, _: out[path][2], state.col)
+        return upd, AdafactorState(count=count, row=row, col=col)
+
+    return Optimizer(init, update, sharded=functools.partial(
+        adafactor_sharded, lr=lr, eps=eps, clip_threshold=clip_threshold, decay=decay))
+
+
+def _stacked_specs(specs: dict) -> dict:
+    """{JAX-layout path: spec of the stacked leaf} from the parameters'
+    {path: spec}: a per-layer group's leaf takes its layers' spec behind
+    a None for the stacked dim."""
+    out = {}
+    for path, spec in specs.items():
+        n_stack = sum(isinstance(k, int) for k in path)
+        out[tuple(str(k) for k in path if not isinstance(k, int))] = (None,) * n_stack + spec
+    return out
+
+
+def adafactor_sharded(specs: dict, ctx, *, lr: float = 1e-2, eps: float = 1e-30,
+                      clip_threshold: float = 1.0, decay: float = 0.8) -> Optimizer:
+    """`adafactor` over this rank's parameter blocks on a mesh (`specs` the
+    parameters' {path: spec}; only the `model` axis shards a parameter).
+    For a factored stacked leaf of whole shape W and spec P, each rank
+    holds the block of G; the state is held in `opt_state_shardings`'
+    layout: row (W[:-1]) on P[:-1], col (W[:-2] + W[-1:]) on P[:-1] as
+    well, i.e. its last dim on P[-2]'s axis.  The update:
+      row mean over W[-1]: the block's sums, summed over `model` where P[-1]
+        shards it; col mean over W[-2] likewise where P[-2] does;
+      the col moment moved from its stored layout (last dim on P[-2]) to
+        the block's (on P[-1]) for the update and back (all-gather, block);
+      the row moment's mean, and the update's RMS, summed over `model`."""
+    stacked_specs = _stacked_specs(specs)
+    group, mp, rank = ctx.group("model"), ctx.size("model"), ctx.rank("model")
+
+    def size(entry) -> int:
+        if entry is None:
+            return 1
+        if entry != "model":
+            raise ValueError(f"adafactor_sharded: a parameter sharded over {entry!r}; the "
+                             "rules shard parameters over 'model' only")
+        return mp
+
+    def move(c: torch.Tensor, src, dst) -> torch.Tensor:
+        """c's last dim from a block on `src` to a block on `dst`."""
+        if src is not None:
+            c = comm.gather_(c, group, c.ndim - 1)
+        if dst is not None:
+            c = c.chunk(mp, dim=-1)[rank].contiguous()
+        return c
+
+    def reduce(x: torch.Tensor, sharded: bool) -> torch.Tensor:
+        return comm.all_reduce_(x, group) if sharded else x
+
+    def whole_shape(path, leaf) -> tuple:
+        block = ((len(leaf),) + tuple(leaf[0].shape) if isinstance(leaf, list)
+                 else tuple(leaf.shape))
+        return tuple(n * size(e) for n, e in zip(block, stacked_specs[path])), block
+
+    def init(params):
+        dev = _device(params)
+
+        def rows(path, leaf):
+            _, b = whole_shape(path, leaf)
+            return torch.zeros(b[:-1] if len(b) >= 2 else b, dtype=torch.float32, device=dev)
+
+        def cols(path, leaf):
+            w, b = whole_shape(path, leaf)
+            spec = stacked_specs[path]
+            if len(b) < 2:
+                return torch.zeros((), dtype=torch.float32, device=dev)
+            if spec[-2] is not None and w[-1] % mp:
+                raise ValueError(f"adafactor_sharded: {path}'s column moment would be "
+                                 f"sharded unevenly ({w[-1]} over {mp})")
+            return torch.zeros(b[:-2] + (w[-1] // size(spec[-2]),), dtype=torch.float32,
+                               device=dev)
+
+        return AdafactorState(count=torch.zeros((), dtype=torch.int32, device=dev),
+                              row=map_jax_leaves(rows, params, stack=True),
+                              col=map_jax_leaves(cols, params, stack=True))
+
+    def update(grads, state, params=None):
+        count = state.count + 1
+        beta = 1.0 - torch.pow(count.to(torch.float32), -decay)
+
+        def upd_leaf(path, g, r, c, w):
+            spec = stacked_specs[path]
+            g = g.to(torch.float32)
+            g2 = torch.square(g) + eps
+            if len(w) >= 2:
+                new_r = beta * r + (1 - beta) * reduce(g2.sum(dim=-1), spec[-1] is not None) / w[-1]
+                c_use = move(c, spec[-2], spec[-1])
+                new_c = (beta * c_use
+                         + (1 - beta) * reduce(g2.sum(dim=-2), spec[-2] is not None) / w[-2])
+                denom = reduce(new_r.sum(dim=-1, keepdim=True), spec[-2] is not None) / w[-2]
+                vr = new_r / torch.clamp(denom, min=eps)
+                u = (g / torch.sqrt(vr)[..., None]
+                     / torch.sqrt(torch.clamp(new_c, min=eps))[..., None, :])
+                new_c = move(new_c, spec[-1], spec[-2])
+            else:
+                new_r = beta * r + (1 - beta) * g2
+                new_c = c
+                u = g / torch.sqrt(torch.clamp(new_r, min=eps))
+            n = 1
+            for k in w:
+                n *= k
+            sq = reduce(torch.sum(torch.square(u)), any(e is not None for e in spec))
+            rms = torch.sqrt(sq / n)
+            scale = torch.clamp(rms / clip_threshold, min=1.0)
+            return -lr * u / scale, new_r, new_c
+
+        out = {}
+        p_leaves = jax_leaves(params if params is not None else grads)
+        for (path, g), (_, r), (_, c), (_, p) in zip(jax_leaves(grads), jax_leaves(state.row),
+                                                     jax_leaves(state.col), p_leaves):
+            out[path] = upd_leaf(path, stacked(g), r, c, whole_shape(path, p)[0])
 
         def unstack(path, g):
             u = out[path][0]

@@ -32,7 +32,18 @@ from .optimizer import Optimizer, _clip_scale, apply_updates, global_norm
 from .serve_step import make_prefill_step, make_serve_step
 from .tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["make_train_step", "make_grad_fn", "make_prefill_step", "make_serve_step"]
+__all__ = ["make_train_step", "make_grad_fn", "make_prefill_step", "make_serve_step",
+           "mesh_optimizer"]
+
+
+def mesh_optimizer(cfg: ArchConfig, opt: Optimizer, ctx: ShardCtx | None) -> Optimizer:
+    """The optimizer the meshed step runs on this rank's blocks: `opt`
+    itself where it is elementwise, its sharded form (`Optimizer.sharded`:
+    Adafactor) otherwise; `opt` without a mesh.  Its `init` gives the
+    state of the rank's blocks in `opt_state_shardings`' layout."""
+    if not meshed(ctx) or opt.sharded is None:
+        return opt
+    return opt.sharded(param_specs(cfg, ctx.mesh, ctx.ep_size), ctx)
 
 
 def _meshed_reduce(grads: list, loss: torch.Tensor, sharded: list[bool], ctx: ShardCtx):
@@ -109,7 +120,9 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
     ShardCtx runs the per-rank step of the module docstring on this rank's
     parameter and state blocks and batch shard (the metrics: the whole
     batch's loss, the global gradient norm, the whole batch's aux).  Its
-    donated form is bitwise its functional form on the same mesh."""
+    donated form is bitwise its functional form on the same mesh.  An
+    optimizer whose statistics span a leaf (Adafactor) runs in its sharded
+    form (`mesh_optimizer`), whose `init` gives the state it takes."""
     for field, kernel in (("attn_impl", "flash_attention (K4)"),
                           ("rwkv_wkv_impl", "rwkv6_wkv (K5)")):
         if getattr(cfg, field) == "pallas":
@@ -123,6 +136,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
                          "one (Adafactor, or a chain) has no in-place update: pass donate=False")
 
     grad_fn = make_grad_fn(cfg, remat=remat, ctx=ctx)
+    opt = mesh_optimizer(cfg, opt, ctx)
 
     def train_step(params, opt_state, batch):
         grads, metrics = grad_fn(params, batch)

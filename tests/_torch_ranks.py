@@ -18,11 +18,12 @@ from repro_torch.launch.mesh import smoke_mesh
 from repro_torch.launch.multidevice_demo import demo_ctx, leaf_gaps, shard_rows
 from repro_torch.models import moe as TM
 from repro_torch.models.attention import sharded_causal_attention
-from repro_torch.models.transformer import decode_step, forward, param_specs
+from repro_torch.models.transformer import forward, param_specs, whole_logits
 from repro_torch.sharding.ctx import ShardCtx
 from repro_torch.sharding.params import shard_tree
 from repro_torch.sharding.partition import leaves_with_path
 from repro_torch.train.optimizer import make_optimizer
+from repro_torch.train.serve_step import make_prefill_step, make_serve_step
 from repro_torch.train.train_step import make_grad_fn, make_train_step
 from repro_torch.train.tree import tree_leaves, tree_unflatten
 
@@ -121,8 +122,10 @@ def grad_rank(rank, cfg, params: dict, batch: dict, want: list, data: int,
 
 def serve_rank(rank, arch: str, params: dict, tokens: torch.Tensor, prompt: int) -> dict:
     """A meshed prefill of this rank's rows of tokens[:, :prompt], then
-    teacher-forced decode steps over the rest: the prefill's last logits
-    and every step's."""
+    teacher-forced steps of the meshed serve step over the rest: the
+    prefill's logits (gathered over the vocab), every step's logits and
+    greedy token, and this rank's cache leaves after the prefill and after
+    the last step (paths as `leaves_with_path` gives them)."""
     ctx = _ctx("explicit")
     cfg = get_config(arch)
     local = shard_tree(params, param_specs(cfg, ctx.mesh, MODEL), ctx.mesh)
@@ -130,12 +133,97 @@ def serve_rank(rank, arch: str, params: dict, tokens: torch.Tensor, prompt: int)
     n_new = toks.shape[1] - prompt
     logits, _, cache = forward(cfg, local, {"tokens": toks[:, :prompt]}, mode="prefill",
                                cache_headroom=n_new, ctx=ctx)
-    steps = []
+    prefill = _np(whole_logits(cfg, logits, ctx))
+    last, cache_last = make_prefill_step(cfg, cache_headroom=n_new, ctx=ctx)(
+        local, {"tokens": toks[:, :prompt]})
+    assert torch.equal(last, whole_logits(cfg, logits, ctx)[:, -1:])
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(leaves_with_path(cache), leaves_with_path(cache_last)))
+    cache0 = {path: _np(t) for path, t in leaves_with_path(cache)}
+    serve = make_serve_step(cfg, ctx)
+    steps, toks_out = [], []
     for d in range(n_new):
-        got, cache = decode_step(cfg, local, {"token": toks[:, prompt + d:prompt + d + 1],
-                                              "pos": torch.tensor(prompt + d)}, cache, ctx)
+        tok, got, cache = serve(local, {"token": toks[:, prompt + d:prompt + d + 1],
+                                        "pos": torch.tensor(prompt + d)}, cache)
         steps.append(_np(got[:, 0]))
-    return {"prefill": _np(logits), "decode": np.stack(steps, 1), "data": ctx.dp_rank}
+        toks_out.append(tok[:, 0].numpy())
+    return {"prefill": prefill, "decode": np.stack(steps, 1), "tokens": np.stack(toks_out, 1),
+            "cache0": cache0, "cache": {path: _np(t) for path, t in leaves_with_path(cache)},
+            "data": ctx.dp_rank, "model": ctx.rank("model")}
+
+
+def count_collectives(cfg, ctx, device) -> dict:
+    """The collectives (`step_analysis.CollectiveBytes.calls`) of one
+    meshed train step (AdamW, remat, donated), one prefill (batch 4, 16
+    tokens, 4 free slots) and one serve step on its cache, at `cfg`'s
+    shapes, on this rank's blocks: real ones on the CPU, or meta tensors
+    under the fake process group ({"train" | "prefill" | "decode": {(op,
+    site, bytes): calls}})."""
+    from repro_torch.launch.step_analysis import CollectiveBytes
+    from repro_torch.models.transformer import init_params, param_shapes
+    from repro_torch.sharding.partition import batch_shardings
+    from repro_torch.train.train_step import mesh_optimizer
+
+    ep = ctx.ep_size
+    if device == "meta":
+        whole = param_shapes(cfg, ep_size=ep)
+    else:
+        whole = init_params(cfg, torch.Generator().manual_seed(0), ep_size=ep)
+    params = shard_tree(whole, param_specs(cfg, ctx.mesh, ep), ctx.mesh)
+    b, s = 4, 16
+    tokens = torch.zeros(b, s + 1, dtype=torch.int32, device=device)
+    if device != "meta":
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (b, s + 1)).astype(np.int32))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "fl_weights": torch.ones(b, dtype=torch.float32, device=device)}
+    batch = shard_tree(batch, batch_shardings(batch, ctx.mesh, ctx.dp_axes), ctx.mesh)
+    out = {}
+    opt = make_optimizer("adamw", 1e-3)
+    state = mesh_optimizer(cfg, opt, ctx).init(params)
+    step = make_train_step(cfg, opt, remat=True, donate=True, ctx=ctx)
+    with CollectiveBytes() as counted:
+        step(copy.deepcopy(params), state, batch)
+    out["train"] = dict(counted.calls)
+    with CollectiveBytes() as counted:
+        _, cache = make_prefill_step(cfg, cache_headroom=4, ctx=ctx)(
+            params, {"tokens": batch["tokens"]})
+    out["prefill"] = dict(counted.calls)
+    serve = make_serve_step(cfg, ctx)
+    with CollectiveBytes() as counted:
+        serve(params, {"token": batch["tokens"][:, :1],
+                       "pos": torch.tensor(s, dtype=torch.int32, device=device)}, cache)
+    out["decode"] = dict(counted.calls)
+    return out
+
+
+def collectives_rank(rank, arch: str) -> dict:
+    """`count_collectives` on this rank of a real (data=2, model=2) gloo
+    world."""
+    return count_collectives(get_config(arch), _ctx("auto"), "cpu")
+
+
+def adafactor_rank(rank, arch: str, params: dict, batch: dict, lr: float,
+                   steps: int) -> dict:
+    """`steps` meshed Adafactor steps (`make_train_step(ctx=)`, its state
+    from `mesh_optimizer`) on this rank's blocks and data shard: the
+    blocks and the state's leaves after them, and the metrics."""
+    from repro_torch.train.train_step import mesh_optimizer
+
+    ctx = _ctx("explicit")
+    cfg = get_config(arch)
+    local = shard_tree(params, param_specs(cfg, ctx.mesh, MODEL), ctx.mesh)
+    ex = {name: shard_rows(t, ctx) for name, t in batch.items()}
+    opt = make_optimizer("adafactor", lr)
+    state = mesh_optimizer(cfg, opt, ctx).init(local)
+    step = make_train_step(cfg, opt, remat=False, ctx=ctx)
+    losses = []
+    for _ in range(steps):
+        local, state, m = step(local, state, ex)
+        losses.append(float(m["loss"]))
+    return {"params": {path: _np(t) for path, t in leaves_with_path(local)},
+            "state": {path: _np(t) for path, t in leaves_with_path(state)},
+            "losses": losses, "data": ctx.dp_rank, "model": ctx.rank("model")}
 
 
 def hang_rank(rank, seconds: float):

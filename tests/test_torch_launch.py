@@ -410,7 +410,8 @@ TA_COLL = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collecti
 def test_dryrun_main_in_process(arch, shape, tmp_path, capsys):
     import json
     out = tmp_path / "dry.json"
-    assert dryrun.main(["--arch", arch, "--shape", shape, "--json", str(out)]) == 0
+    assert dryrun.main(["--arch", arch, "--shape", shape, "--json", str(out),
+                        "--one-card"]) == 0
     assert "1 passed, 0 failed" in capsys.readouterr().out
     res = json.loads(out.read_text())["results"][0]
     cfg = get_config(arch)
@@ -429,12 +430,13 @@ def test_dryrun_main_in_process(arch, shape, tmp_path, capsys):
 
 
 def test_dryrun_override_and_refused_flags(capsys):
-    assert dryrun.main(["--arch", "jamba-v0.1-52b", "--shape", "decode_32k",
+    assert dryrun.main(["--arch", "jamba-v0.1-52b", "--shape", "decode_32k", "--one-card",
                         "--override", "n_layers=8", "--override", "mla_absorb=True"]) == 0
     assert "1 passed, 0 failed" in capsys.readouterr().out
+    # The production mesh's flags take no one-card run.
     for flag in ("--multi-pod", "--detail", "--attn-shard=explicit"):
         with pytest.raises(SystemExit):
-            dryrun.main(["--arch", "qwen2-7b", "--shape", "train_4k", flag])
+            dryrun.main(["--arch", "qwen2-7b", "--shape", "train_4k", "--one-card", flag])
 
 
 def test_adafactor_state_on_meta_matches_jax():

@@ -34,8 +34,11 @@ rank function of tests/_torch_ranks.py.  The oracles:
     unsharded one, on (2, 2) and (1, 4), dropless and with the MoE's
     capacity drops (against `multidevice_demo.shardwise_grads`), float32
     within 1e-5 of each leaf's norm and bf16 within 3e-2;
-  * a meshed prefill and teacher-forced decode against the unsharded
-    model (float32 copies, 1e-4 of the scale);
+  * a meshed prefill and teacher-forced serve steps against the
+    unsharded model (float32 copies, 1e-4 of the scale), each rank's
+    cache leaves its `cache_shardings` block of the unsharded cache (the
+    cache length, the Mamba channels and RWKV heads over `model`; a length
+    `model` does not divide held whole);
   * `multidevice_demo.run(steps=4)` on (2, 2) lowers the loss.
 """
 from _torch_oracle import bf16_ulp  # noqa: I001  (alias first)
@@ -59,6 +62,7 @@ from repro_torch.launch.multidevice_demo import spawn
 from repro_torch.models import attention as TA
 from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
+from repro_torch.sharding import partition as TP
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.train_step import make_grad_fn, make_train_step
 
@@ -361,31 +365,87 @@ def test_meshed_gradient_matches_its_reference(mesh, seq, dtype, ref, tols):
         assert max(o["gaps"]) <= tols[2], max(o["gaps"])
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m-smoke", "deepseek-v3-671b-smoke"])
-def test_meshed_prefill_and_decode_match_the_unsharded_model(arch):
-    """A meshed prefill (attn_shard="explicit") and three teacher-forced
-    decode steps (the MoE expert-parallel) against the unsharded model, on
-    float32 copies of the weights (in bf16 a route one ulp from a tie can
-    flip): within 1e-4 of the logits' scale."""
-    cfg = get_config(arch)
-    params = TT._tree_map(lambda t: t.float(),
-                          TT.init_params(cfg, torch.Generator().manual_seed(0), ep_size=R.MODEL))
-    b, s, n_new = 4, 16, 3
-    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (b, s + n_new)))
-    outs = spawn(R.serve_rank, WORLD, (arch, params, tokens, s), timeout=TIMEOUT)
+def _cache_block(leaf: np.ndarray, spec: tuple, data: int, model: int) -> np.ndarray:
+    """The (data, model) rank's block of a whole cache leaf under its
+    `cache_shardings` spec."""
+    for dim, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        for axis in axes:
+            n, r = (R.DATA, data) if axis == "data" else (R.MODEL, model)
+            leaf = np.split(leaf, n, axis=dim)[r]
+    return leaf
+
+
+def _check_serve(outs, cfg, params, tokens, s, n_new, expect_sharded):
+    """The ranks' meshed prefill and teacher-forced serve steps against
+    the unsharded model: logits within 1e-4 of their scale, the greedy
+    tokens the unsharded argmax wherever its top two are further apart
+    than that, and each rank's cache leaves (after the prefill and after
+    the last step) its `cache_shardings` block of the unsharded cache,
+    within 1e-4 of the leaf's scale (positions and write index exact)."""
     want, _, cache = TT.forward(cfg, params, {"tokens": tokens[:, :s]}, mode="prefill",
                                 cache_headroom=n_new)
+    cache0 = TT.clone_cache(cache)
     steps = []
     for d in range(n_new):
         got, cache = TT.decode_step(cfg, params, {"token": tokens[:, s + d:s + d + 1],
                                                   "pos": torch.tensor(s + d)}, cache)
         steps.append(_f64(got[:, 0]))
     want, steps = _f64(want), np.stack(steps, 1)
-    rows = b // R.DATA
+    specs = TP.cache_shardings(cache, {"data": R.DATA, "model": R.MODEL}, ("data",))
+    n_model_sharded = sum("model" in spec for spec in specs.values())
+    assert (n_model_sharded > 0) == expect_sharded, specs
+    rows = tokens.shape[0] // R.DATA
+    top2 = np.sort(steps, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 2e-4 * np.abs(steps).max()
     for o in outs:
         sl = slice(o["data"] * rows, (o["data"] + 1) * rows)
         assert np.abs(o["prefill"] - want[sl]).max() <= 1e-4 * np.abs(want).max()
         assert np.abs(o["decode"] - steps[sl]).max() <= 1e-4 * np.abs(steps).max()
+        np.testing.assert_array_equal(o["tokens"][clear[sl]], steps[sl].argmax(-1)[clear[sl]])
+        for key, whole in (("cache0", cache0), ("cache", cache)):
+            for path, leaf in TP.leaves_with_path(whole):
+                block = _cache_block(_f64(leaf), specs[path], o["data"], o["model"])
+                got = o[key][path]
+                assert got.shape == block.shape, (key, path)
+                tol = 0 if path[-1] in ("pos", "idx") else 1e-4 * max(np.abs(block).max(), 1e-30)
+                assert np.abs(got - block).max() <= tol, (key, path)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m-smoke", "deepseek-v3-671b-smoke"])
+def test_meshed_prefill_and_decode_match_the_unsharded_model(arch):
+    """A meshed prefill (attn_shard="explicit") and four teacher-forced
+    serve steps (the MoE expert-parallel, the logits vocab-parallel, the
+    GQA or MLA cache length 20 sharded over `model`) against the unsharded
+    model, on float32 copies of the weights (in bf16 a route one ulp from a
+    tie can flip): `_check_serve`."""
+    cfg = get_config(arch)
+    params = TT._tree_map(lambda t: t.float(),
+                          TT.init_params(cfg, torch.Generator().manual_seed(0), ep_size=R.MODEL))
+    b, s, n_new = 4, 16, 4
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (b, s + n_new)))
+    outs = spawn(R.serve_rank, WORLD, (arch, params, tokens, s), timeout=TIMEOUT)
+    _check_serve(outs, cfg, params, tokens, s, n_new, expect_sharded=True)
+
+
+SERVE_STATE_CASES = [("granite-moe-3b-a800m-smoke", 3, False),
+                     ("jamba-v0.1-52b-smoke", 4, True), ("rwkv6-7b-smoke", 2, True)]
+
+
+@pytest.mark.parametrize("arch,n_new,sharded", SERVE_STATE_CASES,
+                         ids=[a.split("-")[0] for a, _, _ in SERVE_STATE_CASES])
+def test_meshed_serve_recurrent_states_and_a_whole_cache(arch, n_new, sharded):
+    """The meshed serve steps where the cache holds recurrent states (the
+    Mamba channels, the RWKV heads: blocks over `model`, gathered at use)
+    and where `model` does not divide the cache length (granite's 19
+    slots, held whole), against the unsharded model (`_check_serve`)."""
+    cfg = get_config(arch)
+    params = TT._tree_map(lambda t: t.float(),
+                          TT.init_params(cfg, torch.Generator().manual_seed(0), ep_size=R.MODEL))
+    b, s = 4, 16
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (b, s + n_new)))
+    outs = spawn(R.serve_rank, WORLD, (arch, params, tokens, s), timeout=TIMEOUT)
+    _check_serve(outs, cfg, params, tokens, s, n_new, expect_sharded=sharded)
 
 
 def test_multidevice_demo_lowers_the_loss():
