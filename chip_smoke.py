@@ -269,11 +269,15 @@ Phases, in order:
  19. the production mesh (run before the kernel list): (a) in phase 18's
      world-of-one NCCL group, the meshed serving steps
      (`make_prefill_step` / `make_serve_step` with a (1, 1) `ShardCtx`:
-     the per-sublayer gathers, the cache in `cache_shardings`' layout and
-     its flash-decoding combine) for granite-moe-3b-a800m at phase 18's
-     width and depth, a prefill and four greedy decode steps, held bitwise
+     the layers on this rank's blocks, the cache in `cache_shardings`'
+     layout and its flash-decoding combine) for granite-moe-3b-a800m at
+     phase 18's width and depth, then rwkv6-7b at full width and 4 layers
+     through K5, each a prefill and four greedy decode steps, held bitwise
      to the unmeshed steps on the card (tokens, logits, every cache leaf),
-     no kernel launched on either; (b) in a subprocess (its fake process
+     the meshed decode ms/step beside the unmeshed; no kernel launched on
+     granite's meshed path, K5 on rwkv6-7b's exactly once per layer per
+     prefill and step (phase 6 holds K5 at the meshed path's head block,
+     4 x 512 x 4 x 64, against its plain version); (b) in a subprocess (its fake process
      group cannot share a process with the NCCL group), the dry run on the
      production mesh, `python -m repro_torch.launch.dryrun --arch qwen2-7b
      --shape train_4k` on 16x16 (rank 0 of a fake 256-rank group, meta
@@ -283,7 +287,9 @@ Phases, in order:
  17. the kernel list as one JSON line (K4's launches per served arch,
      `serve_launches`, its D 80 check, `d80`, and its checks at
      whisper-base's and qwen2-vl-2b's shapes, `whisper_d64` and
-     `qwen2_vl_d128`; with K1-K3's launches on the hierarchy's, the
+     `qwen2_vl_d128`; K5's check at the meshed path's head block,
+     `head_block`, and its launches on phase 19's meshed rwkv6-7b path,
+     `mesh_launches`; with K1-K3's launches on the hierarchy's, the
      batched groups', the hierarchy groups', the sweep's, the service's
      and phase 10b's paths: `hier_launches`, `batch_launches`,
      `hier_batch_launches`, `sweep_launches`, `service_launches`,
@@ -3449,26 +3455,36 @@ def meshed_model_phase(t_all: float) -> dict:
         phase_mark(19, t_all)
         t19 = time.perf_counter()
         serve = meshed_serve_phase(cfg)
+        rwkv_cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=MESH_RWKV_LAYERS,
+                                       rwkv_wkv_impl="pallas")
+        serve_rwkv = meshed_serve_phase(
+            rwkv_cfg, {"rwkv6_wkv": MESH_RWKV_LAYERS * (1 + MESH_SERVE["new"])})
         line(f"phase 19 (a) wall_s={time.perf_counter() - t19:.1f} [{CARD}]")
     finally:
         dist.destroy_process_group()
     return dict(loss_rel=loss_rel, max_diff=max_diff, grad_gap=gaps[worst], launches=launches,
-                serve=serve)
+                serve=serve, serve_rwkv=serve_rwkv)
 
 
-# Phase 19 (a): granite at phase 18's width and depth, a prompt of
+# Phase 19 (a): granite at phase 18's width and depth, then rwkv6-7b at
+# full width and MESH_RWKV_LAYERS layers through K5 ("pallas"), a prompt of
 # MESH_SERVE["prompt"] tokens for MESH_SERVE["batch"] rows, then
 # MESH_SERVE["new"] greedy decode steps.
-MESH_SERVE = dict(batch=4, prompt=256, new=4, seed=7)
+MESH_SERVE = dict(batch=4, prompt=256, new=4, seed=7, timed_steps=8, passes=5)
+MESH_RWKV_LAYERS = 4
 
 
-def meshed_serve_phase(cfg) -> dict:
+def meshed_serve_phase(cfg, expect: dict | None = None) -> dict:
     """Phase 19 (a), inside phase 18's world-of-one NCCL group: the meshed
-    serving steps on a (1, 1) mesh (this rank's blocks, the per-sublayer
-    gathers, the cache in `cache_shardings`' layout read through the
-    flash-decoding combine) against the unmeshed steps from the same
-    weights: tokens, logits and every cache leaf after the prefill and
-    after each greedy step bitwise; no kernel launched on either."""
+    serving steps on a (1, 1) mesh (this rank's blocks, which the layers
+    compute with as held, the cache in `cache_shardings`' layout read
+    through the flash-decoding combine) against the unmeshed steps from
+    the same weights: tokens, logits and every cache leaf after the
+    prefill and after each greedy step bitwise; then each path's decode
+    timed over MESH_SERVE["passes"] passes of MESH_SERVE["timed_steps"]
+    steps in turns after a warm-up pass each (`tp_timing`).  The meshed
+    run's kernel launches (every counter set to 0 just before it, read
+    just after) equal `expect` ({kernel: launches}; every other kernel 0)."""
     b, prompt, new = MESH_SERVE["batch"], MESH_SERVE["prompt"], MESH_SERVE["new"]
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
     gen = torch.Generator(DEV).manual_seed(MESH_SERVE["seed"])
@@ -3476,51 +3492,72 @@ def meshed_serve_phase(cfg) -> dict:
     ctx = ShardCtx(mesh=smoke_mesh(1, 1, "cuda"), attn_shard="explicit")
     blocks = shard_tree(params, param_specs(cfg, ctx.mesh, 1), ctx.mesh)
 
-    def serve(weights, step_ctx) -> tuple[list, float]:
-        """[(token, logits, cache copy) after the prefill and each step],
-        the decode steps' mean milliseconds."""
+    def serve(weights, step_ctx) -> list:
+        """[(token, logits, cache copy) after the prefill and each step]."""
         prefill = make_prefill_step(cfg, cache_headroom=new, ctx=step_ctx)
         step = make_serve_step(cfg, ctx=step_ctx)
         with torch.no_grad():
             logits, cache = prefill(weights, {"tokens": tokens})
             tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
             out = [(tok, logits, tf_mod.clone_cache(cache))]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             for i in range(new):
                 tok, logits, cache = step(weights, {"token": tok,
                                                     "pos": torch.tensor(prompt + i, device=DEV)},
                                           cache)
                 out.append((tok, logits, tf_mod.clone_cache(cache)))
-            torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) / new * 1e3
+        return out
 
     for fn in COUNTERS.values():
         fn.launches = 0
-    meshed, meshed_ms = serve(blocks, ctx)
+    meshed = serve(blocks, ctx)
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
-    plain, plain_ms = serve(params, None)
+    plain = serve(params, None)
+    times = tp_timing().summary(tp_timing().decode_passes(
+        cfg, params, blocks, ctx, tokens, MESH_SERVE["timed_steps"], MESH_SERVE["passes"]))
+    meshed_ms, plain_ms = times["meshed"]["median"], times["unmeshed"]["median"]
     equal = []
     for (t1, l1, c1), (t2, l2, c2) in zip(meshed, plain):
         leaves = [(a, c) for (_, a), (_, c) in zip(leaves_with_path(c1), leaves_with_path(c2))]
         equal.append(torch.equal(t1, t2) and torch.equal(l1, l2)
                      and len(leaves) == len(leaves_with_path(c2))
                      and all(a.shape == c.shape and torch.equal(a, c) for a, c in leaves))
+    want = {name: (expect or {}).get(name, 0) for name in launches}
     line(f"phase 19 (a) meshed serving {cfg.name} (full width, {cfg.n_layers} layers) on a "
          f"(1, 1) mesh in phase 18's NCCL group: prefill {b} x {prompt} + {new} greedy steps, "
          f"tokens, logits and every cache leaf bitwise the unmeshed steps after the prefill and "
-         f"each step: {all(equal)} ({sum(equal)} of {len(equal)}); decode ms/step meshed "
-         f"{meshed_ms:.2f} unmeshed {plain_ms:.2f}; kernel launches on the meshed serving path: "
-         + " ".join(f"{k}={v}" for k, v in launches.items()) + f" [{CARD}]")
+         f"each step: {all(equal)} ({sum(equal)} of {len(equal)}); decode ms/step over "
+         f"{MESH_SERVE['passes']} passes of {MESH_SERVE['timed_steps']} steps after a warm-up "
+         f"pass each (examples/torch_tp_timing.py): meshed median {meshed_ms:.3f} "
+         f"[{times['meshed']['min']:.3f}, {times['meshed']['max']:.3f}], unmeshed median "
+         f"{plain_ms:.3f} [{times['unmeshed']['min']:.3f}, {times['unmeshed']['max']:.3f}] "
+         f"(ratio of medians {meshed_ms / plain_ms:.3f}); kernel "
+         f"launches on the meshed serving path: "
+         + " ".join(f"{k}={v}" for k, v in launches.items())
+         + " (expected " + (" ".join(f"{k}={v}" for k, v in want.items() if v) or "none")
+         + ")"
+         + f" [{CARD}]")
     if not all(equal):
         raise AssertionError("phase 19 (a): the meshed serving steps differ from the unmeshed "
                              "ones on a (1, 1) mesh")
-    if any(launches.values()):
-        raise AssertionError("phase 19 (a): a kernel launched on the meshed serving path")
+    if launches != want:
+        raise AssertionError(f"phase 19 (a): kernel launches on the meshed serving path "
+                             f"{launches}, expected {want}")
     del params, blocks, meshed, plain
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(bitwise=all(equal), meshed_ms=meshed_ms, plain_ms=plain_ms)
+    return dict(bitwise=all(equal), meshed_ms=meshed_ms, plain_ms=plain_ms, launches=launches,
+                times=times)
+
+
+def tp_timing():
+    """examples/torch_tp_timing.py as a module (its decode timing)."""
+    if "torch_tp_timing" not in sys.modules:
+        path = Path(__file__).resolve().parent / "examples" / "torch_tp_timing.py"
+        spec = importlib.util.spec_from_file_location("torch_tp_timing", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["torch_tp_timing"] = mod
+    return sys.modules["torch_tp_timing"]
 
 
 class MeshDryrun:
@@ -3759,6 +3796,9 @@ def main() -> None:
          f"{(k4_d80['ms'] / f80) / (k4_main['ms'] / f128):.2f}x D=128's)")
     wkv_shape = (b, rwkv.n_rwkv_heads, rwkv.rwkv_head_size)
     k5_main = check_k5(b, s, *wkv_shape[1:], "main-path prefill shape (rwkv6-7b)", reps=20)
+    # The meshed path's head block: rank r of `model` 16 runs 4 of the 64 heads.
+    k5_heads = check_k5(b, s, rwkv.n_rwkv_heads // 16, rwkv.rwkv_head_size,
+                        "head block at model 16 (rwkv6-7b, 4 of 64 heads a rank)", reps=20)
     k5_decode = check_k5(b, 1, *wkv_shape[1:], "main-path decode shape (rwkv6-7b, T=1)",
                          reps=200)
 
@@ -3935,6 +3975,10 @@ def main() -> None:
             kernels[-1]["d80"] = {k: k4_d80[k] for k in keys}
             for label, res_k4 in audio_vlm["k4"].items():
                 kernels[-1][label] = {k: res_k4[k] for k in keys}
+        if name == "rwkv6_wkv":
+            keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            kernels[-1]["head_block"] = {k: k5_heads[k] for k in keys}
+            kernels[-1]["mesh_launches"] = shard["model"]["serve_rwkv"]["launches"][name]
         if "lanes" in res:
             kernels[-1]["lanes"] = res["lanes"]
         if name == "polyblock_fused":

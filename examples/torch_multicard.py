@@ -3,7 +3,8 @@ the meshed model, each held against its one-card run.
 
   python3 examples/torch_multicard.py                 # every visible card
   PYTHONPATH=src python examples/torch_multicard.py --device cpu --rounds 3 \\
-      --arch granite-moe-3b-a800m-smoke --layers 0     # rehearsal on the CPU
+      --arch granite-moe-3b-a800m-smoke --layers 0 \\
+      --rwkv-arch rwkv6-7b-smoke --rwkv-layers 0       # rehearsal on the CPU
 
 Part 1, the simulation: the 16-cell `run_many` scan group of
 `chip_smoke.py` (mnist, N 20, K 4, 500 samples; the paper's four DS
@@ -32,7 +33,18 @@ bf16 the same numbers reported; then `--steps` meshed steps from the seed
 on (data=2, model=cards/2), each step's wall time beside the unsharded
 step's.
 
-On the CPU (`--device cpu`) the cards are 4 emulated devices
+Part 3, RWKV-6 head-parallel: one process per card, rwkv6-7b (`--rwkv-arch`)
+at full width and `--rwkv-layers` layers (0: all) through K5 (`rwkv_wkv_impl="pallas"`), float32
+copies of the weights, on (data=1, model=cards): a meshed prefill of
+4 x 256 tokens and 4 greedy decode steps (each rank's heads, 64 / cards,
+through K5 in the model; the WKV state held as the rank's head block)
+against the unsharded prefill and steps on that rank's card: every
+step's logits within 1e-4 of their scale and the tokens equal, and K5
+launched once per layer per prefill and step on the meshed path (its
+counter set to 0 just before the path, read just after).
+
+`--parts` picks the parts (default all three).  On the CPU (`--device cpu`)
+the cards are 4 emulated devices
 (`launch.mesh.emulate_devices`) and 4 gloo processes.  Every line names
 the card and its power limit; any failure exits non-zero.
 """
@@ -54,6 +66,7 @@ from repro_torch.core import PAPER_BASELINE_DS, RoundPolicy, WirelessConfig  # n
 from repro_torch.core.monotonic_torch import solve_pairs_fused  # noqa: E402
 from repro_torch.fl import SimConfig, run_many  # noqa: E402
 from repro_torch.kernels.polyblock_fused.ops import polyblock_solve_fused  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import wkv6  # noqa: E402
 from repro_torch.launch.mesh import emulate_devices, local_devices, smoke_mesh  # noqa: E402
 from repro_torch.launch.multidevice_demo import (demo_ctx, fl_batches, leaf_gaps,  # noqa: E402
                                                  run_rank, shard_rows, shardwise_grads,
@@ -62,11 +75,13 @@ from repro_torch.models.transformer import init_params, param_specs  # noqa: E40
 from repro_torch.sharding.params import shard_tree  # noqa: E402
 from repro_torch.sharding.partition import leaves_with_path  # noqa: E402
 from repro_torch.train.optimizer import adamw  # noqa: E402
+from repro_torch.train.serve_step import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.train.train_step import make_grad_fn, make_train_step  # noqa: E402
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 
 LOSS_RTOL, GNORM_RTOL, GRAD_RTOL = 1e-5, 1e-5, 1e-4
 LR = 1e-3
+RWKV_SERVE = dict(batch=4, prompt=256, new=4, logit_rtol=1e-4)
 
 
 def excess(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -336,6 +351,69 @@ def model_part(args, n_cards: int, label: str) -> dict:
                 losses=o["losses"])
 
 
+def _rwkv_rank(rank, arch, layers, n, device):
+    """On this rank: rwkv6-7b's meshed prefill and greedy steps on (1, n)
+    against the unsharded ones on the rank's device, and K5's launches on
+    the meshed path."""
+    torch.set_num_threads(1)
+    dev = torch.device(device if device == "cpu" else f"cuda:{rank}")
+    cfg = dataclasses.replace(get_config(arch), rwkv_wkv_impl="pallas")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = tree_map(lambda t: t.float(), init_params(cfg, torch.Generator(dev).manual_seed(0)))
+    b, prompt, new = RWKV_SERVE["batch"], RWKV_SERVE["prompt"], RWKV_SERVE["new"]
+    tokens = torch.randint(0, cfg.vocab, (b, prompt), device=dev,
+                           generator=torch.Generator(dev).manual_seed(7))
+    ctx = demo_ctx(1, n, b, prompt, "explicit", dev.type)
+    blocks = shard_tree(params, param_specs(cfg, ctx.mesh, n), ctx.mesh)
+
+    def serve(weights, step_ctx) -> list:
+        prefill = make_prefill_step(cfg, cache_headroom=new, ctx=step_ctx)
+        step = make_serve_step(cfg, ctx=step_ctx)
+        with torch.no_grad():
+            logits, cache = prefill(weights, {"tokens": tokens})
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out = [(tok, logits[:, -1])]
+            for i in range(new):
+                tok, step_logits, cache = step(
+                    weights, {"token": tok, "pos": torch.tensor(prompt + i, device=dev)}, cache)
+                out.append((tok, step_logits.reshape(b, -1)))
+        sync(device)
+        return out
+
+    wkv6.launches = 0
+    meshed = serve(blocks, ctx)
+    launches = wkv6.launches
+    plain = serve(params, None)
+    errs = [float((lm - lp).abs().max() / lp.abs().max())
+            for (_, lm), (_, lp) in zip(meshed, plain)]
+    same = all(torch.equal(tm, tp) for (tm, _), (tp, _) in zip(meshed, plain))
+    return dict(errs=errs, tokens_equal=same, launches=launches,
+                heads=cfg.n_rwkv_heads // n)
+
+
+def rwkv_part(args, n_cards: int, label: str) -> dict:
+    outs = spawn(_rwkv_rank, n_cards, (args.rwkv_arch, args.rwkv_layers, n_cards,
+                                       args.device or "cuda"),
+                 backend="gloo" if args.device == "cpu" else "nccl", timeout=args.timeout)
+    layers = args.rwkv_layers or get_config(args.rwkv_arch).n_layers
+    want = layers * (1 + RWKV_SERVE["new"]) if args.device != "cpu" else 0
+    worst = max(max(o["errs"]) for o in outs)
+    ok = (worst <= RWKV_SERVE["logit_rtol"] and all(o["tokens_equal"] for o in outs)
+          and all(o["launches"] == want for o in outs))
+    print(f"{args.rwkv_arch} ({layers} layers, float32 weights, K5) head-parallel "
+          f"on a (1, {n_cards}) mesh, {outs[0]['heads']} heads a rank: prefill "
+          f"{RWKV_SERVE['batch']} x {RWKV_SERVE['prompt']} + {RWKV_SERVE['new']} greedy steps "
+          f"against the unsharded model on each rank's card: worst logits |diff| / scale "
+          f"{worst:.3e} (limit {RWKV_SERVE['logit_rtol']:g}), tokens equal on every rank "
+          f"{all(o['tokens_equal'] for o in outs)}; K5 launches on the meshed path per rank "
+          + " ".join(str(o["launches"]) for o in outs) + f" (expected {want}) [{label}]",
+          flush=True)
+    if not ok:
+        raise AssertionError("the head-parallel rwkv6-7b differs from the unsharded model")
+    return dict(worst_logit_err=worst, launches=[o["launches"] for o in outs])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None, help="'cpu' to rehearse; default the cards")
@@ -345,25 +423,38 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--timeout", type=float, default=900.0)
+    ap.add_argument("--rwkv-arch", default="rwkv6-7b")
+    ap.add_argument("--rwkv-layers", type=int, default=2)
+    ap.add_argument("--parts", default="simulation,model,rwkv",
+                    help="comma-separated: simulation, model, rwkv")
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
     label = card()
     t_all = time.perf_counter()
+    sim = mod = rwkv = None
     if args.device == "cpu":
         n_cards = 4
-        with emulate_devices(n_cards):
-            sim = simulation_part("cpu", args.rounds, n_cards, label)
+        if "simulation" in parts:
+            with emulate_devices(n_cards):
+                sim = simulation_part("cpu", args.rounds, n_cards, label)
     else:
         n_cards = len(local_devices("cuda"))
         if n_cards < 2 or n_cards % 2:
             sys.exit(f"torch_multicard: needs an even number of cards >= 2, sees {n_cards}")
         print(f"{label} x{n_cards}; torch {torch.__version__} cuda {torch.version.cuda}",
               flush=True)
-        sim = simulation_part("cuda", args.rounds, n_cards, label)
+        if "simulation" in parts:
+            sim = simulation_part("cuda", args.rounds, n_cards, label)
     t_sim = time.perf_counter()
-    mod = model_part(args, n_cards, label)
-    print(f"wall_s: simulation {t_sim - t_all:.1f}, model {time.perf_counter() - t_sim:.1f} "
-          f"[{label}]")
-    print(json.dumps({"cards": n_cards, "card": label, "simulation": sim, "model": mod}))
+    if "model" in parts:
+        mod = model_part(args, n_cards, label)
+    t_mod = time.perf_counter()
+    if "rwkv" in parts:
+        rwkv = rwkv_part(args, n_cards, label)
+    print(f"wall_s: simulation {t_sim - t_all:.1f}, model {t_mod - t_sim:.1f}, rwkv "
+          f"{time.perf_counter() - t_mod:.1f} [{label}]")
+    print(json.dumps({"cards": n_cards, "card": label, "simulation": sim, "model": mod,
+                      "rwkv": rwkv}))
 
 
 if __name__ == "__main__":

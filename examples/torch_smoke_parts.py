@@ -3,6 +3,7 @@ measure them.
 
   python3 examples/torch_smoke_parts.py --service-profile-events 100 --jamba-scan
   python3 examples/torch_smoke_parts.py --profile-readback
+  python3 examples/torch_smoke_parts.py --mesh-serve
 
 `--service-profile-events N` runs the smoke run's sweep-and-service phase's
 service (`chip_smoke.service_phase`) with a profiled window of N events
@@ -22,8 +23,12 @@ unless they give the same kernels, counts and ranges (device times within
 1e-6 relative).  Then, in `chip_smoke.profile_step`'s order, it profiles
 a step and AdamW's update alone four times, the step's window read by
 each read-back in turn, to show the update's window does not depend on
-how the window before it was read.  Every line names the card and its
-power limit.  Needs a CUDA device.
+how the window before it was read.  `--mesh-serve` runs phase 19 (a)
+alone (`chip_smoke.meshed_serve_phase` in a world of one under NCCL:
+granite-moe-3b-a800m at 16 layers, then rwkv6-7b at 4 layers through K5,
+each meshed on (1, 1) against unmeshed) and K5 at the meshed path's head
+block (`chip_smoke.check_k5`, 4 x 512 x 4 x 64).  Every line names the
+card and its power limit.  Needs a CUDA device.
 """
 import argparse
 import contextlib
@@ -218,12 +223,33 @@ def profile_readback() -> None:
                           profiled(update_alone))
 
 
+def mesh_serve() -> None:
+    """Phase 19 (a) of the smoke run and its K5 check, alone."""
+    from repro_torch.launch.multidevice_demo import init_world
+
+    rwkv = get_config("rwkv6-7b")
+    cs.check_k5(4, 512, rwkv.n_rwkv_heads // 16, rwkv.rwkv_head_size,
+                "head block at model 16 (rwkv6-7b, 4 of 64 heads a rank)", reps=20)
+    init_world(0, 1, "nccl")
+    try:
+        t0 = time.perf_counter()
+        cs.meshed_serve_phase(dataclasses.replace(get_config(cs.MESH["arch"]),
+                                                  n_layers=cs.MESH["layers"]))
+        cs.meshed_serve_phase(
+            dataclasses.replace(rwkv, n_layers=cs.MESH_RWKV_LAYERS, rwkv_wkv_impl="pallas"),
+            {"rwkv6_wkv": cs.MESH_RWKV_LAYERS * (1 + cs.MESH_SERVE["new"])})
+        cs.line(f"phase 19 (a) wall_s={time.perf_counter() - t0:.1f} [{cs.CARD}]")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--service-profile-events", type=int, default=0)
     ap.add_argument("--jamba-scan", action="store_true")
     ap.add_argument("--profile-readback", action="store_true")
+    ap.add_argument("--mesh-serve", action="store_true")
     args = ap.parse_args(argv)
     cs.CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -241,6 +267,8 @@ def main(argv=None) -> None:
         jamba_scan()
     if args.profile_readback:
         profile_readback()
+    if args.mesh_serve:
+        mesh_serve()
 
 
 if __name__ == "__main__":

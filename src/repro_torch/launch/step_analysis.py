@@ -95,17 +95,17 @@ _PACKAGE = __name__.rsplit(".", 2)[0]          # "repro_torch"
 _COMM = f"{_PACKAGE}.sharding.comm"
 
 
-_PLUMBING = (f"{_PACKAGE}.sharding.", f"{_PACKAGE}.models.transformer._whole")
+_PLUMBING = (f"{_PACKAGE}.sharding.", f"{_PACKAGE}.models.tensor_parallel.")
 
 
 def _call_site() -> str:
     """The port's code that called the collective: the innermost frame of
     the package outside `sharding.comm` ("models.moe._ep_moe"); behind a
-    parameter gather, the gather and the code it gathers for
-    ("sharding.params.gather_params < models.transformer._sublayer_full");
-    in a backward pass the `sharding.comm` operator whose backward called
-    it ("sharding.comm._CopyTo.backward"); marked "[remat]" where a remat
-    boundary's recompute ran it."""
+    helper of `sharding` or `models.tensor_parallel`, the helper and the
+    code it serves ("models.tensor_parallel.row <
+    models.attention.gqa_forward"); in a backward pass the `sharding.comm`
+    operator whose backward called it ("sharding.comm._ColParallel.backward");
+    marked "[remat]" where a remat boundary's recompute ran it."""
     frame, site, remat = sys._getframe(2), None, False
     while frame is not None:
         mod, code = frame.f_globals.get("__name__", ""), frame.f_code

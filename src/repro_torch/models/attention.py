@@ -33,10 +33,25 @@ the audio encoder) and `cross_attn`, through the plain `_sdpa` with no
 mask, as in the JAX package, which never sends them to its flash kernel.
 
 On a mesh (`sharding.ctx.ShardCtx`), K4 is never taken, as in the JAX
-package; with attn_shard="explicit" full-sequence causal attention (GQA
-and MLA) runs through `sharded_causal_attention`, partitioned over the
-`model` axis, else the plain path runs whole on every model rank.  A
-meshed decode cache holds this rank's block of the cache length (the
+package.  Where the `model` axis has more than one rank (`tp`, a
+`models.tensor_parallel.TP`), the projections are this rank's blocks:
+wq / wk / wv (MLA's q_up / kv_up) column blocks, wo a row block.  Where
+the kv heads divide `model` the blocks are whole heads and attention is
+head-parallel: each rank attends with its heads, with no collective
+inside (MLA: its heads always divide `model` at the rules' meshes; the
+replicated latent's rotary key takes its gradient from every rank's
+heads).  Where they do not, a column block splits a head: the projected
+q, k and v are all-gathered over `model` (activations) and rotated after
+the gather, attention runs on the whole heads (attn_shard="explicit":
+`sharded_causal_attention`'s sequence-parallel case), and its output's
+columns go through wo's row block.  A decode step gathers its one
+token's q, k and v heads.  MLA's decode on such a mesh runs in latent
+space whatever `mla_absorb` says: the naive form needs every head's
+kv_up against every slot, which the head-sharded weights and the
+length-sharded cache hold on different ranks.  On a `model` axis of one
+rank, with attn_shard="explicit" full-sequence causal attention runs
+through `sharded_causal_attention`, else the plain path.  A meshed decode
+cache holds this rank's block of the cache length (the
 layout of `sharding.partition.cache_shardings`: "k" / "v" / "c_kv" /
 "k_pe" along C, "pos" and "idx" whole): the token's slot is written by the
 rank that owns it (`_ring_write`, an owner mask, no host read), and each
@@ -55,6 +70,7 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..sharding import comm
 from ..sharding.ctx import meshed
+from . import tensor_parallel as TPM
 from .layers import DTYPE, apply_mrope, apply_rope, dense, dense_init
 
 __all__ = ["gqa_init", "gqa_forward", "gqa_decode", "init_kv_cache", "mla_init",
@@ -173,14 +189,34 @@ def gqa_init(gen: torch.Generator, cfg: ArchConfig):
     }
 
 
-def _project_qkv(p, cfg: ArchConfig, x, positions, mrope_pos=None):
+def _heads_mode(tp, p, cfg: ArchConfig):
+    """How a meshed GQA (or cross-attention) layer's heads lie over
+    `model`: None off a mesh or on one model rank, "heads" where the kv
+    heads divide it (head-parallel), else "gather" (the column blocks split
+    a head).  Refuses a leaf that is not its rules' block."""
+    if tp is None:
+        return None
+    dh = cfg.head_dim
+    for name, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads), ("wv", cfg.n_kv_heads)):
+        TPM.block(tp, p[name]["w"], 1, n * dh, name)
+    TPM.block(tp, p["wo"]["w"], 0, cfg.n_heads * dh, "wo")
+    return "heads" if cfg.n_kv_heads % tp.size == 0 else "gather"
+
+
+def _project_qkv(p, cfg: ArchConfig, x, positions, mrope_pos=None, tp=None, gather=False):
     """q, k rotated by M-RoPE at `mrope_pos` (B, S, 3) when cfg.use_mrope
-    and it is given, else by RoPE at `positions`; v as projected."""
+    and it is given, else by RoPE at `positions`; v as projected.  On a
+    mesh (`tp`) this rank's heads, or with `gather` every head (the
+    projections gathered over `model` before the rotation, which pairs
+    channels within a head)."""
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = dense(p["wq"], x).reshape(b, s, cfg.n_heads, dh)
-    k = dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, dh)
-    v = dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, dh)
+    q, k, v = TPM.cols(tp, [p["wq"], p["wk"], p["wv"]], x)
+    if gather:
+        q, k, v = (TPM.gather_cols(tp, t) for t in (q, k, v))
+    q = q.reshape(b, s, q.shape[-1] // dh, dh)
+    k = k.reshape(b, s, k.shape[-1] // dh, dh)
+    v = v.reshape(b, s, v.shape[-1] // dh, dh)
     if cfg.use_mrope and mrope_pos is not None:
         sections = _mrope_sections(dh)
         return (apply_mrope(q, mrope_pos, cfg.rope_theta, sections),
@@ -197,7 +233,7 @@ def _mrope_sections(dh: int) -> tuple[int, int, int]:
 
 
 def gqa_forward(p, cfg: ArchConfig, x, *, positions=None, mrope_pos=None, chunk: int = 0,
-                causal: bool = True, return_kv: bool = False, ctx=None):
+                causal: bool = True, return_kv: bool = False, ctx=None, tp=None):
     """Training / prefill self-attention: causal with an optional sliding
     window, or with causal=False unmasked (the audio encoder), through the
     plain `_sdpa` whatever `attn_impl` says.  q and k are rotated by M-RoPE
@@ -205,26 +241,32 @@ def gqa_forward(p, cfg: ArchConfig, x, *, positions=None, mrope_pos=None, chunk:
     `positions` (default arange(S)).
 
     With return_kv=True also returns the rotated (k, v) so the serving path
-    can seed a decode cache from prefill.  `ctx` (`sharding.ctx.ShardCtx`):
-    on a mesh K4 is not taken, and attn_shard="explicit" routes causal
-    attention through `sharded_causal_attention`."""
+    can seed a decode cache from prefill (every kv head).  `ctx`
+    (`sharding.ctx.ShardCtx`): on a mesh K4 is not taken, and
+    attn_shard="explicit" routes causal attention on whole heads through
+    `sharded_causal_attention`; `tp` partitions the layer over `model`
+    (module docstring)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, cfg, x, positions, mrope_pos)
-    hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    qg = q.reshape(b, s, hkv, cfg.n_heads // hkv, dh)
+    mode = _heads_mode(tp, p, cfg)
+    q, k, v = _project_qkv(p, cfg, x, positions, mrope_pos, tp, gather=mode == "gather")
+    hkv, dh = k.shape[2], cfg.head_dim
+    qg = q.reshape(b, s, hkv, cfg.n_heads // cfg.n_kv_heads, dh)
     if not causal:
         out = _sdpa(qg, k, v, None, dh**-0.5)
     elif cfg.attn_impl == "pallas" and not meshed(ctx):
         out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    elif meshed(ctx) and ctx.attn_shard == "explicit":
+    elif meshed(ctx) and ctx.attn_shard == "explicit" and mode != "heads":
         out = sharded_causal_attention(qg, k, v, dh**-0.5, cfg.sliding_window, chunk, ctx)
     else:
         out = _full_attn(qg, k, v, dh**-0.5, cfg.sliding_window, chunk,
                          remat=_remat_chunks(ctx))
-    y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * dh))
+    out = out.reshape(b, s, q.shape[2] * dh)
+    y = TPM.row(tp, p["wo"], TPM.split_cols(tp, out) if mode == "gather" else out)
     if return_kv:
+        if mode == "heads":
+            k, v = (comm.gather_(t, tp.group, 2) for t in (k, v))
         return y, (k, v)
     return y
 
@@ -313,19 +355,21 @@ def _sdpa_sharded(q, k, v, mask, scale, ctx):
     return _combine(out, share.permute(0, 3, 1, 2)[..., None], ctx)
 
 
-def gqa_decode(p, cfg: ArchConfig, x, cache, cur_pos, *, mrope_pos=None, ctx=None):
+def gqa_decode(p, cfg: ArchConfig, x, cache, cur_pos, *, mrope_pos=None, ctx=None, tp=None):
     """One-token decode: x (B, 1, d); cur_pos a () int32 tensor, the global
     position, on x's device (no host read); with cfg.use_mrope, mrope_pos
     (B, 1, 3) the token's M-RoPE position.  Writes slot idx % C of the
     cache in place, advances its idx, and returns (y, cache).  On a mesh
     whose cache holds this rank's block of the length, attention runs over
-    the block and is combined over `model` (module docstring)."""
+    the block and is combined over `model` (module docstring); with `tp`
+    the token's q, k and v heads are gathered and wo is a row block."""
     b = x.shape[0]
     dh = cfg.head_dim
     hkv = cfg.n_kv_heads
     g = cfg.n_heads // hkv
     positions = cur_pos.reshape(1, 1).expand(b, 1)
-    q, k, v = _project_qkv(p, cfg, x, positions, mrope_pos)
+    mode = _heads_mode(tp, p, cfg)
+    q, k, v = _project_qkv(p, cfg, x, positions, mrope_pos, tp, gather=mode is not None)
     block = _length_block(cache, "k", ctx)
     valid = _ring_write(cache, {"k": k, "v": v}, cur_pos, cfg.sliding_window, block)
 
@@ -336,7 +380,7 @@ def gqa_decode(p, cfg: ArchConfig, x, cache, cur_pos, *, mrope_pos=None, ctx=Non
         valid = valid[block[0]:block[0] + block[1]]
         out = _sdpa_sharded(qg, cache["k"], cache["v"], valid[None, None, None, None, :],
                             dh**-0.5, ctx)
-    y = dense(p["wo"], out.reshape(b, 1, cfg.n_heads * dh))
+    y = TPM.row(tp, p["wo"], TPM.split_cols(tp, out.reshape(b, 1, cfg.n_heads * dh)))
     return y, cache
 
 
@@ -356,21 +400,43 @@ def mla_init(gen: torch.Generator, cfg: ArchConfig):
     }
 
 
-def _mla_q(p, cfg: ArchConfig, xq, positions):
+def _mla_tp(tp, p, cfg: ArchConfig):
+    """`tp` for an MLA layer, after checking its blocks: q_up and kv_up
+    column blocks of whole heads, wo a row block.  Refuses heads that do
+    not divide `model` (every mesh of the rules divides deepseek-v3's
+    128)."""
+    if tp is None:
+        return None
+    h = cfg.n_heads
+    if h % tp.size:
+        leaf = ".".join(str(k) for k in tp.where + ("q_up",))
+        raise ValueError(f"{leaf}: MLA's {h} heads do not divide model={tp.size}; its "
+                         "tensor-parallel form takes whole heads per rank")
+    TPM.block(tp, p["q_up"]["w"], 1, h * (cfg.qk_nope_dim + cfg.qk_rope_dim), "q_up")
+    TPM.block(tp, p["kv_up"]["w"], 1, h * (cfg.qk_nope_dim + cfg.v_head_dim), "kv_up")
+    TPM.block(tp, p["wo"]["w"], 0, h * cfg.v_head_dim, "wo")
+    return tp
+
+
+def _mla_q(p, cfg: ArchConfig, xq, positions, tp=None):
     """Queries (B, Sq, H, dn + dr), the last dr columns rotated at
-    `positions`."""
+    `positions` (on a mesh this rank's H / model heads)."""
     b, sq, _ = xq.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = dense(p["q_up"], dense(p["q_down"], xq)).reshape(b, sq, cfg.n_heads, dn + dr)
+    q = TPM.col(tp, p["q_up"], dense(p["q_down"], xq)).reshape(b, sq, -1, dn + dr)
     return torch.cat([q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)], -1)
 
 
-def _mla_kv_from_latent(p, cfg: ArchConfig, c_kv, k_pe):
+def _mla_kv_from_latent(p, cfg: ArchConfig, c_kv, k_pe, tp=None):
     """Up-project the latent (key side): k (B, Sk, H, dn + dr) with the
-    rotated k_pe broadcast over the heads, v (B, Sk, H, dv)."""
+    rotated k_pe broadcast over the heads, v (B, Sk, H, dv); on a mesh
+    this rank's heads, k_pe's gradient summed over them all."""
     b, sk, _ = c_kv.shape
-    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    kv = dense(p["kv_up"], c_kv).reshape(b, sk, h, dn + dv)
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kv = TPM.col(tp, p["kv_up"], c_kv).reshape(b, sk, -1, dn + dv)
+    h = kv.shape[2]
+    if tp is not None:
+        k_pe = comm.copy_to_f32(k_pe, tp.group)
     k = torch.cat([kv[..., :dn], k_pe[:, :, None, :].expand(b, sk, h, dr)], -1)
     return k, kv[..., dn:]
 
@@ -384,26 +450,27 @@ def _mla_latent(p, cfg: ArchConfig, x, positions):
 
 
 def mla_forward(p, cfg: ArchConfig, x, *, positions=None, chunk: int = 0,
-                return_kv: bool = False, ctx=None):
+                return_kv: bool = False, ctx=None, tp=None):
     """Training / prefill MLA (causal, optional sliding window), through
     `_full_attn` with one query head per key head (on a mesh with
-    attn_shard="explicit", `sharded_causal_attention`, head-parallel where
-    the heads divide `model`).  With return_kv=True also returns the latent
-    (c_kv, k_pe) that seeds the decode cache."""
+    attn_shard="explicit" and one model rank, `sharded_causal_attention`;
+    with `tp`, head-parallel on this rank's heads).  With return_kv=True
+    also returns the latent (c_kv, k_pe) that seeds the decode cache."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    tp = _mla_tp(tp, p, cfg)
     c_kv, k_pe = _mla_latent(p, cfg, x, positions)
-    k, v = _mla_kv_from_latent(p, cfg, c_kv, k_pe)
-    q = _mla_q(p, cfg, x, positions)
+    k, v = _mla_kv_from_latent(p, cfg, c_kv, k_pe, tp)
+    q = _mla_q(p, cfg, x, positions, tp)
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
-    if meshed(ctx) and ctx.attn_shard == "explicit":
+    if meshed(ctx) and ctx.attn_shard == "explicit" and tp is None:
         out = sharded_causal_attention(q[:, :, :, None, :], k, v, scale, cfg.sliding_window,
                                        chunk, ctx)[:, :, :, 0]
     else:
         out = _full_attn(q[:, :, :, None, :], k, v, scale, cfg.sliding_window,
                          chunk, remat=_remat_chunks(ctx))[:, :, :, 0]
-    y = dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.v_head_dim))
+    y = TPM.row(tp, p["wo"], out.reshape(b, s, q.shape[2] * cfg.v_head_dim))
     if return_kv:
         return y, (c_kv, k_pe)
     return y
@@ -419,7 +486,7 @@ def init_mla_cache(cfg: ArchConfig, batch: int, cache_len: int, device):
     }
 
 
-def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos, ctx=None):
+def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos, ctx=None, tp=None):
     """One-token MLA decode: x (B, 1, d), cur_pos a () int32 tensor on x's
     device.  Writes the token's latent at slot idx % C in place, advances
     idx, and returns (y, cache).  Two modes, as in the JAX package:
@@ -431,9 +498,14 @@ def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos, ctx=None):
       no per-head K/V exists.  The same math in another order.
 
     On a mesh whose cache holds this rank's block of the length, both run
-    over the block's latents and are combined over `model`."""
+    over the block's latents and are combined over `model`.  With `tp` the
+    absorbed form runs (module docstring): this rank's heads' queries in
+    latent space, gathered over `model` for the slots of the block, and
+    each rank's heads of the combined latent output through its slice of
+    kv_up and its row block of wo."""
     b = x.shape[0]
     dn, dr, h, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.n_heads, cfg.v_head_dim
+    tp = _mla_tp(tp, p, cfg)
     positions = cur_pos.reshape(1, 1).expand(b, 1)
     c_new, k_pe_new = _mla_latent(p, cfg, x, positions)
     block = _length_block(cache, "c_kv", ctx)
@@ -442,14 +514,17 @@ def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos, ctx=None):
     if block is not None:
         valid = valid[block[0]:block[0] + block[1]]
     c_kv, k_pe = cache["c_kv"], cache["k_pe"]
-    q = _mla_q(p, cfg, x, positions)
+    q = _mla_q(p, cfg, x, positions, tp)
     scale = (dn + dr) ** -0.5
-    if cfg.mla_absorb:
-        w_up = p["kv_up"]["w"].reshape(cfg.kv_lora_rank, h, dn + dv).float()
+    if cfg.mla_absorb or tp is not None:
+        w_up = p["kv_up"]["w"].reshape(cfg.kv_lora_rank, q.shape[2], dn + dv).float()
         w_k, w_v = w_up[..., :dn], w_up[..., dn:]
         q_abs = torch.einsum("bqhd,rhd->bqhr", q[..., :dn].float(), w_k)
+        q_pe = q[..., dn:]
+        if tp is not None:
+            q_abs, q_pe = (TPM.gather_cols(tp, t, 2) for t in (q_abs, q_pe))
         logits = torch.einsum("bqhr,bcr->bhqc", q_abs, c_kv.float())
-        logits = logits + torch.einsum("bqhd,bcd->bhqc", q[..., dn:].float(), k_pe.float())
+        logits = logits + torch.einsum("bqhd,bcd->bhqc", q_pe.float(), k_pe.float())
         logits = torch.where(valid, logits * scale, NEG_INF)
         if block is None:
             probs = torch.softmax(logits, dim=-1)
@@ -458,14 +533,14 @@ def mla_decode(p, cfg: ArchConfig, x, cache, cur_pos, ctx=None):
             probs, share = _decode_softmax(logits, ctx)
             o_lat = _combine(torch.einsum("bhqc,bcr->bqhr", probs, c_kv.float()),
                              share.permute(0, 2, 1)[..., None], ctx)
-        out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_v).to(x.dtype)
+        out = torch.einsum("bqhr,rhd->bqhd", TPM.split_cols(tp, o_lat, 2), w_v).to(x.dtype)
     else:
         k, v = _mla_kv_from_latent(p, cfg, c_kv, k_pe)
         if block is None:
             out = _sdpa(q[:, :, :, None, :], k, v, valid, scale)[:, :, :, 0]
         else:
             out = _sdpa_sharded(q[:, :, :, None, :], k, v, valid, scale, ctx)[:, :, :, 0]
-    return dense(p["wo"], out.reshape(b, 1, h * dv)), cache
+    return TPM.row(tp, p["wo"], out.reshape(b, 1, out.shape[2] * dv)), cache
 
 
 # --------------------------------------------------------------------------
@@ -482,17 +557,24 @@ def cross_attn_init(gen: torch.Generator, cfg: ArchConfig):
     }
 
 
-def cross_attn(p, cfg: ArchConfig, x, enc_out):
+def cross_attn(p, cfg: ArchConfig, x, enc_out, tp=None):
     """x: (B, Sq, d) decoder stream; enc_out: (B, Se, d).  No mask, no RoPE
     (whisper uses absolute positions on the encoder); K and V are projected
     from enc_out at every call, decode steps included, as in the JAX
-    package."""
+    package.  With `tp`, partitioned over `model` as `gqa_forward`: this
+    rank's heads, or every head gathered where the kv heads do not divide
+    `model`."""
     b, sq, _ = x.shape
     se = enc_out.shape[1]
     dh = cfg.head_dim
-    hkv = cfg.n_kv_heads
-    q = dense(p["wq"], x).reshape(b, sq, hkv, cfg.n_heads // hkv, dh)
-    k = dense(p["wk"], enc_out).reshape(b, se, hkv, dh)
-    v = dense(p["wv"], enc_out).reshape(b, se, hkv, dh)
-    out = _sdpa(q, k, v, None, dh**-0.5)
-    return dense(p["wo"], out.reshape(b, sq, cfg.n_heads * dh))
+    mode = _heads_mode(tp, p, cfg)
+    q = TPM.col(tp, p["wq"], x)
+    k, v = TPM.cols(tp, [p["wk"], p["wv"]], enc_out)
+    if mode == "gather":
+        q, k, v = (TPM.gather_cols(tp, t) for t in (q, k, v))
+    hkv = k.shape[-1] // dh
+    q = q.reshape(b, sq, hkv, cfg.n_heads // cfg.n_kv_heads, dh)
+    k = k.reshape(b, se, hkv, dh)
+    v = v.reshape(b, se, hkv, dh)
+    out = _sdpa(q, k, v, None, dh**-0.5).reshape(b, sq, q.shape[2] * q.shape[3] * dh)
+    return TPM.row(tp, p["wo"], TPM.split_cols(tp, out) if mode == "gather" else out)

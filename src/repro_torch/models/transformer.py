@@ -62,12 +62,13 @@ from ..configs.base import ArchConfig
 from ..kernels.rwkv6_wkv.ops import wkv6
 from ..sharding import comm
 from ..sharding.ctx import ShardCtx, meshed
-from ..sharding.params import block_of, gather_params
+from ..sharding.params import block_of
 from ..sharding.partition import MODEL_AXIS, cache_model_dim, param_shardings
+from . import tensor_parallel as TPM
 from .attention import (cross_attn, cross_attn_init, gqa_decode, gqa_forward, gqa_init,
                         init_kv_cache, init_mla_cache, mla_decode, mla_forward, mla_init)
 from .layers import (DTYPE, MetaGenerator, dense, dense_init, normal_bf16, rmsnorm,
-                     rmsnorm_init, swiglu, swiglu_init)
+                     rmsnorm_init, swiglu_init)
 from .moe import moe_apply, moe_init
 from .ssm import (init_mamba_state, init_rwkv6_state, mamba_forward, mamba_init,
                   rwkv6_channel_mix, rwkv6_init, rwkv6_time_mix, wkv6_scan_ref)
@@ -309,15 +310,16 @@ class _Extras:
     """What every sublayer of one forward pass or decode step shares, as
     the JAX package's `_Extras`: RoPE positions, M-RoPE positions (B, S, 3)
     or None, the encoder's output (B, Se, d) or None, the "ref" chunk; on
-    a mesh the sharding context, the parameters' specs ({path: spec},
-    `param_specs`) and whether the logits are vocab-parallel."""
+    a mesh the sharding context, whether the logits are vocab-parallel and
+    the `model` axis the layers are partitioned over
+    (`tensor_parallel.model_tp`: None on one model rank)."""
     positions: Any = None
     mrope_pos: Any = None
     enc_out: Any = None
     chunk: int = 0
     ctx: Any = None
-    specs: Any = None
     vocab_par: bool = False
+    tp: Any = None
 
 
 def _extras(cfg: ArchConfig, ctx, **kw) -> _Extras:
@@ -325,25 +327,17 @@ def _extras(cfg: ArchConfig, ctx, **kw) -> _Extras:
         return _Extras(ctx=ctx, **kw)
     specs = param_specs(cfg, ctx.mesh, ctx.ep_size)
     vocab_par = specs[("lm_head", "w")][-1] is not None and ctx.size(MODEL_AXIS) > 1
-    return _Extras(ctx=ctx, specs=specs, vocab_par=vocab_par, **kw)
-
-
-def _whole(ex: _Extras, p, where: tuple):
-    """The parameters at `where` (a subtree of this rank's blocks on a
-    mesh) as the code computes with them: gathered whole where used, the
-    expert banks as held (`sharding.params.gather_params`); as given on
-    one device."""
-    return p if ex.specs is None else gather_params(p, ex.specs, ex.ctx, where)
+    return _Extras(ctx=ctx, vocab_par=vocab_par, tp=TPM.model_tp(ctx), **kw)
 
 
 def _head(params, name: str, h, ex: _Extras):
     """The logits of the head `name` ("lm_head" / "mtp_head"): on a mesh
     whose rules shard the vocab, this rank's block of the vocab (V / model
-    columns; `comm.copy_to` sums h's gradient over the ranks' blocks),
-    else whole."""
+    columns; h's gradient summed over the ranks' blocks in float32), else
+    whole (the rules replicate it)."""
     if ex.vocab_par:
         return _VocabHead.apply(h, params[name]["w"], ex.ctx.group(MODEL_AXIS))
-    return dense(_whole(ex, params[name], (name,)), h)
+    return dense(params[name], h)
 
 
 class _VocabHead(torch.autograd.Function):
@@ -387,8 +381,8 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, ex: _Extras, want_cache: bool,
                    where: tuple = ()):
     """Returns (x, aux, cache contribution); aux is None without a MoE FFN.
     `p` is the sublayer's parameters at `where` in the tree (on a mesh
-    this rank's blocks, gathered here, inside any remat boundary)."""
-    p = _whole(ex, p, where)
+    this rank's blocks, which its partitioned layers compute with)."""
+    tp = TPM.at(ex.tp, *where)
     cache: dict[str, Any] = {}
     aux = None
     h_in = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -396,39 +390,46 @@ def _sublayer_full(cfg, kind: LayerKind, p, x, ex: _Extras, want_cache: bool,
         if want_cache:
             h, (k_, v_) = gqa_forward(p["attn"], cfg, h_in, positions=ex.positions,
                                       mrope_pos=ex.mrope_pos, chunk=ex.chunk, return_kv=True,
-                                      ctx=ex.ctx)
+                                      ctx=ex.ctx, tp=TPM.at(tp, "attn"))
             cache = {"k": k_, "v": v_}
         else:
             h = gqa_forward(p["attn"], cfg, h_in, positions=ex.positions,
-                            mrope_pos=ex.mrope_pos, chunk=ex.chunk, ctx=ex.ctx)
+                            mrope_pos=ex.mrope_pos, chunk=ex.chunk, ctx=ex.ctx,
+                            tp=TPM.at(tp, "attn"))
     elif kind.mixer == "mla":
         if want_cache:
             h, (ckv, kpe) = mla_forward(p["attn"], cfg, h_in, positions=ex.positions,
-                                        chunk=ex.chunk, return_kv=True, ctx=ex.ctx)
+                                        chunk=ex.chunk, return_kv=True, ctx=ex.ctx,
+                                        tp=TPM.at(tp, "attn"))
             cache = {"c_kv": ckv, "k_pe": kpe}
         else:
             h = mla_forward(p["attn"], cfg, h_in, positions=ex.positions, chunk=ex.chunk,
-                            ctx=ex.ctx)
+                            ctx=ex.ctx, tp=TPM.at(tp, "attn"))
     elif kind.mixer == "mamba":
-        h, st = mamba_forward(p["mamba"], cfg, h_in)
+        h, st = mamba_forward(p["mamba"], cfg, h_in, tp=TPM.at(tp, "mamba"))
         if want_cache:
             cache = {"mamba": st}
     else:
-        st = init_rwkv6_state(cfg, x.shape[0], x.device)
-        h, st = rwkv6_time_mix(p["rwkv"], cfg, h_in, st, wkv_impl=_wkv_impl(cfg))
+        st = init_rwkv6_state(cfg, x.shape[0], x.device,
+                              heads=cfg.n_rwkv_heads // (tp.size if tp else 1))
+        h, st = rwkv6_time_mix(p["rwkv"], cfg, h_in, st, wkv_impl=_wkv_impl(cfg),
+                               tp=TPM.at(tp, "rwkv"))
         if want_cache:
             cache = {"rwkv": st}
     x = x + h
     if kind.cross:
-        x = x + cross_attn(p["cross"], cfg, rmsnorm(p["ln_c"], x, cfg.norm_eps), ex.enc_out)
+        x = x + cross_attn(p["cross"], cfg, rmsnorm(p["ln_c"], x, cfg.norm_eps), ex.enc_out,
+                           tp=TPM.at(tp, "cross"))
     if kind.ffn == "dense":
-        x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+        x = x + TPM.swiglu(TPM.at(tp, "ffn"), p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                           cfg.ffn_dense)
     elif kind.ffn == "moe":
         y, aux = moe_apply(p["moe"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps), ex.ctx)
         x = x + y
     else:
         cm_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        y, cm_prev = rwkv6_channel_mix(p["rwkv"], cfg, cm_in, torch.zeros_like(x[:, 0]))
+        y, cm_prev = rwkv6_channel_mix(p["rwkv"], cfg, cm_in, torch.zeros_like(x[:, 0]),
+                                       tp=TPM.at(tp, "rwkv"))
         x = x + y
         if want_cache:
             cache["cm_prev"] = cm_prev
@@ -439,10 +440,28 @@ def _sublayer_train(cfg, kind: LayerKind, p, x, ex: _Extras, where: tuple = ()):
     return _sublayer_full(cfg, kind, p, x, ex, False, where)[:2]
 
 
+def _lookup(cfg: ArchConfig, params, tokens, ex: _Extras):
+    """The embedding rows of `tokens`.  On a mesh whose rules shard the
+    embedding's vocab (`tp`), vocab-parallel: each rank looks up the
+    tokens in its block (zero rows elsewhere) and the rows are summed over
+    `model` (one rank holds each, so the sum is exact)."""
+    w = params["embed"]["w"]
+    tokens = tokens.long()
+    if ex.tp is None or w.shape[0] == cfg.vocab:
+        return w[tokens]
+    TPM.block(TPM.at(ex.tp, "embed"), w, 0, cfg.vocab, "w")
+    v_loc = w.shape[0]
+    local = tokens - ex.tp.rank * v_loc
+    mine = (local >= 0) & (local < v_loc)
+    rows = w[local.clamp(0, v_loc - 1)].masked_fill(~mine[..., None], 0)
+    return comm.reduce_from(rows, ex.tp.group)
+
+
 def _embed(cfg: ArchConfig, params, batch, ex: _Extras = _Extras()):
-    """Token embeddings; for the VLM family with batch["image_embeds"]
-    (B, n_patches, d), those over the first n_patches positions."""
-    h = _whole(ex, params["embed"], ("embed",))["w"][batch["tokens"].long()]
+    """Token embeddings (`_lookup`); for the VLM family with
+    batch["image_embeds"] (B, n_patches, d), those over the first
+    n_patches positions."""
+    h = _lookup(cfg, params, batch["tokens"], ex)
     if cfg.family == "vlm" and "image_embeds" in batch:
         if h.shape[1] < cfg.n_patches:
             raise ValueError(f"{cfg.name}: a sequence of {h.shape[1]} tokens is shorter than "
@@ -452,22 +471,26 @@ def _embed(cfg: ArchConfig, params, batch, ex: _Extras = _Extras()):
 
 
 def _encoder_layer(cfg: ArchConfig, p, x, ex: _Extras = _Extras(), where: tuple = ()):
-    """One pre-norm encoder layer: non-causal self-attention, then SwiGLU."""
-    p = _whole(ex, p, where)
-    x = x + gqa_forward(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps), causal=False)
-    return x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    """One pre-norm encoder layer: non-causal self-attention, then SwiGLU
+    (on a mesh partitioned over `model` as the decoder's)."""
+    tp = TPM.at(ex.tp, *where)
+    x = x + gqa_forward(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps), causal=False,
+                        tp=TPM.at(tp, "attn"))
+    return x + TPM.swiglu(TPM.at(tp, "ffn"), p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                          cfg.ffn_dense)
 
 
 def _encode_audio(cfg: ArchConfig, params, frames, *, remat: bool = False,
                   ex: _Extras = _Extras()):
     """Whisper-style encoder over the stubbed conv-frontend frames (B, Se,
-    d): its layers (RoPE at arange(Se), no mask), then enc_final_ln."""
-    x = frames.to(DTYPE)
+    d), cast to the weights' dtype: its layers (RoPE at arange(Se), no mask),
+    then enc_final_ln."""
+    x = frames.to(params["embed"]["w"].dtype)
     for i, p in enumerate(params["encoder"]):
         where = ("encoder", i)
         x = (checkpoint(_encoder_layer, cfg, p, x, ex, where, use_reentrant=False) if remat
              else _encoder_layer(cfg, p, x, ex, where))
-    return rmsnorm(_whole(ex, params["enc_final_ln"], ("enc_final_ln",)), x, cfg.norm_eps)
+    return rmsnorm(params["enc_final_ln"], x, cfg.norm_eps)
 
 
 def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headroom: int = 0,
@@ -488,15 +511,15 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
     ctx (`sharding.ctx.ShardCtx`): None or mesh=None is the single-device
     path.  On a mesh, `params` are this rank's blocks
     (`sharding.params.shard_tree`) and the batch is this rank's data
-    shard.  Each sublayer gathers its dense weights whole where it runs
-    (inside the remat boundary, so the backward pass gathers them again
-    and keeps none), the embedding at the embedding; the MoE is
-    expert-parallel and, with attn_shard="explicit", attention sharded
-    over `model`.  The residual stream is this rank's data shard, whole
-    over `model`.  The logits are this rank's vocab block, (B, S, V /
-    model), where the rules shard the vocab (the JAX package's logits
-    constraint P(dp, None, "model"); `vocab_parallel`, `whole_logits`),
-    else whole.  The prefill cache is this rank's block of every leaf
+    shard.  The layers compute with the blocks as held
+    (`models.tensor_parallel`): column- and row-parallel dense layers,
+    head-parallel attention (or its projections gathered where the kv
+    heads do not divide `model`) and RWKV, channel-parallel Mamba, the
+    vocab-parallel embedding, the expert-parallel MoE; no weight moves.
+    The residual stream is this rank's data shard, whole over `model`.
+    The logits are this rank's vocab block, (B, S, V / model), where the
+    rules shard the vocab (the JAX package's logits constraint P(dp, None,
+    "model"); `vocab_parallel`, `whole_logits`), else whole.  The prefill cache is this rank's block of every leaf
     `sharding.partition.cache_shardings` shards over `model` (the cache
     length of "k" / "v" / "c_kv" / "k_pe", the heads or channels of the
     recurrent states)."""
@@ -531,12 +554,12 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "train", cache_headro
                 if a is not None:
                     aux = aux + a
         all_caches.append(got)
-    h = rmsnorm(_whole(ex, params["final_ln"], ("final_ln",)), h, cfg.norm_eps)
+    h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
     logits = _head(params, "lm_head", h, ex)
     if mode == "train":
         if cfg.mtp:
-            mtp_ln = _whole(ex, params["mtp_ln"], ("mtp_ln",))
-            return logits, aux, _head(params, "mtp_head", rmsnorm(mtp_ln, h, cfg.norm_eps), ex)
+            return logits, aux, _head(params, "mtp_head",
+                                      rmsnorm(params["mtp_ln"], h, cfg.norm_eps), ex)
         return logits, aux
     return logits, aux, _assemble_prefill_cache(cfg, stages, all_caches, s, clen, ex.enc_out)
 
@@ -702,17 +725,16 @@ def _model_block(t: torch.Tensor, name: str, ctx) -> torch.Tensor:
 
 def _prefill_entry(kind: LayerKind, got: dict, s: int, clen: int, ctx) -> dict:
     """One layer's prefill cache contribution as its decode cache holds it:
-    K/V (or MLA's latents) placed in the clen-slot ring, the recurrent
-    states as computed; on a mesh this rank's block of each
-    (`_model_block`)."""
+    K/V (or MLA's latents) placed in the clen-slot ring, on a mesh this
+    rank's block of its length (`_model_block`); the recurrent states as
+    computed (on a mesh already this rank's heads or channels)."""
     if kind.mixer in ("attn", "mla"):
         names = ("k", "v") if kind.mixer == "attn" else ("c_kv", "k_pe")
         out: dict[str, Any] = {
             name: _model_block(_ring_from_prefill(got[name], s, clen, 1), name, ctx)
             for name in names}
     else:
-        key = kind.mixer
-        out = {key: {name: _model_block(t, name, ctx) for name, t in got[key].items()}}
+        out = {kind.mixer: dict(got[kind.mixer])}
     if "cm_prev" in got:
         out["cm_prev"] = got["cm_prev"]
     return out
@@ -750,75 +772,53 @@ def _stack_entries(entries: list):
 # Decode
 # ==========================================================================
 
-def _states_at_use(held: dict, whole: dict, ctx):
-    """A recurrent mixer's states as it reads them: each leaf of `held`
-    (views into the cache) that holds this rank's block over `model`
-    (`cache_shardings`: the RWKV heads of "wkv", the Mamba channels of
-    "ssm" and "conv") all-gathered whole; the others as held.  `whole` is
-    {name: whole shape}.  Returns (states, {name: the gathered dim or
-    None}) for `_write_back`."""
-    states, dims = {}, {}
+def _write_states(held: dict, new: dict) -> None:
+    """A recurrent mixer's new states written into the cache's views in
+    place (on a mesh this rank's heads or channels, as held)."""
     for name, t in held.items():
-        d = None
-        if meshed(ctx):
-            mp = ctx.size(MODEL_AXIS)
-            d = cache_model_dim(name, whole[name], mp)
-            if d is not None and t.shape[d] * mp != whole[name][d]:
-                d = None                      # the cache holds it whole
-        states[name] = t if d is None else comm.gather_(t, ctx.group(MODEL_AXIS), d)
-        dims[name] = d
-    return states, dims
-
-
-def _write_back(held: dict, new: dict, dims: dict, ctx) -> None:
-    """Write the mixer's new states into the cache in place: this rank's
-    block where `held` is a block (`_states_at_use`), else whole."""
-    for name, t in held.items():
-        d = dims[name]
-        t.copy_(new[name] if d is None
-                else new[name].chunk(ctx.size(MODEL_AXIS), d)[ctx.rank(MODEL_AXIS)])
+        t.copy_(new[name])
 
 
 def _sublayer_decode(cfg, kind: LayerKind, p, x, c, i: int, cur_pos, ex: _Extras,
                      where: tuple = ()):
     """Layer i of its group; reads and writes slice i of the group's cache
-    `c` in place.  On a mesh the sublayer's weights are gathered here, the
-    attention caches are read as this rank's block of the length
-    (`attention.gqa_decode` / `mla_decode`), and the recurrent states are
-    gathered at use, their new value's block written back (the RWKV and
-    Mamba mixers run whole on every model rank)."""
-    p = _whole(ex, p, where)
-    b = x.shape[0]
+    `c` in place.  On a mesh the sublayer computes with this rank's blocks
+    (`_sublayer_full`), the attention caches are read as this rank's block
+    of the length (`attention.gqa_decode` / `mla_decode`), and the
+    recurrent states are this rank's heads or channels, read and written
+    where the cache holds them."""
+    tp = TPM.at(ex.tp, *where)
     h_in = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind.mixer == "attn":
         view = {name: c[name][i] for name in ("k", "v", "pos", "idx")}
         h, _ = gqa_decode(p["attn"], cfg, h_in, view, cur_pos, mrope_pos=ex.mrope_pos,
-                          ctx=ex.ctx)
+                          ctx=ex.ctx, tp=TPM.at(tp, "attn"))
     elif kind.mixer == "mla":
         view = {name: c[name][i] for name in ("c_kv", "k_pe", "pos", "idx")}
-        h, _ = mla_decode(p["attn"], cfg, h_in, view, cur_pos, ctx=ex.ctx)
+        h, _ = mla_decode(p["attn"], cfg, h_in, view, cur_pos, ctx=ex.ctx,
+                          tp=TPM.at(tp, "attn"))
     elif kind.mixer == "mamba":
         held = {"ssm": c["mamba"]["ssm"][i], "conv": c["mamba"]["conv"][i]}
-        whole = {k: tuple(v.shape) for k, v in init_mamba_state(cfg, b, "meta").items()}
-        st, dims = _states_at_use(held, whole, ex.ctx)
-        h, new = mamba_forward(p["mamba"], cfg, h_in, st)
-        _write_back(held, new, dims, ex.ctx)
+        h, new = mamba_forward(p["mamba"], cfg, h_in, held, tp=TPM.at(tp, "mamba"))
+        _write_states(held, new)
     else:
         held = {"wkv": c["rwkv"]["wkv"][i], "prev_tok": c["rwkv"]["prev_tok"][i]}
-        whole = {k: tuple(v.shape) for k, v in init_rwkv6_state(cfg, b, "meta").items()}
-        st, dims = _states_at_use(held, whole, ex.ctx)
-        h, new = rwkv6_time_mix(p["rwkv"], cfg, h_in, st, wkv_impl=_wkv_impl(cfg))
-        _write_back(held, new, dims, ex.ctx)
+        h, new = rwkv6_time_mix(p["rwkv"], cfg, h_in, held, wkv_impl=_wkv_impl(cfg),
+                                tp=TPM.at(tp, "rwkv"))
+        _write_states(held, new)
     x = x + h
     if kind.cross:
-        x = x + cross_attn(p["cross"], cfg, rmsnorm(p["ln_c"], x, cfg.norm_eps), ex.enc_out)
+        x = x + cross_attn(p["cross"], cfg, rmsnorm(p["ln_c"], x, cfg.norm_eps), ex.enc_out,
+                           tp=TPM.at(tp, "cross"))
     if kind.ffn == "dense":
-        x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+        x = x + TPM.swiglu(TPM.at(tp, "ffn"), p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                           cfg.ffn_dense)
     elif kind.ffn == "moe":   # aux computed and dropped, as in the JAX package's decode
         x = x + moe_apply(p["moe"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps), ex.ctx)[0]
     else:
         cm_in = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        y, prev = rwkv6_channel_mix(p["rwkv"], cfg, cm_in, c["cm_prev"][i])
+        y, prev = rwkv6_channel_mix(p["rwkv"], cfg, cm_in, c["cm_prev"][i],
+                                    tp=TPM.at(tp, "rwkv"))
         x = x + y
         c["cm_prev"][i].copy_(prev)
     return x
@@ -832,19 +832,20 @@ def decode_step(cfg: ArchConfig, params, batch, cache, ctx: ShardCtx | None = No
     an encoder-decoder's cache["enc_out"] is read by every cross-attention
     and never written) and returns (logits (B, 1, V), cache); pass
     `clone_cache(cache)` to keep the old one.  A meshed `ctx` works as in
-    `forward`: this rank's parameter blocks and batch shard, each
-    sublayer's weights gathered where it runs, the MoE expert-parallel, the
-    cache in `forward`'s prefill layout (this rank's block of the length
+    `forward`: this rank's parameter blocks and batch shard, the layers
+    partitioned as there (the token's q, k and v heads gathered for
+    attention over this rank's block of the cache), the cache in
+    `forward`'s prefill layout (this rank's block of the length
     and of the recurrent states), and the logits this rank's vocab block
     (B, 1, V / model) where they are vocab-parallel."""
     cur_pos = batch["pos"]
     ex = _extras(cfg, ctx, mrope_pos=batch.get("mrope_pos"), enc_out=cache.get("enc_out"))
-    h = _whole(ex, params["embed"], ("embed",))["w"][batch["token"].long()]
+    h = _lookup(cfg, params, batch["token"], ex)
     for si, st in enumerate(_ported_plan(cfg)):
         for rep in range(st.repeats):
             for li, kind in enumerate(st.pattern):
                 name = f"s{si}_l{li}"
                 h = _sublayer_decode(cfg, kind, params[name][rep], h, cache[name], rep,
                                      cur_pos, ex, (name, rep))
-    h = rmsnorm(_whole(ex, params["final_ln"], ("final_ln",)), h, cfg.norm_eps)
+    h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
     return _head(params, "lm_head", h, ex), cache

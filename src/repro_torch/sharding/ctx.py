@@ -16,14 +16,19 @@ class ShardCtx:
     `ShardCtx`), for per-rank code on a `torch.distributed` DeviceMesh.
 
     mesh=None: single-device math, today's code bit for bit.  With a mesh,
-    every activation is this rank's data shard of the batch (or, with
+    the residual stream is this rank's data shard of the batch (or, with
     batch_sharded=False, the whole batch on every rank: a batch the data
-    axes do not divide), replicated over `model`; the MoE is expert-parallel
-    over `ep_axis`.  attn_shard: "auto" runs the plain attention on every
-    model rank (the JAX package leaves it to GSPMD); "explicit" routes
-    full-sequence causal attention through
-    `models.attention.sharded_causal_attention` (head-parallel when the kv
-    heads divide `model`, sequence-parallel when the sequence does)."""
+    axes do not divide), replicated over `model`, and the layers are
+    partitioned over `model` as the rules lay their weights out
+    (`models.tensor_parallel`: column- and row-parallel dense layers,
+    head-parallel attention and RWKV, channel-parallel Mamba); the MoE is
+    expert-parallel over `ep_axis`.  attn_shard, where the kv heads do not
+    divide `model` (the projections then gathered whole): "auto" runs the
+    plain attention on every model rank (the JAX package leaves it to
+    GSPMD); "explicit" routes full-sequence causal attention through
+    `models.attention.sharded_causal_attention` (sequence-parallel when the
+    sequence divides `model`).  Head-parallel attention is the same under
+    both."""
 
     mesh: Any = None
     dp_axes: tuple = ("data",)       # activation batch axes

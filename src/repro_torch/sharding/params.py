@@ -1,31 +1,36 @@
-"""The model's parameters on a mesh: this rank's blocks, and the whole
-tensors its per-rank code computes with.
+"""The model's parameters on a mesh: this rank's blocks.
 
 Storage follows the rules of `partition.py` ({path: spec}, which the model
 computes from its shapes: `models.transformer.param_specs`): `shard_tree`
 keeps, of each leaf, this rank's block along every dim its spec names a
 mesh axis for (no communication: every rank holds the whole tree when it
 starts), each block in a storage of its own, so the whole leaf can be
-freed.  The meshed model gathers a dense leaf sharded over `model` where it
-uses it, one sublayer at a time (`gather_params` on that sublayer's
-subtree, inside the remat boundary: the backward pass gathers again and
-saves no whole weight, ZeRO-3's order); `comm.gather_from`'s backward
-keeps this rank's block of the gradient.  The MoE's expert banks stay this
-rank's experts (expert parallelism, `models.moe`), and the vocab-sharded
-`lm_head` / `mtp_head` stay this rank's vocab block (vocab-parallel
-logits, `models.transformer`).  So the dense layers run replicated over
-`model` on weights stored sharded (ZeRO-3's layout along `model`); the
-experts, the logits and, with attn_shard="explicit", attention are
-partitioned.
+freed.  The model computes with the blocks as they are held
+(`models.tensor_parallel`): the fan-out projections' column blocks and the
+fan-in projections' row blocks are megatron's column- and row-parallel
+dense layers, so a layer moves activations over `model` and never a
+weight; the MoE's expert banks are this rank's experts (expert
+parallelism, `models.moe`), and the vocab-sharded `embed`, `lm_head` and
+`mtp_head` this rank's vocab block (`models.transformer`).
+
+One block is not the rule's contiguous one: a Mamba layer's `in_proj` (d,
+2 di) computes [xi | z], two halves that the layer splits, and its
+channel-parallel scan needs channel block r of both.  So rank r holds
+[xi_r | z_r], the r-th block of each half side by side (`PAIRED`,
+`model_block`): the bytes of the rule's block, in the order the layer
+reads them.  `join_blocks` is the inverse.
 """
 from __future__ import annotations
 
 import torch
 
-from . import comm
-from .partition import map_with_path
+from .partition import MODEL_AXIS, map_with_path
 
-__all__ = ["shard_tree", "gather_params", "is_expert_bank", "block_of"]
+__all__ = ["shard_tree", "is_expert_bank", "block_of", "paired", "model_block", "join_blocks"]
+
+# The leaves whose `model` block is paired ([first-half block | second-half
+# block]): (the layer's key, the leaf's name).
+PAIRED = (("in_proj", "w"),)
 
 
 def is_expert_bank(path: tuple) -> bool:
@@ -37,17 +42,42 @@ def _axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry or ())
 
 
-def block_of(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+def paired(path: tuple) -> bool:
+    """Whether the leaf at `path` (a parameter's path, or its JAX-layout
+    path: names without layer indices) holds a paired `model` block."""
+    names = tuple(str(k) for k in path if not isinstance(k, int))
+    return names[-2:] in PAIRED
+
+
+def model_block(t: torch.Tensor, dim: int, n: int, r: int, pair: bool = False) -> torch.Tensor:
+    """Block r of n of `t` along `dim` (a view); with `pair`, block r of
+    each half of the dim, side by side (a new tensor)."""
+    if not pair:
+        return t.chunk(n, dim=dim)[r]
+    return torch.cat([h.chunk(n, dim=dim)[r] for h in t.chunk(2, dim=dim)], dim=dim)
+
+
+def join_blocks(blocks: list, dim: int, pair: bool = False) -> torch.Tensor:
+    """The whole tensor from its n `model_block`s along `dim`, in rank
+    order: their concatenation, or with `pair` each half's."""
+    if not pair:
+        return torch.cat(blocks, dim=dim)
+    halves = [b.chunk(2, dim=dim) for b in blocks]
+    return torch.cat([h[0] for h in halves] + [h[1] for h in halves], dim=dim)
+
+
+def block_of(t: torch.Tensor, spec: tuple, mesh, path: tuple = ()) -> torch.Tensor:
     """This rank's block of `t` along every dim `spec` names mesh axes for
-    (a tuple of axes: the first one outermost), in a storage of its own
-    where it is a part of `t` (a dim-0 block of a contiguous tensor is a
-    view into the whole storage); `t` itself where the spec shards
-    nothing."""
+    (a tuple of axes: the first one outermost; on `model` the paired block
+    where `path` names a `PAIRED` leaf), in a storage of its own where it
+    is a part of `t` (a dim-0 block of a contiguous tensor is a view into
+    the whole storage); `t` itself where the spec shards nothing."""
     out = t
     for dim, entry in enumerate(spec):
         for axis in _axes(entry):
             n = mesh.size(mesh.mesh_dim_names.index(axis))
-            out = out.chunk(n, dim=dim)[mesh.get_local_rank(axis)]
+            out = model_block(out, dim, n, mesh.get_local_rank(axis),
+                              axis == MODEL_AXIS and paired(path))
     if out is t:
         return t
     out = out.contiguous()
@@ -59,21 +89,4 @@ def block_of(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 def shard_tree(tree, specs: dict, mesh):
     """This rank's block of every leaf of `tree` ({path: spec} `specs`),
     each block its own storage (`block_of`)."""
-    return map_with_path(lambda path, t: block_of(t, specs[path], mesh), tree)
-
-
-def gather_params(params, specs: dict, ctx, prefix: tuple = ()):
-    """The whole tensors of a (sub)tree of this rank's blocks: each dense
-    leaf all-gathered over every axis its spec names (the inverse of
-    `shard_tree`), expert banks as held.  `prefix` is the subtree's path in
-    the whole tree, which `specs` is keyed by (e.g. ("s0_l0", 3) for layer
-    3 of a group)."""
-    def whole(path, leaf):
-        if is_expert_bank(path):
-            return leaf
-        for dim in reversed(range(len(specs[path]))):
-            for axis in reversed(_axes(specs[path][dim])):
-                leaf = comm.gather_from(leaf, ctx.group(axis), dim)
-        return leaf
-
-    return map_with_path(whole, params, prefix)
+    return map_with_path(lambda path, t: block_of(t, specs[path], mesh, path), tree)

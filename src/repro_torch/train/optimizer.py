@@ -47,6 +47,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..sharding import comm
+from ..sharding.params import join_blocks, model_block, paired
 from .tree import jax_leaves, map_jax_leaves, stacked, tree_leaves, tree_map, tree_slots
 
 __all__ = [
@@ -351,12 +352,15 @@ def adafactor_sharded(specs: dict, ctx, *, lr: float = 1e-2, eps: float = 1e-30,
                              "rules shard parameters over 'model' only")
         return mp
 
-    def move(c: torch.Tensor, src, dst) -> torch.Tensor:
-        """c's last dim from a block on `src` to a block on `dst`."""
+    def move(c: torch.Tensor, src, dst, pair: bool) -> torch.Tensor:
+        """c's last dim from a block on `src` to a block on `dst` (paired
+        blocks where the parameter's are, `sharding.params.paired`)."""
         if src is not None:
             c = comm.gather_(c, group, c.ndim - 1)
+            if pair:
+                c = join_blocks(list(c.chunk(mp, dim=-1)), c.ndim - 1, pair)
         if dst is not None:
-            c = c.chunk(mp, dim=-1)[rank].contiguous()
+            c = model_block(c, c.ndim - 1, mp, rank, pair).contiguous()
         return c
 
     def reduce(x: torch.Tensor, sharded: bool) -> torch.Tensor:
@@ -399,14 +403,14 @@ def adafactor_sharded(specs: dict, ctx, *, lr: float = 1e-2, eps: float = 1e-30,
             g2 = torch.square(g) + eps
             if len(w) >= 2:
                 new_r = beta * r + (1 - beta) * reduce(g2.sum(dim=-1), spec[-1] is not None) / w[-1]
-                c_use = move(c, spec[-2], spec[-1])
+                c_use = move(c, spec[-2], spec[-1], paired(path))
                 new_c = (beta * c_use
                          + (1 - beta) * reduce(g2.sum(dim=-2), spec[-2] is not None) / w[-2])
                 denom = reduce(new_r.sum(dim=-1, keepdim=True), spec[-2] is not None) / w[-2]
                 vr = new_r / torch.clamp(denom, min=eps)
                 u = (g / torch.sqrt(vr)[..., None]
                      / torch.sqrt(torch.clamp(new_c, min=eps))[..., None, :])
-                new_c = move(new_c, spec[-1], spec[-2])
+                new_c = move(new_c, spec[-1], spec[-2], paired(path))
             else:
                 new_r = beta * r + (1 - beta) * g2
                 new_c = c

@@ -81,12 +81,14 @@ def train_rank(rank, arch: str, params: dict, batch: dict, attn_shard: str,
                lr: float, multi_pod: bool = False) -> dict:
     """One meshed AdamW step on this rank's blocks, functional and donated
     (from one copy each): the metrics, this rank's blocks after the step
-    (paths as `leaves_with_path` gives them), and whether the donated step
+    and of the step's gradient (`make_grad_fn`, the step's first half;
+    paths as `leaves_with_path` gives them), and whether the donated step
     gave the functional one's bits."""
     ctx = _ctx(attn_shard, multi_pod)
     cfg = get_config(arch)
     local = shard_tree(params, param_specs(cfg, ctx.mesh, MODEL), ctx.mesh)
     ex = {name: shard_rows(t, ctx) for name, t in batch.items()}
+    grads = make_grad_fn(cfg, remat=False, ctx=ctx)(local, ex)[0]
     opt = make_optimizer("adamw", lr)
     outs = {}
     for donate in (False, True):
@@ -99,7 +101,8 @@ def train_rank(rank, arch: str, params: dict, batch: dict, attn_shard: str,
     new, _, m = outs[True]
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "aux": float(m["aux"]), "donated_bitwise": bool(bitwise),
-            "params": {path: _np(t) for path, t in leaves_with_path(new)}}
+            "params": {path: _np(t) for path, t in leaves_with_path(new)},
+            "grads": {path: _np(g) for (path, _), g in zip(leaves_with_path(local), grads)}}
 
 
 def grad_rank(rank, cfg, params: dict, batch: dict, want: list, data: int,
@@ -118,6 +121,52 @@ def grad_rank(rank, cfg, params: dict, batch: dict, want: list, data: int,
     want = tree_leaves(shard_tree(tree_unflatten(params, want), specs, ctx.mesh))
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "gaps": leaf_gaps(got, want)}
+
+
+def tp_rank(rank, meshes: list, cases: list) -> list:
+    """For each (data, model) of `meshes`, each case {"cfg", "params"
+    (whole), "batch", "tokens", "prompt", "n_new", "attn_shard",
+    "frontend" (the prefill's extra batch entries)} on this rank of the
+    gloo world as that mesh, the layers partitioned over `model`: the
+    meshed gradient under remat (the whole batch's loss, the norm, this
+    rank's gradient blocks by path), then a meshed prefill of this rank's
+    rows of tokens[:, :prompt] and `n_new` greedy serve steps from its
+    last token (the prefill's logits gathered over the vocab, each step's
+    logits and token).  Returns [[case result, ...] per mesh]."""
+    return [_tp_cases(data, model, cases) for data, model in meshes]
+
+
+def _tp_cases(data: int, model: int, cases: list) -> list:
+    torch.set_num_threads(1)
+    out = []
+    for c in cases:
+        cfg, params, batch = c["cfg"], c["params"], c["batch"]
+        b, s = batch["tokens"].shape
+        ctx = demo_ctx(data, model, b, s, c["attn_shard"], "cpu")
+        local = shard_tree(params, param_specs(cfg, ctx.mesh, model), ctx.mesh)
+        grads, m = make_grad_fn(cfg, remat=True, ctx=ctx)(
+            local, {k: shard_rows(v, ctx) for k, v in batch.items()})
+        res = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "grads": {path: _np(g) for (path, _), g in zip(leaves_with_path(local), grads)},
+               "data": ctx.dp_rank, "model": ctx.rank("model")}
+        toks = shard_rows(c["tokens"], ctx)
+        extra = {k: shard_rows(v, ctx) for k, v in c["frontend"].items()}
+        with torch.no_grad():
+            logits, _, cache = forward(cfg, local, {"tokens": toks[:, :c["prompt"]], **extra},
+                                       mode="prefill", cache_headroom=c["n_new"], ctx=ctx)
+            whole = whole_logits(cfg, logits, ctx)
+        serve = make_serve_step(cfg, ctx)
+        tok = whole[:, -1:].argmax(-1)
+        steps, toks_out = [], []
+        for d in range(c["n_new"]):
+            tok, step_logits, cache = serve(local, {"token": tok,
+                                                    "pos": torch.tensor(c["prompt"] + d)}, cache)
+            steps.append(_np(step_logits[:, 0]))
+            toks_out.append(tok[:, 0].numpy())
+        res.update(prefill=_np(whole), decode=np.stack(steps, 1),
+                   tokens=np.stack(toks_out, 1))
+        out.append(res)
+    return out
 
 
 def serve_rank(rank, arch: str, params: dict, tokens: torch.Tensor, prompt: int) -> dict:

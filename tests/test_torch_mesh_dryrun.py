@@ -15,6 +15,12 @@ the fake process group of `launch.mesh.fake_mesh`), on the CPU:
   * the fake group is scoped: `dryrun_one` leaves no process group behind,
     and the fake group refuses to start beside one;
   * `shard_tree`'s blocks own their storage;
+  * no step gathers a parameter: on the fake 16x16 group every all-gather
+    of the ten archs' train_4k (depth and sequence cut) and decode_32k
+    (depth cut) steps is an activation, a gradient, the logits or
+    Adafactor's state (its call site), and qwen2-7b's whole decode_32k
+    step all-gathers activations only, under 0.1 GiB a device (13.17 GiB
+    when every dense weight was gathered at use);
   * qwen2-7b at 2 layers, train_4k, on the fake 16x16 group keeps its peak
     of live intermediates under a bound derived from shapes (the case the
     layout of before failed by a wide margin: every weight gathered at the
@@ -154,6 +160,52 @@ def test_fake_group_collectives_equal_a_gloo_world(arch):
         assert stats["total"] > 0 and stats["total"] == stats["raw_total"]
     ops = {op for step in fake.values() for op, _, _ in step}
     assert {"all-gather", "all-reduce"} <= ops
+
+
+# ---------------------------------------------------------------------------
+# no parameter moves
+# ---------------------------------------------------------------------------
+
+# The call sites an all-gather may come from on a partitioned mesh: the
+# layers' activations, a `sharding.comm` operator's backward (gradients),
+# the vocab-parallel logits gathered for the caller, Adafactor's column
+# moment.  A weight gathered at use would come from elsewhere.
+ALL_GATHER_SITES = ("models.tensor_parallel.gather_cols < models.", "sharding.comm._",
+                    "models.transformer.whole_logits", "train.optimizer.adafactor_sharded")
+CUT_LAYERS = {"deepseek-v3-671b": 4, "jamba-v0.1-52b": 8}      # a dense prefix + MoE; a period
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_no_step_gathers_a_parameter(arch, shape_name):
+    """Rank 0 of the fake 16x16 group at full width, cut to 2 layers (a
+    period or a dense prefix where the arch has one; train at 64 tokens,
+    the VLM at its 256 patches):
+    every all-gather's call site is one of `ALL_GATHER_SITES`, and the
+    step's layers are partitioned (some column- or row-parallel product
+    ran)."""
+    ishape, cfg = INPUT_SHAPES[shape_name], get_config(arch)
+    if ishape.kind == "train":       # the VLM's prompt opens with its patches
+        ishape = dataclasses.replace(ishape, seq_len=cfg.n_patches if cfg.use_mrope else 64)
+    cfg = dataclasses.replace(cfg.for_shape(ishape), n_layers=CUT_LAYERS.get(arch, 2))
+    with fake_mesh() as mesh:
+        res = dryrun.analyze(cfg, ishape, ctx=dryrun.mesh_ctx(mesh, ishape))
+    sites = {site for op, site, _ in res["collective_calls"] if op == "all-gather"}
+    assert all(site.startswith(ALL_GATHER_SITES) for site in sites), sites
+    assert not any("params" in site for _, site, _ in res["collective_calls"])
+    assert any("row" in site or "_ColParallel" in site or "_RowScatter" in site
+               for _, site, _ in res["collective_calls"])
+
+
+def test_qwen2_7b_decode_all_gathers_activations_only():
+    """qwen2-7b's whole decode_32k step on the fake 16x16 group: its 28 / 4
+    heads split at 16 ranks, so each layer gathers its token's q, k, v
+    (a few KiB); under 0.1 GiB of all-gather a device in all."""
+    ishape = INPUT_SHAPES["decode_32k"]
+    cfg = get_config("qwen2-7b").for_shape(ishape)
+    with fake_mesh() as mesh:
+        res = dryrun.analyze(cfg, ishape, ctx=dryrun.mesh_ctx(mesh, ishape))
+    assert 0 < collective_stats(res["collective_calls"])["all-gather"] < 0.1 * GIB
 
 
 # ---------------------------------------------------------------------------

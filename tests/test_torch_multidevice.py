@@ -27,7 +27,12 @@ rank function of tests/_torch_ranks.py.  The oracles:
     parameters within 2.5 lr absolute (AdamW's first step moves a
     parameter by +-lr, so a gradient that changes sign between the two
     summation orders moves it 2 lr) and at least 99% of each leaf within
-    one bf16 ulp, the blocks of the two data replicas bitwise equal, and
+    one bf16 ulp, except a leaf whose unsharded bf16 gradient's signs are
+    rounding noise (more than 1% of them not the float64 step's: the k
+    biases, `_signs_are_rounding_noise`), whose AdamW step is then a sign
+    of noise: its meshed bf16 gradient is held instead within
+    BF16_GRAD_RTOL of the float64 step's gradient's norm; the blocks of
+    the two data replicas bitwise equal, and
     the donated step bitwise the functional one on the mesh; one case on
     (pod=2, data=1, model=2), the batch on ("pod", "data");
   * the meshed gradient (`make_grad_fn(ctx=)`) leaf by leaf against the
@@ -63,6 +68,7 @@ from repro_torch.models import attention as TA
 from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
 from repro_torch.sharding import partition as TP
+from repro_torch.sharding.params import join_blocks, paired
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.train_step import make_grad_fn, make_train_step
 
@@ -73,6 +79,7 @@ Y_FSILU_ULPS, Y_BF16_ATOL, Y_F32_ATOL, AUX_RTOL, GRAD_RTOL = 3, 1e-3, 1e-5, 1e-5
 ATTN_RTOL = 1e-5
 LR = 1e-3
 LOSS_RTOL, GNORM_RTOL, PARAM_ATOL = 1e-5, 1e-3, 2.5 * LR
+BF16_GRAD_RTOL = 3e-2           # a bf16 gradient leaf, as GRAD_CASES' bf16 case
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -265,16 +272,17 @@ TRAIN_CASES = [("granite-moe-3b-a800m-smoke", "explicit", False),
                ("qwen2-7b-smoke", "explicit", False), ("deepseek-v3-671b-smoke", "explicit", False)]
 
 
-def _assemble(outs, path, spec):
-    """A leaf whole from the data-0 ranks' blocks (rank = d * MODEL + r),
-    after checking the data-1 replicas hold the same bits."""
+def _assemble(outs, path, spec, key: str = "params"):
+    """A leaf of `key` whole from the data-0 ranks' blocks (rank = d *
+    MODEL + r), after checking the data-1 replicas hold the same bits."""
     for r in range(R.MODEL):
-        np.testing.assert_array_equal(outs[r]["params"][path],
-                                      outs[R.MODEL + r]["params"][path], err_msg=str(path))
+        np.testing.assert_array_equal(outs[r][key][path],
+                                      outs[R.MODEL + r][key][path], err_msg=str(path))
     dims = [d for d, e in enumerate(spec) if e == "model"]
     if not dims:
-        return outs[0]["params"][path]
-    return np.concatenate([outs[r]["params"][path] for r in range(R.MODEL)], axis=dims[0])
+        return outs[0][key][path]
+    return join_blocks([torch.from_numpy(outs[r][key][path]) for r in range(R.MODEL)],
+                       dims[0], paired(path)).numpy()
 
 
 @pytest.mark.parametrize("arch,attn_shard,multi_pod", TRAIN_CASES,
@@ -313,8 +321,35 @@ def test_meshed_train_step_matches_the_unsharded_step(arch, attn_shard, multi_po
         diff = np.abs(got - want)
         assert diff.max() <= PARAM_ATOL, (path, diff.max())
         near = diff <= bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
-        assert near.mean() >= 0.99, (path, near.mean())
+        if near.mean() < 0.99:
+            noise, g64 = _signs_are_rounding_noise(cfg, params, batch, path)
+            assert noise, (path, near.mean())
+            g = _assemble(outs, path, specs[path], "grads")
+            gap = np.linalg.norm(g - g64) / np.linalg.norm(g64)
+            assert gap <= BF16_GRAD_RTOL, (path, gap)
     assert n_sharded > 0
+
+
+def _signs_are_rounding_noise(cfg, params, batch, path) -> tuple[bool, np.ndarray]:
+    """Whether the unsharded bf16 gradient of the leaf at `path` gets the
+    sign of more than 1% of its elements wrong, against the same step on
+    float64 copies of the weights, and that float64 gradient.  AdamW's first step moves each element
+    by about -lr * sign(g), so at such a leaf any other summation order
+    (the partitioned layers round float32 partial sums where the
+    unsharded bf16 GEMM rounds its own; one element in ~16 000 differs)
+    moves more than 1% of it by 2 lr.  qwen2-7b-smoke's k biases: 76-80%
+    of their bf16 signs are float64's, and 47-51% of their elements are
+    off by more than half their value (the RoPE-rotated bias's gradient
+    is a small sum of large terms), while their bf16 gradients stay within
+    1.2e-2 / 1.8e-2 of the float64 one's norm (the meshed 1.2e-2 /
+    2.4e-2; x86-64 CPU)."""
+    from repro_torch.sharding.partition import leaves_with_path
+    paths = [q for q, _ in leaves_with_path(params)]
+    g16 = dict(zip(paths, make_grad_fn(cfg, remat=False)(params, batch)[0]))[path]
+    p64 = TT._tree_map(lambda t: t.double(), params)
+    g64 = dict(zip(paths, make_grad_fn(cfg, remat=False)(p64, batch)[0]))[path]
+    noise = float((torch.sign(g16.double()) == torch.sign(g64)).double().mean()) < 0.99
+    return noise, g64.numpy()
 
 
 # ((data, model), seq, weights, reference, (loss, grad norm, gradient
