@@ -4,6 +4,7 @@ measure them.
   python3 examples/torch_smoke_parts.py --service-profile-events 100 --jamba-scan
   python3 examples/torch_smoke_parts.py --profile-readback
   python3 examples/torch_smoke_parts.py --mesh-serve
+  python3 examples/torch_smoke_parts.py --adafactor --zoo-train
 
 `--service-profile-events N` runs the smoke run's sweep-and-service phase's
 service (`chip_smoke.service_phase`) with a profiled window of N events
@@ -27,8 +28,17 @@ how the window before it was read.  `--mesh-serve` runs phase 19 (a)
 alone (`chip_smoke.meshed_serve_phase` in a world of one under NCCL:
 granite-moe-3b-a800m at 16 layers, then rwkv6-7b at 4 layers through K5,
 each meshed on (1, 1) against unmeshed) and K5 at the meshed path's head
-block (`chip_smoke.check_k5`, 4 x 512 x 4 x 64).  Every line names the
-card and its power limit.  Needs a CUDA device.
+block (`chip_smoke.check_k5`, 4 x 512 x 4 x 64).  `--adafactor` runs
+phase 15's donated-Adafactor parts alone: (a) the dry run's train step on
+the card (`chip_smoke.ADAFACTOR_RUNS`: deepseek-v3-671b at 4 layers,
+jamba-v0.1-52b at 5, qwen1.5-110b at 10), (c) donated against functional
+Adafactor, bitwise (`chip_smoke.ADAFACTOR_DONATE_CASES`), and (d) the
+meshed donated Adafactor on a (1, 1) mesh under NCCL
+(`chip_smoke.meshed_adafactor`); `--zoo-train` runs (b), `train_loop` on
+granite-moe-3b-a800m, stablelm-3b and yi-6b at the depths phase 15 uses;
+either then holds its runs to phase 16's prediction
+(`chip_smoke.dryrun_phase`).  Every line names the card and its power
+limit.  Needs a CUDA device.
 """
 import argparse
 import contextlib
@@ -243,6 +253,38 @@ def mesh_serve() -> None:
         torch.distributed.destroy_process_group()
 
 
+def train_parts(adafactor: bool, zoo: bool) -> None:
+    """Phase 15's new runs alone (module docstring), then phase 16's
+    prediction of each."""
+    from repro_torch.launch.multidevice_demo import demo_ctx, fl_batches, init_world
+
+    t0 = time.perf_counter()
+    runs = {}
+    if adafactor:
+        for arch, layers, steps, seq, lr in cs.ADAFACTOR_RUNS:
+            runs[f"{arch}/adafactor"] = cs.train_run(arch, layers, steps, seq, adafactor=True,
+                                                     lr=lr)
+    if zoo:
+        for arch, layers, steps, seq in cs.TRAIN_RUNS:
+            if arch in cs.PEAK_GATED:
+                runs[arch] = cs.train_run(arch, layers, steps, seq)
+    if adafactor:
+        for case in cs.ADAFACTOR_DONATE_CASES:
+            cs.donate_vs_functional(*case, opt_name="adafactor")
+        cfg = dataclasses.replace(get_config(cs.MESH["arch"]), n_layers=cs.MESH["layers"])
+        b, s = cs.MESH["batch"], cs.MESH["seq"]
+        init_world(0, 1, "nccl")
+        try:
+            ex = {k: torch.as_tensor(v, device=cs.DEV)
+                  for k, v in next(fl_batches(cfg, b, s, 0))[0].items()}
+            cs.meshed_adafactor(cfg, demo_ctx(1, 1, b, s, "explicit", "cuda"),
+                                init_params(cfg, torch.Generator(cs.DEV).manual_seed(0)), ex)
+        finally:
+            torch.distributed.destroy_process_group()
+    cs.dryrun_phase({}, runs)
+    cs.line(f"training parts wall_s={time.perf_counter() - t0:.1f} [{cs.CARD}]")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -250,6 +292,8 @@ def main(argv=None) -> None:
     ap.add_argument("--jamba-scan", action="store_true")
     ap.add_argument("--profile-readback", action="store_true")
     ap.add_argument("--mesh-serve", action="store_true")
+    ap.add_argument("--adafactor", action="store_true")
+    ap.add_argument("--zoo-train", action="store_true")
     args = ap.parse_args(argv)
     cs.CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -269,6 +313,8 @@ def main(argv=None) -> None:
         profile_readback()
     if args.mesh_serve:
         mesh_serve()
+    if args.adafactor or args.zoo_train:
+        train_parts(args.adafactor, args.zoo_train)
 
 
 if __name__ == "__main__":

@@ -16,9 +16,10 @@ dispatched and returns at once).  For each combination the dry run:
      `opt_state_shardings`' layout (`train_step.mesh_optimizer`), the batch
      as this rank's shard by `batch_shardings` and the decode cache as its
      block by `cache_shardings`; `make_train_step(ctx=)` with
-     `make_optimizer(cfg.optimizer)` (Adafactor for deepseek-v3 and jamba,
-     as in the JAX dry run) for train shapes, donated where the optimizer
-     updates in place (the JAX dry run's `donate_argnums=(0, 1)`),
+     `make_optimizer(cfg.optimizer)` (Adafactor for deepseek-v3, jamba and
+     qwen1.5-110b, as in the JAX dry run) for train shapes, donated (the
+     JAX dry run's `donate_argnums=(0, 1)`; Adafactor's moments written in
+     place, so left out of temp as donated buffers are),
      `make_prefill_step(ctx=)` for prefill, `make_serve_step(ctx=)` for
      decode;
   2. sums the arguments' bytes on this device (`argument_size_in_bytes`;
@@ -109,7 +110,8 @@ def build_step(cfg, shape, *, ctx: ShardCtx | None = None, opt=None, remat: bool
     """Returns (step fn, its arguments as meta tensors).  A train step takes
     `opt` (default make_optimizer(cfg.optimizer, 1e-4)) with its state as
     in the steady state (`steady_opt_state`), `remat` and `donate` (default:
-    donated where `opt` updates in place, as `train_loop` runs it); a
+    donated wherever `opt` has an in-place update, every optimizer but a
+    chain, as the JAX dry run donates); a
     prefill step keeps `cache_headroom` free decode slots, as
     `serve_loop`'s does.  With a meshed `ctx` (the mirror of the JAX dry
     run's `build_step`, ep_size = the `model` axis) the arguments are this

@@ -28,7 +28,7 @@ from ..models.transformer import lm_loss, param_specs
 from ..sharding import comm
 from ..sharding.ctx import ShardCtx, meshed
 from ..sharding.partition import leaves_with_path
-from .optimizer import Optimizer, _clip_scale, apply_updates, global_norm
+from .optimizer import Optimizer, _clip_scale, apply_updates, global_norm, sum_squares
 from .serve_step import make_prefill_step, make_serve_step
 from .tree import tree_leaves, tree_map, tree_unflatten
 
@@ -59,7 +59,7 @@ def _meshed_reduce(grads: list, loss: torch.Tensor, sharded: list[bool], ctx: Sh
         comm.all_reduce_(loss, group)
     sq = [torch.zeros((), dtype=torch.float32, device=loss.device) for _ in range(2)]
     for g, is_sharded in zip(grads, sharded):
-        sq[is_sharded] = sq[is_sharded] + torch.sum(torch.square(g.to(torch.float32)))
+        sq[is_sharded] = sq[is_sharded] + sum_squares(g)
     comm.all_reduce_(sq[1], ctx.group("model"))
     return loss, torch.sqrt(sq[0] + sq[1])
 
@@ -107,10 +107,14 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
     donate=True is the JAX package's donated step (`donate_argnums=(0, 1)`
     of its dry run): the caller hands over `params` and `opt_state`, and
     the step clips and updates one leaf at a time in their storage
-    (`Optimizer.donate`), dropping each gradient leaf once it is used.  It
-    returns the `params` tree it was given, and computes the bits of
-    donate=False, which holds the old and the new trees at once.  The
-    optimizer must update elementwise: Adafactor cannot be donated.
+    (`Optimizer.donate`), dropping each gradient leaf once it is used.
+    Adafactor first runs its pass 1 over all the gradient leaves (its
+    moments, in place, and each leaf's clip), then the per-leaf writes,
+    both reading the gradients chunk by chunk with the clip scale applied
+    per chunk; the elementwise four take each leaf's clipped float32
+    gradient.  It returns the `params` tree it was given, and
+    computes the bits of donate=False, which holds the old and the new
+    trees at once.  A chain cannot be donated.
 
     The port's K4 and K5 kernels have no backward, nor do the JAX
     package's Pallas kernels, so a config with attn_impl or rwkv_wkv_impl
@@ -122,7 +126,8 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
     batch's loss, the global gradient norm, the whole batch's aux).  Its
     donated form is bitwise its functional form on the same mesh.  An
     optimizer whose statistics span a leaf (Adafactor) runs in its sharded
-    form (`mesh_optimizer`), whose `init` gives the state it takes."""
+    form (`mesh_optimizer`), functional or donated, whose `init` gives the
+    state it takes."""
     for field, kernel in (("attn_impl", "flash_attention (K4)"),
                           ("rwkv_wkv_impl", "rwkv6_wkv (K5)")):
         if getattr(cfg, field) == "pallas":
@@ -130,23 +135,25 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *, remat: bool = True,
                 f"make_train_step: {cfg.name} has {field}='pallas', but the {kernel} kernel "
                 "has no backward kernel, and the JAX package cannot differentiate its "
                 f"Pallas kernels either; train with {field}='ref'")
+    opt = mesh_optimizer(cfg, opt, ctx)
     if donate and opt.donate is None:
-        raise ValueError("make_train_step(donate=True) updates each leaf in place, which "
-                         "needs an elementwise optimizer (sgd, momentum, adam, adamw); this "
-                         "one (Adafactor, or a chain) has no in-place update: pass donate=False")
+        raise ValueError("make_train_step(donate=True) updates each leaf in place; a chain "
+                         "has no in-place update (sgd, momentum, adam, adamw and adafactor "
+                         "have one): pass donate=False")
 
     grad_fn = make_grad_fn(cfg, remat=remat, ctx=ctx)
-    opt = mesh_optimizer(cfg, opt, ctx)
 
     def train_step(params, opt_state, batch):
         grads, metrics = grad_fn(params, batch)
         gnorm = metrics["grad_norm"]
         if donate:
             scale = _clip_scale(gnorm, clip_norm, 1e-9) if clip_norm > 0 else None
-            opt_state, updates = opt.donate(opt_state, params)
+            opt_state, updates, first = opt.donate(opt_state, params)
+            if first is not None:
+                first(grads, scale)                 # the updates clip as they read
             for i, update in enumerate(updates):
                 g, grads[i] = grads[i], None
-                if scale is not None:
+                if first is None and scale is not None:
                     g = g.to(torch.float32) * scale
                 update(g)
             return params, opt_state, metrics

@@ -275,6 +275,54 @@ def adafactor_rank(rank, arch: str, params: dict, batch: dict, lr: float,
             "losses": losses, "data": ctx.dp_rank, "model": ctx.rank("model")}
 
 
+def adafactor_donate_rank(rank, cases: list, data: int, model: int, lr: float, steps: int,
+                          chunk: int | None = None) -> list:
+    """For each case (arch, whole params, whole batch), `steps` meshed
+    Adafactor steps (`make_train_step(ctx=)`, its state from
+    `mesh_optimizer`) on this rank's blocks and data shard of a (data,
+    model) mesh, functional and donated from one copy each, each under
+    `CollectiveBytes`; `chunk` (if given) the chunk bound
+    (`optimizer.CHUNK_ELEMENTS`).  Per case: whether the donated steps gave
+    the functional steps' bits (every block, both moments, the count, the
+    metrics), the number of blocks the steps moved, and each form's
+    collectives ({(op, site, bytes): calls})."""
+    from repro_torch.launch.step_analysis import CollectiveBytes
+    from repro_torch.train import optimizer as TO
+    from repro_torch.train.train_step import mesh_optimizer
+
+    torch.set_num_threads(1)
+    if chunk is not None:
+        TO.CHUNK_ELEMENTS = chunk
+    out = []
+    for arch, params, batch in cases:
+        cfg = get_config(arch)
+        b, s = batch["tokens"].shape
+        ctx = demo_ctx(data, model, b, s, "explicit", "cpu")
+        local = shard_tree(params, param_specs(cfg, ctx.mesh, model), ctx.mesh)
+        ex = {name: shard_rows(t, ctx) for name, t in batch.items()}
+        opt = make_optimizer("adafactor", lr)
+        runs, calls = {}, {}
+        for donate in (False, True):
+            p = copy.deepcopy(local)
+            state = mesh_optimizer(cfg, opt, ctx).init(p)
+            step = make_train_step(cfg, opt, remat=False, donate=donate, ctx=ctx)
+            metrics = []
+            with CollectiveBytes() as counted:
+                for _ in range(steps):
+                    p, state, m = step(p, state, ex)
+                    metrics.append(m)
+            runs[donate], calls[donate] = (p, state, metrics), dict(counted.calls)
+        (p0, s0, m0), (p1, s1, m1) = runs[False], runs[True]
+        pairs = list(zip(leaves_with_path((p0, s0)), leaves_with_path((p1, s1)), strict=True))
+        bitwise = all(a.dtype == b.dtype and torch.equal(a, b) for (_, a), (_, b) in pairs)
+        bitwise &= all(torch.equal(x[k], y[k]) for x, y in zip(m0, m1) for k in x)
+        moved = sum(not torch.equal(a, b) for (_, a), (_, b) in
+                    zip(leaves_with_path(local), leaves_with_path(p1)))
+        out.append({"bitwise": bool(bitwise), "moved": int(moved), "count": int(s1.count),
+                    "calls": calls})
+    return out
+
+
 def hang_rank(rank, seconds: float):
     """Rank 1 sleeps past any sensible timeout; the others return."""
     if rank == 1:

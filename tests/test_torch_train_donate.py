@@ -10,8 +10,8 @@ the counterpart of the JAX package's `donate_argnums=(0, 1)`), on the CPU.
     cross-attention) and qwen2-vl-2b (M-RoPE, the patch splice).  The
     parameters are updated in their own storage; the moments end in
     storage of their own.
-  * Adafactor and a chain have no in-place update: a donated step with
-    them raises.
+  * A chain has no in-place update: a donated step with one raises.
+    (Adafactor's donated update: `tests/test_torch_adafactor_donate.py`.)
   * `train_loop`, which donates, gives the functional step's traces to
     the bit.
   * On the meta device (`launch.dryrun`), the donated step's predicted peak
@@ -98,9 +98,8 @@ def test_donated_step_is_bitwise_the_functional_step(arch, opt_name):
         assert not mu & {t.untyped_storage().data_ptr() for t in tree_leaves(s1.nu)}
 
 
-@pytest.mark.parametrize("opt", [TO.adafactor(1e-2), TO.chain(TO.clip_by_global_norm(1.0),
-                                                              TO.sgd(0.1))],
-                         ids=["adafactor", "chain"])
+@pytest.mark.parametrize("opt", [TO.chain(TO.clip_by_global_norm(1.0), TO.sgd(0.1))],
+                         ids=["chain"])
 def test_donated_step_refuses_an_optimizer_that_is_not_elementwise(opt):
     cfg = get_config("qwen2-7b-smoke")
     with pytest.raises(ValueError, match="donate=True"):
@@ -148,8 +147,8 @@ def test_donated_peak_fits_the_card_and_is_at_most_the_functional_one(arch, laye
 
 def test_dry_run_donates_where_the_optimizer_updates_in_place():
     """build_step's default: donated with AdamW (functional peak above the
-    donated one), functional with Adafactor (deepseek-v3-671b's optimizer),
-    which has no in-place update."""
+    donated one) and with Adafactor (deepseek-v3-671b's optimizer), as the
+    JAX dry run donates for every optimizer."""
     cfg = get_config("qwen2-7b-smoke")
     shape = InputShape("train", 32, 2, "train")
     adam = {d: dryrun.analyze(cfg, shape, opt=TO.adamw(1e-3), donate=d)["temp_size_in_bytes"]
@@ -157,5 +156,6 @@ def test_dry_run_donates_where_the_optimizer_updates_in_place():
     assert adam[None] == adam[True] < adam[False]
     ds = get_config("deepseek-v3-671b-smoke")
     assert ds.optimizer == "adafactor"
-    default = dryrun.analyze(ds, shape)["temp_size_in_bytes"]
-    assert default == dryrun.analyze(ds, shape, donate=False)["temp_size_in_bytes"]
+    factor = {d: dryrun.analyze(ds, shape, donate=d)["temp_size_in_bytes"]
+              for d in (None, True, False)}
+    assert factor[None] == factor[True] < factor[False]
